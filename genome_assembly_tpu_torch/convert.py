@@ -1,0 +1,138 @@
+"""Carry data between the JAX package's conventions and this package's.
+
+There are no weights in this system; what crosses between the two
+packages is read batches, window records, key tables and graphs.  The JAX
+package holds a k-mer as two uint32 lanes ``(hi, lo)`` with the all-ones
+pair as padding sentinel, m-mers as uint32, counts and state ids as
+32-bit; this package holds one int64 key ``(hi << 32) | lo`` with int64
+max as sentinel, int32 m-mers (sentinel int32 max), int64 counts and
+state ids.
+
+Everything here takes and returns numpy arrays (``*_to_torch`` return
+CPU tensors built from them), so a caller hands in ``np.asarray`` of a
+JAX result; this module imports neither package's framework but torch.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from genome_assembly_tpu_torch.common import MMER_SENTINEL, SENTINEL
+from genome_assembly_tpu_torch.io.reads import ReadBatch
+from genome_assembly_tpu_torch.ops.count import KeyCounts
+from genome_assembly_tpu_torch.ops.dbg import CompactedGraph
+from genome_assembly_tpu_torch.ops.minimizer import WindowRecords
+
+LANE_SENTINEL = np.uint32(0xFFFFFFFF)
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def lanes_to_key(hi, lo) -> np.ndarray:
+    """(hi, lo) uint32 lanes -> int64 keys; the all-ones pair -> SENTINEL."""
+    hi = _np(hi).astype(np.uint32)
+    lo = _np(lo).astype(np.uint32)
+    key = ((hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)).astype(np.int64)
+    return np.where((hi == LANE_SENTINEL) & (lo == LANE_SENTINEL), np.int64(SENTINEL), key)
+
+
+def key_to_lanes(key) -> Tuple[np.ndarray, np.ndarray]:
+    """int64 keys -> (hi, lo) uint32 lanes; SENTINEL -> the all-ones pair."""
+    key = _np(key).astype(np.int64)
+    sent = key == SENTINEL
+    hi = np.where(sent, LANE_SENTINEL, (key >> 32).astype(np.uint32))
+    lo = np.where(sent, LANE_SENTINEL, (key & 0xFFFFFFFF).astype(np.uint32))
+    return hi.astype(np.uint32), lo.astype(np.uint32)
+
+
+def read_batch_to_torch(batch: ReadBatch):
+    """ReadBatch (either package's: same numpy fields) -> CPU tensors
+    (codes uint8, lengths int32, read_ids int64: torch has no uint32
+    arithmetic on the CPU, and ids are below 2^32)."""
+    return (
+        torch.from_numpy(np.ascontiguousarray(batch.codes)),
+        torch.from_numpy(np.ascontiguousarray(batch.lengths)),
+        torch.from_numpy(np.asarray(batch.read_ids).astype(np.int64)),
+    )
+
+
+def window_records_from_lanes(mmer, kmer_hi, kmer_lo, valid) -> WindowRecords:
+    """JAX ``WindowRecords`` fields (numpy) -> this package's, with the
+    masking this package folds into the scan: slots that are not valid
+    become sentinels (the JAX scan leaves them unspecified)."""
+    valid = _np(valid).astype(bool)
+    key = np.where(valid, lanes_to_key(kmer_hi, kmer_lo), np.int64(SENTINEL))
+    mm = np.where(valid, _np(mmer).astype(np.int64), MMER_SENTINEL).astype(np.int32)
+    return WindowRecords(
+        mmer=torch.from_numpy(mm),
+        kmer=torch.from_numpy(key),
+        valid=torch.from_numpy(valid),
+    )
+
+
+def window_records_to_lanes(recs: WindowRecords):
+    """This package's ``WindowRecords`` -> (mmer uint32, kmer_hi, kmer_lo,
+    valid) numpy arrays in the JAX convention, sentinels mapped."""
+    mm = _np(recs.mmer).astype(np.int64)
+    mmer = np.where(mm == MMER_SENTINEL, np.int64(LANE_SENTINEL), mm).astype(np.uint32)
+    hi, lo = key_to_lanes(recs.kmer)
+    return mmer, hi, lo, _np(recs.valid).astype(bool)
+
+
+def key_counts_from_lanes(kmer_hi, kmer_lo, valid, group_start, keep) -> KeyCounts:
+    """JAX ``KeyCounts`` fields (numpy) -> this package's ``KeyCounts``."""
+    return KeyCounts(
+        kmer=torch.from_numpy(lanes_to_key(kmer_hi, kmer_lo)),
+        valid=torch.from_numpy(_np(valid).astype(bool)),
+        group_start=torch.from_numpy(_np(group_start).astype(bool)),
+        keep=torch.from_numpy(_np(keep).astype(bool)),
+    )
+
+
+def key_counts_to_lanes(kc: KeyCounts):
+    """``KeyCounts`` -> (kmer_hi, kmer_lo, valid, group_start, keep) numpy."""
+    hi, lo = key_to_lanes(kc.kmer)
+    return hi, lo, _np(kc.valid), _np(kc.group_start), _np(kc.keep)
+
+
+def padded_keys_from_lanes(khi, klo, valid) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The padded ``(khi, klo, valid)`` triple the JAX dBG functions take
+    -> this package's ``(kmer, valid)`` pair."""
+    return (
+        torch.from_numpy(lanes_to_key(khi, klo)),
+        torch.from_numpy(_np(valid).astype(bool)),
+    )
+
+
+def padded_keys_to_lanes(kmer, valid):
+    """``(kmer, valid)`` -> the padded ``(khi, klo, valid)`` numpy triple."""
+    hi, lo = key_to_lanes(kmer)
+    return hi, lo, _np(valid).astype(bool)
+
+
+def graph_from_int32(next_state, head, rank, is_cycle) -> CompactedGraph:
+    """JAX ``CompactedGraph`` fields (numpy int32) -> int64 tensors."""
+    return CompactedGraph(
+        next_state=torch.from_numpy(_np(next_state).astype(np.int64)),
+        head=torch.from_numpy(_np(head).astype(np.int64)),
+        rank=torch.from_numpy(_np(rank).astype(np.int64)),
+        is_cycle=torch.from_numpy(_np(is_cycle).astype(bool)),
+    )
+
+
+def graph_to_int32(graph: CompactedGraph):
+    """``CompactedGraph`` -> (next_state, head, rank int32; is_cycle bool)
+    numpy arrays, the JAX package's field types."""
+    return (
+        _np(graph.next_state).astype(np.int32),
+        _np(graph.head).astype(np.int32),
+        _np(graph.rank).astype(np.int32),
+        _np(graph.is_cycle).astype(bool),
+    )

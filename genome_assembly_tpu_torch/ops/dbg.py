@@ -1,0 +1,481 @@
+"""Fast-mode de Bruijn graph compaction: unitigs via parallel pointer jumping.
+
+  1. The pruned canonical k-mer set is a sorted key tensor (the nodes).
+  2. Each node has two directed states, ``2 * node + strand`` (strand 0 =
+     the canonical key's own orientation, 1 = its reverse complement).
+     State s has a *unitig edge* to its unique successor t iff
+     out-degree(s) == 1 and in-degree(t) == 1.
+  3. The unitig-edge relation is a functional graph whose maximal paths
+     are the unitigs; pointer doubling ranks every state in
+     O(log chain-length) rounds.  Cycles are broken at their minimum
+     state id, found by min-propagation during the same rounds.
+
+Requires odd k (no reverse-complement palindromes).
+
+The device half (``build_unitig_links_join``, ``pointer_jump``) works on
+tensors; the string assembly (``materialize_unitigs`` and below) is host
+numpy, fed from ``.cpu().numpy()``.  State ids are int64 here (torch
+indexes with int64); the JAX package carries them as int32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from genome_assembly_tpu_torch.common import SENTINEL
+from genome_assembly_tpu_torch.ops import encode
+
+
+class CompactedGraph(NamedTuple):
+    """Per-state chain assignment from pointer jumping; all length 2N."""
+
+    next_state: torch.Tensor  # unitig-edge successor state or -1
+    head: torch.Tensor  # chain head state id
+    rank: torch.Tensor  # position within chain
+    is_cycle: torch.Tensor  # state belongs to a cyclic chain
+
+
+def _shift_next(x: torch.Tensor, fill) -> torch.Tensor:
+    return torch.cat([x[1:], x.new_full((1,), fill)])
+
+
+def _shift_prev(x: torch.Tensor, fill) -> torch.Tensor:
+    return torch.cat([x.new_full((1,), fill), x[:-1]])
+
+
+def build_unitig_links_join(
+    kmer: torch.Tensor, valid: torch.Tensor, *, k: int
+) -> torch.Tensor:
+    """next_state[2N] via a (k-1)-mer sort-join.
+
+    kmer: [N] int64 sorted canonical keys, sentinel-padded; valid marks
+    real rows.  Every state (oriented k-mer v) emits two records keyed by
+    a (k-1)-mer value: an OUT record keyed by suffix(v) and an IN record
+    keyed by prefix(v).  Edge s->t exists iff suffix(v_s) == prefix(v_t),
+    i.e. exactly the key groups; s->t is a unitig edge iff its group is
+    exactly one OUT row and one IN row and t != flip(s).
+
+    The records are laid out OUT rows then IN rows, each in state order,
+    so record index == (side, state) order and ONE stable sort by key
+    leaves every group ordered OUT-before-IN, by state within a side.
+    """
+    if k % 2 == 0:
+        raise ValueError("fast-mode dBG requires odd k (no RC palindromes)")
+    n = kmer.shape[0]
+    n2 = 2 * n
+    if n2 >= 1 << 31:
+        raise ValueError(f"{n2} states do not fit the (side, state) record layout")
+    if n == 0:
+        return kmer.new_empty((0,))
+
+    # oriented value of state 2*node + strand, interleaved
+    oriented = torch.stack(
+        [kmer, encode.reverse_complement_packed(kmer, k)], dim=1
+    ).reshape(n2)
+    state_valid = valid.repeat_interleave(2)
+
+    suffix = oriented & ((1 << (2 * k - 2)) - 1)
+    prefix = oriented >> 2
+    key = torch.cat(
+        [
+            torch.where(state_valid, suffix, SENTINEL),
+            torch.where(state_valid, prefix, SENTINEL),
+        ]
+    )
+    key_s, rec = torch.sort(key, stable=True)
+    side_s = (rec >= n2).long()
+    state_s = rec - side_s * n2
+    row_valid = key_s != SENTINEL  # real (k-1)-mers are < 2^60
+
+    # the end fill differs from every key AND from the sentinel, so the
+    # shifted compares are false at both ends of the array
+    edge_fill = SENTINEL ^ 1
+    same_next = _shift_next(key_s, edge_fill) == key_s
+    same_prev = _shift_prev(key_s, edge_fill) == key_s
+    # group of exactly two rows: OUT at i, IN at i+1
+    pair = (
+        ~same_prev
+        & same_next
+        & ~_shift_next(same_next, True)
+        & (side_s == 0)
+        & (_shift_next(side_s, 1) == 1)
+        & row_valid
+    )
+    target = _shift_next(state_s, -1)
+    hairpin = target == (state_s ^ 1)
+    edge_rows = torch.nonzero(pair & ~hairpin).reshape(-1)
+
+    next_state = kmer.new_full((n2,), -1)
+    next_state[state_s[edge_rows]] = target[edge_rows]
+    return next_state
+
+
+def pointer_jump(next_state: torch.Tensor) -> CompactedGraph:
+    """List-rank the unitig chains: head id + rank per state.
+
+    Pointer doubling over *predecessor* links with head-absorbing
+    self-loops: after ceil(log2(2N)) rounds every acyclic state has jumped
+    to its chain head with its distance accumulated.  Cycles (no head)
+    adopt the minimum state id on the cycle -- propagated by the same
+    doubling -- as a deterministic representative.
+
+    The loop stops when no parent moved in a round (one read-back per
+    round): parents of acyclic states stop changing once absorbed, cycles
+    keep rotating, and by then the doubling window covers every cycle.
+    """
+    n2 = next_state.shape[0]
+    steps = max(1, math.ceil(math.log2(max(n2, 2))) + 1)
+    ids = torch.arange(n2, dtype=torch.int64, device=next_state.device)
+
+    # unique predecessor (in-degree <= 1 by the unitig-edge rule)
+    pred = torch.full_like(ids, -1)
+    src = torch.nonzero(next_state >= 0).reshape(-1)
+    pred[next_state[src]] = src
+
+    # head-absorbing parent: heads (pred == -1) self-loop with rank 0
+    parent = torch.where(pred >= 0, pred, ids)
+    rank = (pred >= 0).long()
+    min_id = torch.minimum(ids, parent)
+
+    r, changed = 0, True
+    while r < steps and changed:
+        parent2 = parent[parent]
+        rank = rank + rank[parent]
+        min_id = torch.minimum(min_id, min_id[parent])
+        changed = bool((parent2 != parent).any())
+        parent = parent2
+        r += 1
+
+    # acyclic states were absorbed at the head (whose pred is -1); cyclic
+    # states' parent is still somewhere on the cycle
+    is_cycle = pred[parent] >= 0
+    head = torch.where(is_cycle, min_id, parent)
+    # cycle ranks depend on the round count: zero them so every
+    # implementation agrees; the materializer re-ranks cycles by walking
+    rank = torch.where(is_cycle, 0, rank)
+    return CompactedGraph(
+        next_state=next_state, head=head, rank=rank, is_cycle=is_cycle
+    )
+
+
+# ---------------------------------------------------------------------------
+# Host side (numpy): ragged string assembly from the fixed-shape chain
+# assignment.  Takes numpy arrays or tensors.
+# ---------------------------------------------------------------------------
+
+_CODE_CHARS = np.frombuffer(b"TGCA", dtype=np.uint8)
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def materialize_unitigs(kmer, valid, graph: CompactedGraph, k: int) -> List[str]:
+    """Host-side unitig assembly from chain assignments.
+
+    Vectorized in numpy: states are lexsorted by (head, rank), chain
+    boundaries come from head changes, and all characters land in one flat
+    byte buffer in a single pass.  Each unitig appears once: of the two
+    strand traversals, the canonical (lexicographically smaller) one is
+    kept; palindromic unitigs and cycle rotations are deduped explicitly.
+    The ORDER of the returned list is part of the contract.
+    """
+    unitigs, _, _ = _materialize(kmer, valid, graph, k, None)
+    return unitigs
+
+
+def materialize_unitigs_cov(
+    kmer, valid, graph: CompactedGraph, k: int, node_counts
+) -> Tuple[List[str], np.ndarray, np.ndarray]:
+    """materialize_unitigs plus per-unitig abundance coverage.
+
+    node_counts: per-node occurrence counts aligned with the key rows
+    (count.kept_keys_sorted_with_counts).  Returns (unitigs, occ_sum,
+    n_kmers): occ_sum[i] is the total occurrence count of unitig i's
+    constituent canonical k-mers and n_kmers[i] their number.
+    """
+    return _materialize(kmer, valid, graph, k, _host(node_counts))
+
+
+def _materialize_cycles(
+    next_state: np.ndarray,
+    head: np.ndarray,
+    cyc_states: np.ndarray,
+    vals_c: np.ndarray,
+    k: int,
+    node_counts,
+) -> Tuple[List[str], List[int], List[int]]:
+    """Vectorized cycle-unitig assembly.
+
+    Ranks around each cycle come from host pointer doubling (the jump
+    zeroes cycle ranks), then the same flat-buffer assembly as linear
+    chains spells every traversal at once.  Twin traversals (forward and
+    reverse-complement strands of one unitig cycle) are deduped by their
+    minimum member NODE id -- a traversal invariant, since edge u->v
+    implies rc edge v^1->u^1.  vals_c: uint64 packed values aligned with
+    cyc_states.
+    """
+    m = cyc_states.size
+    n2 = next_state.shape[0]
+    comp = np.full(n2, -1, dtype=np.int64)
+    comp[cyc_states] = np.arange(m, dtype=np.int64)
+    nxt_c = comp[next_state[cyc_states]]
+    # in/out-degree <= 1 (unitig edge rule): cycle states form pure
+    # permutation cycles, never rho shapes
+    assert (nxt_c >= 0).all(), "cycle state links outside the cycle set"
+    head_c = head[cyc_states].astype(np.int64)
+    is_head = cyc_states == head_c
+    pred_c = np.empty(m, dtype=np.int64)
+    pred_c[nxt_c] = np.arange(m, dtype=np.int64)
+    # head-absorbing predecessor doubling: rank[s] = distance from the
+    # cycle's head (min state id) to s along next_state
+    parent = np.where(is_head, np.arange(m, dtype=np.int64), pred_c)
+    crank = (~is_head).astype(np.int64)
+    while True:
+        crank = crank + crank[parent]
+        new_parent = parent[parent]
+        if np.array_equal(new_parent, parent):
+            break
+        parent = new_parent
+
+    order_c = np.lexsort((crank, head_c))
+    s_c = cyc_states[order_c]  # global state ids in walk order
+    v_c = vals_c[order_c]
+    h_c = head_c[order_c]
+    r_c = crank[order_c]
+    start_mask = np.empty(m, dtype=bool)
+    start_mask[0] = True
+    start_mask[1:] = h_c[1:] != h_c[:-1]
+    startsc = np.flatnonzero(start_mask)
+    lens_c = np.diff(np.append(startsc, m))
+    # one traversal per unitig cycle: first chain in ascending head order
+    # per min-member-node key
+    min_node = np.minimum.reduceat(s_c >> 1, startsc)
+    _, first_idx = np.unique(min_node, return_index=True)
+    keep_idx = np.sort(first_idx)
+    k_lens = lens_c[keep_idx]
+    out_lens_c = k_lens + (k - 1)
+    off_c = np.zeros(len(keep_idx) + 1, dtype=np.int64)
+    np.cumsum(out_lens_c, out=off_c[1:])
+    buf_c = np.empty(off_c[-1], dtype=np.uint8)
+    first_vals = v_c[startsc[keep_idx]]
+    for j in range(k):
+        shift = np.uint64(2 * (k - 1 - j))
+        buf_c[off_c[:-1] + j] = _CODE_CHARS[
+            ((first_vals >> shift) & np.uint64(3)).astype(np.int64)
+        ]
+    chain_id_c = np.cumsum(start_mask) - 1
+    kept_pos = np.full(len(startsc), -1, dtype=np.int64)
+    kept_pos[keep_idx] = np.arange(len(keep_idx))
+    sel = (kept_pos[chain_id_c] >= 0) & ~start_mask
+    pos_c = off_c[kept_pos[chain_id_c[sel]]] + (k - 1) + r_c[sel]
+    buf_c[pos_c] = _CODE_CHARS[(v_c[sel] & np.uint64(3)).astype(np.int64)]
+    all_bytes_c = buf_c.tobytes()
+    cycle_strings = [
+        all_bytes_c[off_c[i] : off_c[i + 1]].decode()
+        for i in range(len(keep_idx))
+    ]
+    cycle_sums: List[int] = []
+    cycle_lens: List[int] = []
+    if node_counts is not None:
+        sums_all = np.add.reduceat(
+            node_counts[s_c >> 1].astype(np.int64), startsc
+        )
+        cycle_sums = [int(x) for x in sums_all[keep_idx]]
+        cycle_lens = [int(x) for x in k_lens]
+    return cycle_strings, cycle_sums, cycle_lens
+
+
+def _canonical_chain_strings(
+    all_bytes: bytes,
+    out_off: np.ndarray,
+    chain_lens: np.ndarray,
+    chain_sums,
+    cycle_strings: List[str],
+    cycle_sums: List[int],
+    cycle_lens: List[int],
+) -> Tuple[List[str], np.ndarray, np.ndarray]:
+    """Strand-canonicalize linear chains (keep the lexicographically
+    smaller of the two strand spellings; dedup palindromes) and append
+    the cycle results."""
+    unitigs: List[str] = []
+    occ_sums: List[int] = []
+    n_kmers: List[int] = []
+    seen_palindromes = set()
+    for c in range(len(out_off) - 1):
+        u = all_bytes[out_off[c] : out_off[c + 1]].decode()
+        rc_u = _rc_str(u)
+        if u == rc_u:
+            # palindromic unitig: both strand chains spell the same string;
+            # keep exactly one (whole unitigs of even length can be
+            # palindromic even though odd-k k-mers cannot)
+            if u in seen_palindromes:
+                continue
+            seen_palindromes.add(u)
+        elif u >= rc_u:
+            continue
+        unitigs.append(u)
+        if chain_sums is not None:
+            occ_sums.append(int(chain_sums[c]))
+            n_kmers.append(int(chain_lens[c]))
+    unitigs.extend(cycle_strings)
+    occ_sums.extend(cycle_sums)
+    n_kmers.extend(cycle_lens)
+    return (
+        unitigs,
+        np.asarray(occ_sums, dtype=np.int64),
+        np.asarray(n_kmers, dtype=np.int64),
+    )
+
+
+def _materialize(
+    kmer, valid, graph: CompactedGraph, k: int, node_counts
+) -> Tuple[List[str], np.ndarray, np.ndarray]:
+    # the int64 key IS the full 2k-bit packed value
+    value = _host(kmer).astype(np.uint64)
+    valid = _host(valid)
+    next_state = _host(graph.next_state)
+    head = _host(graph.head)
+    rank = _host(graph.rank).astype(np.int64)
+    is_cycle = _host(graph.is_cycle)
+
+    n = value.shape[0]
+    kmask = (np.uint64(1) << np.uint64(2 * k)) - np.uint64(1)
+
+    def rc_val(v):
+        out = np.zeros_like(v)
+        comp = kmask - v  # complement per 2-bit group == mask - v
+        for j in range(k):
+            out = (out << np.uint64(2)) | ((comp >> np.uint64(2 * j)) & np.uint64(3))
+        return out
+
+    state_val = np.empty(2 * n, dtype=np.uint64)
+    state_val[0::2] = value
+    state_val[1::2] = rc_val(value)
+    node_valid = np.repeat(valid, 2)
+
+    # --- cycles ---
+    cyc_states = np.flatnonzero(is_cycle & node_valid)
+    if cyc_states.size:
+        cycle_strings, cycle_sums, cycle_lens = _materialize_cycles(
+            next_state, head, cyc_states, state_val[cyc_states], k,
+            node_counts,
+        )
+    else:
+        cycle_strings, cycle_sums, cycle_lens = [], [], []
+
+    # --- linear chains: vectorized assembly ---
+    lin_mask = node_valid & ~is_cycle
+    lin_states = np.flatnonzero(lin_mask)
+    if lin_states.size == 0:
+        return (
+            cycle_strings,
+            np.asarray(cycle_sums, dtype=np.int64),
+            np.asarray(cycle_lens, dtype=np.int64),
+        )
+
+    order = np.lexsort((rank[lin_states], head[lin_states]))
+    s_sorted = lin_states[order]
+    h_sorted = head[lin_states][order]
+    chain_start = np.empty(len(s_sorted), dtype=bool)
+    chain_start[0] = True
+    chain_start[1:] = h_sorted[1:] != h_sorted[:-1]
+    starts = np.flatnonzero(chain_start)
+    chain_lens = np.diff(np.append(starts, len(s_sorted)))
+    out_lens = chain_lens + (k - 1)
+
+    # flat byte buffer: chain c occupies [out_off[c], out_off[c] + out_lens[c])
+    out_off = np.zeros(len(starts) + 1, dtype=np.int64)
+    np.cumsum(out_lens, out=out_off[1:])
+    buf = np.empty(out_off[-1], dtype=np.uint8)
+
+    # first k characters of each chain: decode the head state's value
+    first_vals = state_val[s_sorted[starts]]
+    for j in range(k):
+        shift = np.uint64(2 * (k - 1 - j))
+        buf[out_off[:-1] + j] = _CODE_CHARS[
+            ((first_vals >> shift) & np.uint64(3)).astype(np.int64)
+        ]
+    # subsequent states contribute their last base at position k-1+rank
+    chain_id = np.cumsum(chain_start) - 1
+    not_first = ~chain_start
+    pos = out_off[chain_id[not_first]] + (k - 1) + rank[s_sorted[not_first]]
+    buf[pos] = _CODE_CHARS[
+        (state_val[s_sorted[not_first]] & np.uint64(3)).astype(np.int64)
+    ]
+
+    # per-chain coverage: occurrence counts summed over member nodes
+    chain_sums = None
+    if node_counts is not None:
+        chain_sums = np.add.reduceat(
+            node_counts[s_sorted >> 1].astype(np.int64), starts
+        )
+
+    return _canonical_chain_strings(
+        buf.tobytes(), out_off, chain_lens, chain_sums,
+        cycle_strings, cycle_sums, cycle_lens,
+    )
+
+
+_CHAR_CODE = np.full(256, 255, dtype=np.uint8)
+for _i, _c in enumerate(b"TGCA"):
+    _CHAR_CODE[_c] = _i
+
+
+def unitig_member_nodes(
+    kmer, unitigs: List[str], k: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """CSR of each unitig's constituent canonical k-mer rows.
+
+    kmer: the sorted node keys the graph was built over.  Returns
+    (offsets [n_unitigs + 1], node_rows): unitig i's k-mers are the rows
+    node_rows[offsets[i]:offsets[i+1]], in walk order.  Per unitig, the
+    window values come from k shift-and-or passes over its code array and
+    a binary search; every window must be present in the node table -- a
+    self-check that the materialized strings spell paths in the dBG.
+    """
+    packed = _host(kmer).astype(np.uint64)
+
+    offsets = np.zeros(len(unitigs) + 1, dtype=np.int64)
+    rows_parts = []
+    for i, u in enumerate(unitigs):
+        codes = _CHAR_CODE[np.frombuffer(u.encode(), dtype=np.uint8)].astype(
+            np.uint64
+        )
+        if codes.size < k:
+            raise ValueError(f"unitig shorter than k: {u!r}")
+        nwin = codes.size - k + 1
+        fwd = np.zeros(nwin, dtype=np.uint64)
+        rev = np.zeros(nwin, dtype=np.uint64)
+        for j in range(k):
+            c = codes[j : j + nwin]
+            fwd = (fwd << np.uint64(2)) | c
+            rev |= (np.uint64(3) - c) << np.uint64(2 * j)
+        canon = np.minimum(fwd, rev)
+        pos = np.searchsorted(packed, canon)
+        ok = (pos < packed.size) & (packed[np.minimum(pos, packed.size - 1)] == canon)
+        if not ok.all():
+            raise AssertionError(
+                f"unitig {i} contains k-mers absent from the node table"
+            )
+        rows_parts.append(pos.astype(np.int64))
+        offsets[i + 1] = offsets[i] + pos.size
+    rows = (
+        np.concatenate(rows_parts)
+        if rows_parts
+        else np.zeros(0, dtype=np.int64)
+    )
+    return offsets, rows
+
+
+_RC_TABLE = str.maketrans("ACGT", "TGCA")
+
+
+def _rc_str(s: str) -> str:
+    return s.translate(_RC_TABLE)[::-1]

@@ -1,0 +1,210 @@
+"""Port vs JAX package: the fast-mode in-core slice as a whole (CPU).
+
+The four in-core inputs of tests/test_fast_pipeline.py go through the JAX
+``FastAssembler`` and the port's (``device="cpu"``): the unitig list (same
+strings, same ORDER), the coverage arrays, the per-unitig read-id arrays
+and the ``PhaseStats`` counters must be equal.  Strings and integers:
+tolerance 0.
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+from genome_assembly_tpu.config import PipelineConfig as JConfig
+from genome_assembly_tpu.io import datagen as jdatagen
+from genome_assembly_tpu.models.pipeline import FastAssembler as JFast
+from genome_assembly_tpu_torch.config import PipelineConfig as TConfig
+from genome_assembly_tpu_torch.io import datagen as tdatagen
+from genome_assembly_tpu_torch.io import reads as treads
+from genome_assembly_tpu_torch.models.pipeline import FastAssembler as TFast
+
+_RC = str.maketrans("ACGT", "TGCA")
+
+
+def _rc(s):
+    return s.translate(_RC)[::-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _case(name):
+    """(reads, config kwargs) of one input of tests/test_fast_pipeline.py."""
+    if name == "brute_force_k11":
+        _, reads, _ = jdatagen.generate_coverage_reads(
+            genome_len=1500, read_len=60, coverage=10, seed=5, with_reverse=True)
+        return reads, dict(k=11, m=5, parity=False, max_read_len=64, batch_reads=512)
+    if name == "clean_genome_k21":
+        _, reads, _ = jdatagen.generate_coverage_reads(
+            genome_len=800, read_len=80, coverage=15, seed=11, with_reverse=True)
+        return reads, dict(k=21, m=7, parity=False, max_read_len=96, batch_reads=256)
+    if name == "long_sequence_k15":
+        rng = np.random.default_rng(21)
+        genome = "".join(rng.choice(list("ACGT"), size=5000))
+        kw = dict(k=15, m=7, parity=False, abundance_cutoff=0,
+                  max_read_len=128, batch_reads=256)
+        return treads.chunk_long_sequence(genome, 128, 15), kw
+    if name == "strand_invariance_k13":
+        _, reads, _ = jdatagen.generate_coverage_reads(
+            genome_len=600, read_len=50, coverage=8, seed=3)
+        # several batches, the last one padded
+        return reads, dict(k=13, m=5, parity=False, max_read_len=64, batch_reads=32)
+    if name == "strand_invariance_k13_rc":
+        reads, kw = _case("strand_invariance_k13")
+        return [_rc(r) for r in reads], kw
+    raise KeyError(name)
+
+
+CASES = ["brute_force_k11", "clean_genome_k21", "long_sequence_k15",
+         "strand_invariance_k13", "strand_invariance_k13_rc"]
+
+
+def _counters(stats):
+    d = dataclasses.asdict(stats)
+    d.pop("wall_s")
+    return d
+
+
+def _pair(name):
+    reads, kw = _case(name)
+    return reads, JFast(JConfig(**kw)), TFast(TConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_unitigs_match_jax(name):
+    reads, jasm, tasm = _pair(name)
+    want, wstats = jasm.unitigs(reads)
+    got, gstats = tasm.unitigs(reads)
+    assert got == want
+    assert _counters(gstats) == _counters(wstats)
+    assert got, "empty assembly proves nothing"
+    assert set(gstats.wall_s) == {"batch", "scan", "count", "links", "jump", "materialize"}
+
+
+def test_unitigs_from_sequences_match_jax():
+    rng = np.random.default_rng(21)
+    genome = "".join(rng.choice(list("ACGT"), size=5000))
+    _, kw = _case("long_sequence_k15")
+    seqs = [genome, genome[100:180], "ACGT"]
+    want, wstats = JFast(JConfig(**kw)).unitigs_from_sequences(seqs)
+    got, gstats = TFast(TConfig(**kw), device="cpu").unitigs_from_sequences(seqs)
+    assert got == want
+    assert _counters(gstats) == _counters(wstats)
+    assert gstats.n_windows >= len(genome) - kw["k"] + 1
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_unitigs_with_coverage_match_jax(name):
+    reads, jasm, tasm = _pair(name)
+    want, w_sum, w_n, wstats = jasm.unitigs_with_coverage(reads)
+    got, g_sum, g_n, gstats = tasm.unitigs_with_coverage(reads)
+    assert got == want
+    assert np.array_equal(g_sum, w_sum) and g_sum.dtype == w_sum.dtype
+    assert np.array_equal(g_n, w_n) and g_n.dtype == w_n.dtype
+    assert _counters(gstats) == _counters(wstats)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_unitigs_with_read_ids_match_jax(name):
+    reads, jasm, tasm = _pair(name)
+    want, w_ids, wstats = jasm.unitigs_with_read_ids(reads)
+    got, g_ids, gstats = tasm.unitigs_with_read_ids(reads)
+    assert got == want
+    assert len(g_ids) == len(w_ids)
+    for g, w in zip(g_ids, w_ids):
+        assert np.array_equal(g, w) and g.dtype == w.dtype
+    assert _counters(gstats) == _counters(wstats)
+
+
+def test_strand_invariance_of_the_port():
+    reads, kw = _case("strand_invariance_k13")
+    u1, _ = TFast(TConfig(**kw), device="cpu").unitigs(reads)
+    u2, _ = TFast(TConfig(**kw), device="cpu").unitigs([_rc(r) for r in reads])
+    assert sorted(min(u, _rc(u)) for u in u1) == sorted(min(u, _rc(u)) for u in u2)
+
+
+def test_everything_pruned_gives_no_unitigs():
+    reads, kw = _case("strand_invariance_k13")
+    kw = dict(kw, abundance_cutoff=100)
+    want, wstats = JFast(JConfig(**kw)).unitigs(reads)
+    got, gstats = TFast(TConfig(**kw), device="cpu").unitigs(reads)
+    assert got == want == []
+    assert _counters(gstats) == _counters(wstats)
+
+
+def test_outofcore_branch_waits():
+    reads, kw = _case("brute_force_k11")
+    tiny = TConfig(**dict(kw, outofcore_bytes=1 << 12))
+    with pytest.raises(NotImplementedError, match="out-of-core"):
+        TFast(tiny, device="cpu").unitigs(reads)
+
+
+@pytest.mark.parametrize(
+    "method", ["unitigs", "unitigs_with_coverage", "unitigs_with_read_ids"])
+def test_mesh_branch_waits(method):
+    reads, kw = _case("brute_force_k11")
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        getattr(TFast(TConfig(**kw), device="cpu"), method)(reads, mesh=object())
+
+
+def test_constructor_checks_match_jax():
+    for kw in (dict(k=12, m=5, parity=False), dict(k=11, m=5, parity=True)):
+        with pytest.raises(ValueError):
+            JFast(JConfig(**kw))
+        with pytest.raises(ValueError):
+            TFast(TConfig(**kw), device="cpu")
+    with pytest.raises(ValueError, match="no reads"):
+        TFast(TConfig(k=11, m=5, parity=False), device="cpu").unitigs([])
+
+
+@pytest.mark.parametrize(
+    "bad", [dict(m=16), dict(k=32), dict(k=5, m=7, parity=False), dict(k=9, m=5),
+            dict(abundance_cutoff=-1), dict(max_read_len=8), dict(wide_state_ids="x")])
+def test_config_checks_match_jax(bad):
+    with pytest.raises(ValueError):
+        JConfig(**bad)
+    with pytest.raises(ValueError):
+        TConfig(**bad)
+
+
+def test_config_fields_match_jax_minus_pallas_switches():
+    jf = {f.name: f.default for f in dataclasses.fields(JConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(TConfig)}
+    assert set(jf) - set(tf) == {"pallas_scan", "pallas_sort"}
+    assert set(tf) <= set(jf)
+    assert all(tf[n] == jf[n] for n in tf)
+    c = TConfig(k=21, m=7)
+    j = JConfig(k=21, m=7)
+    assert (c.windows_per_read, c.mmer_mask, c.kmer_split()) == (
+        j.windows_per_read, j.mmer_mask, j.kmer_split())
+
+
+def test_host_io_copies_match_jax(tmp_path):
+    from genome_assembly_tpu.io import reads as jreads
+
+    genome, reads, starts = tdatagen.generate_coverage_reads(
+        genome_len=300, read_len=40, coverage=4, seed=9, error_rate=0.05, with_reverse=True)
+    assert (genome, reads, starts) == jdatagen.generate_coverage_reads(
+        genome_len=300, read_len=40, coverage=4, seed=9, error_rate=0.05, with_reverse=True)
+    reads = reads + ["", "acgtn", "N" * 40]
+    for parity_chars in (False, True):
+        want = jreads.batch_reads(reads, 48, 7, start_id=3, parity_chars=parity_chars)
+        got = treads.batch_reads(reads, 48, 7, start_id=3, parity_chars=parity_chars)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            for f in ("codes", "lengths", "read_ids"):
+                a, b = getattr(g, f), getattr(w, f)
+                assert a.dtype == b.dtype and np.array_equal(a, b)
+    gp, wp = treads.pad_batch(got[-1], 7), jreads.pad_batch(want[-1], 7)
+    assert all(np.array_equal(getattr(gp, f), getattr(wp, f))
+               for f in ("codes", "lengths", "read_ids"))
+    assert treads.chunk_long_sequence(genome, 64, 21) == jreads.chunk_long_sequence(genome, 64, 21)
+    path = tmp_path / "r.fa"
+    path.write_text(">a\nACGT\nTTGA\n\n>b\nGGGA\n")
+    assert treads.load_fasta(str(path)) == jreads.load_fasta(str(path)) == ["ACGTTTGA", "GGGA"]
+    assert treads.load_reads_fast(str(path)) == jreads.load_reads_fast(str(path))
+    tdatagen.write_reads(["AC", "GT"], str(tmp_path / "w.txt"))
+    assert (tmp_path / "w.txt").read_text() == "AC\nGT\n"
+    with pytest.raises(ValueError):
+        treads.batch_reads(["A" * 50], 48)

@@ -1,0 +1,161 @@
+"""The port stands alone: it imports torch and numpy, never jax and nothing
+of the JAX package; it does not build or import its CUDA binding at import;
+its default device is the card and it does not fall back to the CPU.
+
+Every check runs in a SUBPROCESS: the conftest of this test run imports jax,
+so ``sys.modules`` here says nothing about what the port pulls in.
+"""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+_PRELUDE = """
+import importlib, pkgutil, sys
+import genome_assembly_tpu_torch as pkg
+
+def jax_side():
+    return sorted(
+        m for m in sys.modules
+        if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+        or m == "genome_assembly_tpu" or m.startswith("genome_assembly_tpu."))
+
+def all_modules():
+    return [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+            if not m.name.endswith("__main__")]
+"""
+
+
+def _run(body: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(REPO_ROOT), CUDA_VISIBLE_DEVICES="")
+    return subprocess.run(
+        [sys.executable, "-c", _PRELUDE + body],
+        cwd=str(REPO_ROOT), env=env, capture_output=True, text=True, timeout=300,
+    )
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    r = _run("""
+names = all_modules()
+assert len(names) >= 15, names
+for n in names:
+    importlib.import_module(n)
+assert jax_side() == [], jax_side()
+print("OK", len(names))
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("OK")
+
+
+def test_cuda_binding_is_neither_imported_nor_built_at_package_import():
+    r = _run("""
+import genome_assembly_tpu_torch.models.pipeline
+import genome_assembly_tpu_torch.cli
+import genome_assembly_tpu_torch.convert
+assert "genome_assembly_tpu_torch.ops.minimizer_cuda" not in sys.modules
+assert "genome_assembly_tpu_torch.csrc.build" not in sys.modules
+# importing the binding module still builds and loads nothing
+from genome_assembly_tpu_torch.ops import minimizer_cuda
+from genome_assembly_tpu_torch.csrc import build
+assert minimizer_cuda._lib is None and build._loaded == {}
+assert minimizer_cuda.launch_count == 0
+print("OK")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "OK"
+
+
+def test_source_files_name_no_jax_import():
+    offenders = []
+    files = list((REPO_ROOT / "genome_assembly_tpu_torch").rglob("*.py"))
+    files.append(REPO_ROOT / "chip_smoke.py")
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|genome_assembly_tpu)(\.|\s|$)")
+    for path in files:
+        for line in path.read_text().splitlines():
+            if pattern.match(line):
+                offenders.append(f"{path.name}: {line.strip()}")
+    assert offenders == []
+
+
+@pytest.mark.parametrize(
+    "call",
+    ["FastAssembler(cfg).unitigs(reads)", "FastAssembler(cfg, device='cuda').unitigs(reads)"],
+)
+def test_default_device_is_the_card_and_raises_without_one(call):
+    r = _run(f"""
+import torch
+assert not torch.cuda.is_available()
+from genome_assembly_tpu_torch.config import PipelineConfig
+from genome_assembly_tpu_torch.models.pipeline import FastAssembler
+cfg = PipelineConfig(k=11, m=5, parity=False, max_read_len=64, batch_reads=64)
+reads = ["ACGTTGCATGCCGATAGCTAGCTAGGATCGATCGA"] * 4
+try:
+    out = {call}
+except RuntimeError as e:
+    print("RAISED", e)
+else:
+    print("RAN", out)
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("RAISED"), r.stdout
+    assert "CUDA" in r.stdout
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    r = _run("""
+import torch
+from genome_assembly_tpu_torch.ops import minimizer_cuda
+try:
+    minimizer_cuda.fast_scan_cuda(
+        torch.zeros((2, 40), dtype=torch.uint8), torch.zeros(2, dtype=torch.int32), k=21, m=7)
+except ValueError as e:
+    print("RAISED", e)
+assert minimizer_cuda.launch_count == 0 and minimizer_cuda._lib is None
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("RAISED")
+
+
+def test_chip_smoke_fails_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run(
+        [sys.executable, str(REPO_ROOT / "chip_smoke.py")],
+        cwd=str(REPO_ROOT), env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode != 0
+    assert r.stdout.strip() == ""
+
+
+def test_cli_drives_the_fast_path_on_the_cpu(tmp_path):
+    reads = tmp_path / "r.txt"
+    env = dict(os.environ, PYTHONPATH=str(REPO_ROOT), CUDA_VISIBLE_DEVICES="")
+    gen = subprocess.run(
+        [sys.executable, "-m", "genome_assembly_tpu_torch", "generate",
+         "--genome-len", "1200", "--coverage", "8", "--read-len", "64", "--seed", "5",
+         "--with-reverse", "--out", str(reads)],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert gen.returncode == 0, gen.stderr
+    base = [sys.executable, "-m", "genome_assembly_tpu_torch", "assemble", str(reads),
+            "--mode", "fast", "--k", "21", "--m", "7"]
+    on_cpu = subprocess.run(base + ["--cpu"], cwd=str(tmp_path), env=env,
+                            capture_output=True, text=True, timeout=300)
+    assert on_cpu.returncode == 0, on_cpu.stderr
+    unitigs = on_cpu.stdout.split()
+    assert unitigs and all(set(u) <= set("ACGT") and len(u) >= 21 for u in unitigs)
+    cov = subprocess.run(base + ["--cpu", "--coverage"], cwd=str(tmp_path), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert cov.returncode == 0, cov.stderr
+    rows = [line.split("\t") for line in cov.stdout.splitlines()]
+    assert [r[0] for r in rows] == unitigs
+    assert all(int(r[1]) == len(r[0]) - 21 + 1 for r in rows)
+    # without --cpu on a machine without a card: refuses, prints no unitigs
+    on_card = subprocess.run(base, cwd=str(tmp_path), env=env,
+                             capture_output=True, text=True, timeout=300)
+    assert on_card.returncode != 0 and on_card.stdout == ""
