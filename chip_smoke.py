@@ -7,7 +7,12 @@ Builds the port's CUDA kernels from genome_assembly_tpu_torch/csrc/, holds
 each kernel against its plain tensor version on the card (bit-exact: all
 results on this path are integers), runs fast-mode in-core assembly end to
 end through ``FastAssembler.unitigs`` at a small size (card vs CPU) and at
-the size of the repo's ``ecoli`` scale preset, and prints one JSON object
+the size of the repo's ``ecoli`` scale preset -- once with the default
+library sort (``full_e2e``) and once with ``hybrid_sort=True``, the count
+sort through the bitonic kernels (``hybrid_e2e``; same reads, the results
+must be equal) -- drives the sort entry points no pipeline calls
+(``sort_rows``, ``sort_keys``) at real sizes, times every kernel beside its
+plain version, its bound and the library call, and prints one JSON object
 per phase.  Exits non-zero if there is no CUDA device or any phase fails.
 Imports nothing of JAX and nothing of the JAX package.
 
@@ -19,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -34,6 +40,8 @@ from genome_assembly_tpu_torch.io import datagen
 from genome_assembly_tpu_torch.io import reads as reads_io
 from genome_assembly_tpu_torch.io import stream as stream_io
 from genome_assembly_tpu_torch.models.pipeline import FastAssembler
+from genome_assembly_tpu_torch.ops import bitonic_cuda
+from genome_assembly_tpu_torch.ops import bitonic_sort
 from genome_assembly_tpu_torch.ops import count as count_ops
 from genome_assembly_tpu_torch.ops import dbg
 from genome_assembly_tpu_torch.ops import minimizer
@@ -50,6 +58,8 @@ ECOLI = dict(genome_len=4_600_000, coverage=50, read_len=100, k=31, m=7,
              batch_reads=65536, max_read_len=128, cutoff=1)
 
 KERNEL_SHAPE = (65536, 128)
+# shape the row sort is driven and timed at: 2^26 keys
+ROWS_SHAPE = (16384, 4096)
 
 
 def emit(phase: str, **fields) -> None:
@@ -109,12 +119,45 @@ def phase_env():
     return smi
 
 
+SORT_KERNELS = ("sort_rows_kernel", "chunk_sort_kernel", "big_ce_kernel", "finish_kernel")
+
+
+def ptxas_report(log: str, kernels) -> dict:
+    """{kernel: registers, static shared bytes, spill bytes} from what
+    ``nvcc -Xptxas -v`` printed."""
+    report, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = next((k for k in kernels if k in m.group(1)), None)
+            if current:
+                report[current] = {"static_shared_bytes": 0}
+        elif current and "spill stores" in line:
+            stores, loads = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            report[current].update(spill_store_bytes=int(stores), spill_load_bytes=int(loads))
+        elif current and "Used" in line and "registers" in line:
+            report[current]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            if smem:
+                report[current]["static_shared_bytes"] = int(smem.group(1))
+    return report
+
+
 def phase_build():
     t0 = time.perf_counter()
     libs = csrc_build.build_all(verbose=True)
     minimizer_cuda._library()
+    bitonic_cuda._library()
+    if sorted(libs) != ["bitonic", "fast_scan"]:
+        raise AssertionError(f"expected two CUDA sources, built {sorted(libs)}")
+    report = ptxas_report(csrc_build.build_log.get("bitonic", ""), SORT_KERNELS)
+    if sorted(report) != sorted(SORT_KERNELS):
+        raise AssertionError(f"ptxas reported {sorted(report)}, expected {SORT_KERNELS}")
+    # the keys of the three shared-memory kernels are DYNAMIC shared memory,
+    # 8 bytes a key of the row or chunk, which ptxas does not see
     emit("build", seconds=time.perf_counter() - t0,
-         libraries=sorted(str(p.name) for p in libs.values()))
+         libraries=sorted(str(p.name) for p in libs.values()), ptxas=report,
+         dynamic_shared_bytes_per_key=8, max_shared_keys=bitonic_cuda.MAX_SHARED_KEYS)
 
 
 def compare_scan(codes, lengths, k, m):
@@ -172,6 +215,232 @@ def phase_kernel_check(device):
     return total, worst
 
 
+def random_keys(gen, n, device, sentinel_share=0.0):
+    """n int64 keys below 2^62, drawn on the card; a share of them SENTINEL."""
+    key = torch.randint(0, 1 << 62, (n,), dtype=torch.int64, device=device, generator=gen)
+    if sentinel_share:
+        pad = torch.rand((n,), device=device, generator=gen) < sentinel_share
+        key = torch.where(pad, SENTINEL, key)
+    return key
+
+
+def key_patterns(gen, n, device):
+    """The inputs every pass is held on: random keys with duplicates and
+    sentinels at the front, all-equal keys, sorted and reverse sorted."""
+    key = random_keys(gen, n, device)
+    key[::5] = key[0].clone()
+    key[::11] = key[1 % n].clone()
+    key[:3] = SENTINEL
+    ordered = torch.sort(key).values
+    return {"random": key, "all_equal": torch.full_like(key, 12345),
+            "sorted": ordered, "reversed": ordered.flip(0)}
+
+
+class Tally:
+    """Counts comparisons and the elements that differ (tolerance 0)."""
+
+    def __init__(self):
+        self.cases = 0
+        self.mismatches = 0
+        self.max_abs_err = 0.0
+
+    def hold(self, got, want):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{got.shape} {got.dtype} vs {want.shape} {want.dtype}")
+        self.cases += 1
+        if not torch.equal(got, want):
+            diff = got != want
+            self.mismatches += int(diff.sum())
+            err = (got[diff].double() - want[diff].double()).abs().max()
+            self.max_abs_err = max(self.max_abs_err, float(err))
+
+    def report(self):
+        return {"cases": self.cases, "mismatches": self.mismatches,
+                "max_abs_err": self.max_abs_err}
+
+
+def levels_up_to(size):
+    return [1 << b for b in range(1, size.bit_length())]
+
+
+def check_sort_rows(gen, device):
+    t = Tally()
+    for rows in (1, 3, 1000):
+        for c in (2, 4, 32, 1024, 4096, bitonic_cuda.MAX_SHARED_KEYS):
+            key = key_patterns(gen, rows * c, device)["random"].view(rows, c)
+            got = bitonic_sort.sort_rows(key)
+            t.hold(got, bitonic_sort.sort_rows_plain(key))
+            t.hold(got, torch.sort(key, dim=1).values)
+    # more rows than the grid has blocks, and every input pattern
+    for name, key in key_patterns(gen, 5000 * 64, device).items():
+        key = key.view(5000, 64)
+        t.hold(bitonic_sort.sort_rows(key), bitonic_sort.sort_rows_plain(key))
+    return t
+
+
+def check_chunk_sort(gen, device):
+    t = Tally()
+    for chunk in (2, 64, 4096, 8192, bitonic_cuda.MAX_SHARED_KEYS):
+        n = chunk * 24
+        for name, key in key_patterns(gen, n, device).items():
+            for sizes in (levels_up_to(chunk), [2 * chunk], [8 * chunk], [2, chunk, 1 << 40]):
+                sizes = sorted(set(sizes))
+                got = bitonic_sort.chunk_sort(key, sizes, chunk=chunk)
+                t.hold(got, bitonic_sort.chunk_sort_plain(key, sizes, chunk=chunk))
+    key = key_patterns(gen, 2 * 5000, device)["random"]  # more chunks than blocks
+    t.hold(bitonic_sort.chunk_sort(key, [2], chunk=2),
+           bitonic_sort.chunk_sort_plain(key, [2], chunk=2))
+    return t
+
+
+def check_finish(gen, device):
+    t = Tally()
+    for chunk in (2, 64, 8192, bitonic_cuda.MAX_SHARED_KEYS):
+        n = chunk * 32
+        for name, key in key_patterns(gen, n, device).items():
+            for size in (chunk, 2 * chunk, n):  # size == n: every pair ascends
+                got = bitonic_sort.finish(key, size, chunk=chunk)
+                t.hold(got, bitonic_sort.finish_plain(key, size, chunk=chunk))
+    return t
+
+
+def check_big_ce(gen, device):
+    t = Tally()
+    n, chunk = 1 << 20, bitonic_cuda.MAX_SHARED_KEYS
+    stages = [(n // 2, n), (chunk, n), (chunk, 2 * chunk), (1, 2), (1, n), (32, 1 << 40)]
+    for name, key in key_patterns(gen, n, device).items():
+        for d, size in stages:  # the largest and the smallest d of a level, and the edges
+            t.hold(bitonic_sort.big_ce(key, d, size), bitonic_sort.big_ce_plain(key, d, size))
+    key = key_patterns(gen, 3 << 15, device)["random"]  # not a power of two
+    want = bitonic_sort.big_ce_plain(key, chunk, 2 * chunk)
+    before = key.clone()
+    t.hold(bitonic_sort.big_ce(key, chunk, 2 * chunk), want)
+    t.hold(key, before)  # without overwrite the caller's tensor is untouched
+    got = bitonic_sort.big_ce(key, chunk, 2 * chunk, overwrite=True)
+    if got.data_ptr() != key.data_ptr():
+        raise AssertionError("big_ce(overwrite=True) did not work in place")
+    t.hold(got, want)
+    return t
+
+
+def check_wide_index(gen, device):
+    """Positions past 2^31: in-place big_ce and finish on 2^31 + 2^22 keys
+    (17 GB), the last 2^22 keys held against the plain version.  The slice
+    starts at 2^31, a multiple of twice the level, so positions within it
+    have the level's bit where the global positions have it."""
+    t = Tally()
+    n, tail, size, chunk = (1 << 31) + (1 << 22), 1 << 22, 1 << 21, bitonic_cuda.MAX_SHARED_KEYS
+    key = random_keys(gen, n, device)
+    head_before, tail_before = key[:tail].clone(), key[n - tail:].clone()
+    key = bitonic_sort.big_ce(key, size // 2, size, overwrite=True)
+    t.hold(key[:tail], bitonic_sort.big_ce_plain(head_before, size // 2, size))
+    t.hold(key[n - tail:], bitonic_sort.big_ce_plain(tail_before, size // 2, size))
+    head_before, tail_before = key[:tail].clone(), key[n - tail:].clone()
+    key = bitonic_sort.finish(key, size, chunk=chunk, overwrite=True)
+    t.hold(key[:tail], bitonic_sort.finish_plain(head_before, size, chunk=chunk))
+    t.hold(key[n - tail:], bitonic_sort.finish_plain(tail_before, size, chunk=chunk))
+    return t
+
+
+def check_composed_sorts(gen, device):
+    """sort_keys and sort_keys_hybrid against torch.sort: a power-of-two n, an
+    n that needs padding, and n at and just above each fallback threshold,
+    with small chunks and with the defaults.  The launch counts show that
+    the network ran exactly where it should."""
+    t = {"sort_keys": Tally(), "sort_keys_hybrid": Tally()}
+    chunk, lib = bitonic_sort.DEFAULT_CHUNK, bitonic_sort.DEFAULT_LIB_CHUNK
+    plans = [
+        ("sort_keys", dict(chunk=64), [(1 << 16, True), (50000, True), (127, False), (128, True)]),
+        ("sort_keys", {}, [(2 * chunk - 1, False), (2 * chunk, True), (100000, True)]),
+        ("sort_keys_hybrid", dict(lib_chunk=1024, chunk=64),
+         [(1 << 16, True), (50000, True), (2048, False), (2049, True)]),
+        ("sort_keys_hybrid", {}, [(2 * lib, False), (2 * lib + 1, True), (4 * lib, True)]),
+    ]
+    for name, kwargs, sizes in plans:
+        for n, network in sizes:
+            key = key_patterns(gen, n, device)["random"]
+            before = key.clone()
+            launched = bitonic_cuda.launch_count["finish"]
+            got = getattr(bitonic_sort, name)(key, **kwargs)
+            if (bitonic_cuda.launch_count["finish"] > launched) != network:
+                raise AssertionError(f"{name}({n}, {kwargs}): network ran != {network}")
+            t[name].hold(got, torch.sort(key).values)
+            t[name].hold(key, before)
+    return t
+
+
+def count_refusals(device):
+    """Every wrapper must refuse what its kernel does not take."""
+    k64 = torch.zeros(64, dtype=torch.int64, device=device)
+    rows = k64.view(8, 8)
+    too_many = 2 * bitonic_cuda.MAX_SHARED_KEYS
+    big = torch.zeros(2 * too_many, dtype=torch.int64, device=device)
+    bad = [
+        lambda: bitonic_cuda.sort_rows_cuda(rows.cpu()),
+        lambda: bitonic_cuda.sort_rows_cuda(rows.int()),
+        lambda: bitonic_cuda.sort_rows_cuda(rows.t()),
+        lambda: bitonic_cuda.sort_rows_cuda(k64.view(4, 16)[:, :12]),
+        lambda: bitonic_cuda.sort_rows_cuda(k64[:48].view(8, 6)),
+        lambda: bitonic_cuda.sort_rows_cuda(big.view(2, too_many)),
+        lambda: bitonic_cuda.sort_rows_cuda(k64),
+        lambda: bitonic_cuda.chunk_sort_cuda(k64.cpu(), [2, 4], chunk=4),
+        lambda: bitonic_cuda.chunk_sort_cuda(k64.int(), [2, 4], chunk=4),
+        lambda: bitonic_cuda.chunk_sort_cuda(big[::2], [2, 4], chunk=4),
+        lambda: bitonic_cuda.chunk_sort_cuda(k64[:48], [2, 4], chunk=12),
+        lambda: bitonic_cuda.chunk_sort_cuda(k64, [2, 4], chunk=128),
+        lambda: bitonic_cuda.chunk_sort_cuda(big, [2, 4], chunk=too_many),
+        lambda: bitonic_cuda.chunk_sort_cuda(k64, [4, 2], chunk=4),
+        lambda: bitonic_cuda.chunk_sort_cuda(k64, [3], chunk=4),
+        lambda: bitonic_cuda.big_ce_cuda(k64.cpu(), 8, 16),
+        lambda: bitonic_cuda.big_ce_cuda(k64.int(), 8, 16),
+        lambda: bitonic_cuda.big_ce_cuda(big[::2][:64], 8, 16),
+        lambda: bitonic_cuda.big_ce_cuda(k64, 6, 16),
+        lambda: bitonic_cuda.big_ce_cuda(k64, 8, 8),
+        lambda: bitonic_cuda.big_ce_cuda(k64, 64, 128),
+        lambda: bitonic_cuda.finish_cuda(k64.cpu(), 16, chunk=8),
+        lambda: bitonic_cuda.finish_cuda(k64.int(), 16, chunk=8),
+        lambda: bitonic_cuda.finish_cuda(big[::2][:64], 16, chunk=8),
+        lambda: bitonic_cuda.finish_cuda(k64[:48], 24, chunk=12),
+        lambda: bitonic_cuda.finish_cuda(k64, 4, chunk=8),
+        lambda: bitonic_cuda.finish_cuda(big, 2 * too_many, chunk=too_many),
+        lambda: bitonic_sort.sort_keys_hybrid(k64, lib_chunk=8, chunk=16),
+        lambda: bitonic_sort.sort_keys(k64, chunk=12),
+    ]
+    launches = dict(bitonic_cuda.launch_count)
+    refused = 0
+    for call in bad:
+        try:
+            call()
+        except (ValueError, TypeError):
+            refused += 1
+    if bitonic_cuda.launch_count != launches:
+        raise AssertionError("a refused call launched a kernel")
+    return refused, len(bad)
+
+
+def phase_sort_check(device):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4321)
+    tallies = {
+        "sort_rows": check_sort_rows(gen, device),
+        "chunk_sort": check_chunk_sort(gen, device),
+        "big_ce": check_big_ce(gen, device),
+        "finish": check_finish(gen, device),
+    }
+    tallies.update(check_composed_sorts(gen, device))
+    tallies["wide_index"] = check_wide_index(gen, device)
+    torch.cuda.synchronize()
+    refused, n_bad = count_refusals(device)
+    report = {name: t.report() for name, t in tallies.items()}
+    emit("sort_check", tolerance=0, refused_bad_inputs=refused, bad_inputs=n_bad, **report)
+    total = sum(t.mismatches for t in tallies.values())
+    if total or refused != n_bad:
+        raise AssertionError(
+            f"sort_check failed: {total} mismatches, {refused}/{n_bad} refusals")
+    torch.cuda.empty_cache()
+    return tallies
+
+
 def kept_table(reads, cfg, device):
     """Sorted kept canonical keys of a read set, by the ops alone."""
     batches = reads_io.batch_reads(reads, cfg.max_read_len, cfg.batch_reads)
@@ -214,28 +483,71 @@ def phase_small_e2e(device):
         raise AssertionError("small_e2e: card and CPU runs differ")
 
 
+def reset_launch_counts():
+    minimizer_cuda.launch_count = 0
+    for name in bitonic_cuda.launch_count:
+        bitonic_cuda.launch_count[name] = 0
+
+
+def read_launch_counts():
+    return {"fast_scan": minimizer_cuda.launch_count, **bitonic_cuda.launch_count}
+
+
+def hybrid_pass_counts(n, lib_chunk, chunk):
+    """(big_ce launches, finish launches) of sort_keys_hybrid on n keys, from
+    the sizes alone: the array pads to lib_chunk * 2^j; each level above
+    lib_chunk has one big stage per distance from size/2 down to chunk, and
+    one finish."""
+    if n <= 2 * lib_chunk:
+        return 0, 0
+    total = lib_chunk
+    while total < n:
+        total *= 2
+    levels = range(lib_chunk.bit_length(), total.bit_length())  # log2 of each level
+    log_chunk = chunk.bit_length() - 1
+    return sum(level - log_chunk for level in levels), len(levels)
+
+
+def run_ecoli(device, reads, *, hybrid_sort):
+    """One FastAssembler.unitigs call on the ecoli read set, with the launch
+    counts set to 0 just before it and read just after."""
+    cfg = PipelineConfig(k=ECOLI["k"], m=ECOLI["m"], parity=False,
+                         abundance_cutoff=ECOLI["cutoff"], batch_reads=ECOLI["batch_reads"],
+                         max_read_len=ECOLI["max_read_len"], hybrid_sort=hybrid_sort)
+    asm = FastAssembler(cfg, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    unitigs, stats = asm.unitigs(reads)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = -(-len(reads) // cfg.batch_reads)
+    if launches["fast_scan"] != n_batches:
+        raise AssertionError(f"{launches['fast_scan']} scan launches for {n_batches} batches")
+    slots = n_batches * cfg.batch_reads * cfg.windows_per_read
+    fields = dict(
+        hybrid_sort=hybrid_sort, k=cfg.k, m=cfg.m, batch_reads=cfg.batch_reads,
+        max_read_len=cfg.max_read_len, n_batches=n_batches, window_slots=slots,
+        key_bytes=slots * 8, launches=launches, phase_seconds=dict(stats.wall_s),
+        assemble_wall_seconds=wall,
+        kmers_counted_per_s=stats.n_windows / (stats.wall_s["scan"] + stats.wall_s["count"]),
+        extension_states_per_s=2 * stats.entries_post_prune
+        / (stats.wall_s["links"] + stats.wall_s["jump"]),
+        max_memory_allocated=peak, n_unitigs=len(unitigs), **counters(stats))
+    return cfg, unitigs, stats, launches, fields
+
+
 def phase_full_e2e(device, coverage):
     p = dict(ECOLI, coverage=coverage)
     t0 = time.perf_counter()
     genome, reads = coverage_reads(p["genome_len"], p["read_len"], p["coverage"], seed=0)
     t_reads = time.perf_counter() - t0
-    cfg = PipelineConfig(k=p["k"], m=p["m"], parity=False, abundance_cutoff=p["cutoff"],
-                         batch_reads=p["batch_reads"], max_read_len=p["max_read_len"])
-    n_batches = -(-len(reads) // cfg.batch_reads)
-    asm = FastAssembler(cfg, device=device)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    minimizer_cuda.launch_count = 0
-    t0 = time.perf_counter()
-    unitigs, stats = asm.unitigs(reads)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = minimizer_cuda.launch_count
-    peak = torch.cuda.max_memory_allocated()
-
-    if launches != n_batches:
-        raise AssertionError(f"{launches} kernel launches for {n_batches} batches")
+    cfg, unitigs, stats, launches, fields = run_ecoli(device, reads, hybrid_sort=False)
+    if any(launches[name] for name in bitonic_cuda.launch_count):
+        raise AssertionError(f"the default path launched a sort kernel: {launches}")
     t0 = time.perf_counter()
     kept = kept_table(reads, cfg, device)
     if kept.size != stats.entries_post_prune:
@@ -245,23 +557,70 @@ def phase_full_e2e(device, coverage):
     if longest not in genome and dbg._rc_str(longest) not in genome:
         raise AssertionError("longest unitig is not a substring of the genome")
     t_check = time.perf_counter() - t0
-    slots = n_batches * cfg.batch_reads * cfg.windows_per_read
     emit("full_e2e", preset="ecoli", genome_len=p["genome_len"], coverage=p["coverage"],
-         coverage_cut=p["coverage"] != ECOLI["coverage"],
-         read_len=p["read_len"], k=cfg.k, m=cfg.m, batch_reads=cfg.batch_reads,
-         max_read_len=cfg.max_read_len, n_batches=n_batches, window_slots=slots,
-         key_bytes=slots * 8, launches=launches,
-         phase_seconds=dict(read_generation_host=t_reads, **stats.wall_s),
-         assemble_wall_seconds=wall,
-         kmers_counted_per_s=stats.n_windows / (stats.wall_s["scan"] + stats.wall_s["count"]),
-         extension_states_per_s=2 * stats.entries_post_prune
-         / (stats.wall_s["links"] + stats.wall_s["jump"]),
-         max_memory_allocated=peak, n_unitigs=len(unitigs), longest_unitig=len(longest),
-         exactly_once=True, longest_in_genome=True, check_seconds=t_check,
-         **counters(stats))
-    # the first batch of this run is what the kernel is timed on
+         coverage_cut=p["coverage"] != ECOLI["coverage"], read_len=p["read_len"],
+         read_generation_host_seconds=t_reads, longest_unitig=len(longest),
+         exactly_once=True, longest_in_genome=True, check_seconds=t_check, **fields)
+    # the first batch of this run is what the scan kernel is timed on
     first = reads_io.batch_reads(reads[: cfg.batch_reads], cfg.max_read_len, cfg.batch_reads)[0]
-    return launches, first
+    return dict(reads=reads, kept=kept, unitigs=unitigs, counters=counters(stats),
+                launches=launches, first_batch=first, fields=fields)
+
+
+def phase_hybrid_e2e(device, full):
+    """The kernel-sort path at full width: the same reads as full_e2e, with
+    ``hybrid_sort=True``.  Held against full_e2e's result, so the default
+    path and the kernel path check each other on the card."""
+    cfg, unitigs, stats, launches, fields = run_ecoli(device, full["reads"], hybrid_sort=True)
+    want_big, want_finish = hybrid_pass_counts(
+        fields["window_slots"], bitonic_sort.DEFAULT_LIB_CHUNK, bitonic_sort.DEFAULT_CHUNK)
+    if unitigs != full["unitigs"] or counters(stats) != full["counters"]:
+        raise AssertionError("hybrid_e2e: unitigs or counters differ from full_e2e's")
+    if (launches["big_ce"], launches["finish"]) != (want_big, want_finish):
+        raise AssertionError(
+            f"hybrid_e2e launched big_ce {launches['big_ce']} and finish "
+            f"{launches['finish']} times; the sizes give {want_big} and {want_finish}")
+    if not (want_big and want_finish):
+        raise AssertionError("the read set is too small to reach the sorting network")
+    if launches["sort_rows"] or launches["chunk_sort"]:
+        raise AssertionError(f"hybrid_e2e launched a kernel off its path: {launches}")
+    check_exactly_once(unitigs, full["kept"], cfg.k)
+    emit("hybrid_e2e", preset="ecoli", same_reads_as="full_e2e",
+         equal_to_full_e2e=True, exactly_once=True,
+         lib_chunk=bitonic_sort.DEFAULT_LIB_CHUNK, chunk=bitonic_sort.DEFAULT_CHUNK,
+         expected_big_ce_launches=want_big, expected_finish_launches=want_finish,
+         full_e2e_phase_seconds=full["fields"]["phase_seconds"],
+         full_e2e_max_memory_allocated=full["fields"]["max_memory_allocated"],
+         full_e2e_kmers_counted_per_s=full["fields"]["kmers_counted_per_s"], **fields)
+    return launches
+
+
+def phase_sort_entry_points(device, n_keys):
+    """K2 and K3a are on no pipeline's path: their entry points are
+    ``sort_rows`` and ``sort_keys`` themselves.  Drive both once at a real
+    size, counts set to 0 just before and read just after."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(99)
+    rows = random_keys(gen, ROWS_SHAPE[0] * ROWS_SHAPE[1], device, 0.3).view(ROWS_SHAPE)
+    flat = random_keys(gen, n_keys, device, 0.3)
+    chunk = bitonic_sort.DEFAULT_CHUNK
+    reset_launch_counts()
+    sorted_rows = bitonic_sort.sort_rows(rows)
+    sorted_flat = bitonic_sort.sort_keys(flat)
+    torch.cuda.synchronize()
+    launches = read_launch_counts()
+    t = Tally()
+    t.hold(sorted_rows, torch.sort(rows, dim=1).values)
+    t.hold(sorted_flat, torch.sort(flat).values)
+    # sort_keys is the hybrid's network from one chunk up
+    want_big, want_finish = hybrid_pass_counts(n_keys, chunk, chunk)
+    want = {"fast_scan": 0, "sort_rows": 1, "chunk_sort": 1,
+            "big_ce": want_big, "finish": want_finish}
+    emit("sort_entry_points", rows_shape=list(ROWS_SHAPE), sort_keys_n=n_keys, chunk=chunk,
+         launches=launches, expected_launches=want, **t.report())
+    if t.mismatches or launches != want:
+        raise AssertionError(f"sort_entry_points: {t.mismatches} mismatches, launches {launches}")
+    return launches
 
 
 def timed_ms(fn, reps=9, warm=2):
@@ -280,28 +639,57 @@ def timed_ms(fn, reps=9, warm=2):
     return statistics.median(times)
 
 
-def phase_kernels(device, launches, batch, mismatches, max_err):
-    """Time K1 and its plain version on one batch of the main path
+def turn_about(kernel, plain, *, kernel_reps=9, plain_reps=5, warm=2):
+    """Median times in the order plain, kernel, kernel, plain; the smaller
+    of each pair is reported."""
+    plain_a = timed_ms(plain, reps=plain_reps, warm=warm)
+    kernel_a = timed_ms(kernel, reps=kernel_reps, warm=warm)
+    kernel_b = timed_ms(kernel, reps=kernel_reps, warm=warm)
+    plain_b = timed_ms(plain, reps=plain_reps, warm=warm)
+    return {"ms": min(kernel_a, kernel_b), "plain_ms": min(plain_a, plain_b),
+            "kernel_ms_runs": [kernel_a, kernel_b], "plain_ms_runs": [plain_a, plain_b]}
+
+
+# 32-bit operations of one compare-exchange of two int64 keys: the 64-bit
+# compare 2, the two 64-bit selects 4, the direction bit (and, compare) 2
+CE_OPS = 8
+
+
+def pass_bound(n_keys, stages):
+    """(bytes ms, operations ms) of one pass over n_keys keys that runs
+    `stages` stages: every key read once and written once, 16 bytes; every
+    stage one compare-exchange per pair of keys."""
+    return (16 * n_keys / PEAK_BYTES_PER_S * 1e3,
+            stages * (n_keys // 2) * CE_OPS / PEAK_ALU_OPS_PER_S * 1e3)
+
+
+def bound_fields(passes):
+    """The bound of a run of passes: each pass takes the larger of its two
+    times; `bound_by` names what bounds the larger part of the sum."""
+    by_bytes = sum(b for b, o in passes if b >= o)
+    by_ops = sum(o for b, o in passes if o > b)
+    return {"bound_ms": by_bytes + by_ops,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes_ms": sum(b for b, _ in passes),
+            "bound_operations_ms": sum(o for _, o in passes)}
+
+
+def network_stages(length):
+    """Stages of the full network on `length` keys: 1 + 2 + .. + log2."""
+    levels = length.bit_length() - 1
+    return levels * (levels + 1) // 2
+
+
+def time_scan(device, batch, launches, tally):
+    """K1 and its plain version on one batch of the main path
     ([65536, 128], k=31, m=7, the reads of full_e2e), turn about."""
     k, m = ECOLI["k"], ECOLI["m"]
     codes = torch.from_numpy(batch.codes).to(device)
     lengths = torch.from_numpy(batch.lengths).to(device)
     if tuple(codes.shape) != KERNEL_SHAPE:
         raise AssertionError(f"main-path batch is {tuple(codes.shape)}, not {KERNEL_SHAPE}")
-
-    def kernel():
-        return minimizer.fast_scan(codes, lengths, k=k, m=m)
-
-    def plain():
-        return minimizer.fast_scan_plain(codes, lengths, k=k, m=m)
-
-    plain_a = timed_ms(plain, reps=5)
-    kernel_a = timed_ms(kernel)
-    kernel_b = timed_ms(kernel)
-    plain_b = timed_ms(plain, reps=5)
-    ms = min(kernel_a, kernel_b)
-    plain_ms = min(plain_a, plain_b)
-
+    times = turn_about(lambda: minimizer.fast_scan(codes, lengths, k=k, m=m),
+                       lambda: minimizer.fast_scan_plain(codes, lengths, k=k, m=m))
     # bound: each input read once, each output (mmer 4 B, kmer 8 B, valid
     # 1 B per window slot) written once; operations as the kernel's loops
     # need them for THIS batch: 5 per base of every m-mer position, and per
@@ -312,34 +700,206 @@ def phase_kernels(device, launches, batch, mismatches, max_err):
     n_valid = int((torch.arange(n_win, device=device)[None, :] + k <= lengths[:, None]).sum())
     n_bytes = b_rows * max_len + 4 * b_rows + 13 * b_rows * n_win
     n_ops = b_rows * n_mpos * 5 * m + n_valid * (10 * k + (k - m + 1))
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_ALU_OPS_PER_S * 1e3
-    entry = {
-        "name": "fast_scan",
-        "route": "cuda",
+    bound = bound_fields([(n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_ALU_OPS_PER_S * 1e3)])
+    return {
+        "name": "fast_scan", "route": "cuda",
         "source": "genome_assembly_tpu_torch/csrc/fast_scan.cu",
         "replaces": "genome_assembly_tpu/ops/minimizer_pallas.py:25",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "mismatches": mismatches,
-        "ms": ms,
-        "kernel_ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bound_bytes_ms": bytes_ms,
-        "bound_operations_ms": ops_ms,
-        "library_ms": None,
+        "launches": launches, "launches_from": "full_e2e (hybrid_e2e launches it as often)",
+        "max_abs_err": tally[1], "mismatches": tally[0],
+        **times, "kernel_ms": times["ms"], **bound, "library_ms": None,
         "shape": list(KERNEL_SHAPE), "k": k, "m": m,
-        "kernel_ms_runs": [kernel_a, kernel_b], "plain_ms_runs": [plain_a, plain_b],
     }
-    return {"kernels": [entry]}
+
+
+def sort_entry(name, kernel_fn, replaces, launches, launches_from, tally, at_shape, times,
+               bound, library_ms, shape,
+               source="genome_assembly_tpu_torch/csrc/bitonic.cu", **more):
+    """One line of the kernels report for a sort kernel or a composed sort."""
+    return {
+        "name": name, "route": "cuda", "source": source, "kernel": kernel_fn,
+        "replaces": replaces, "launches": launches, "launches_from": launches_from,
+        "max_abs_err": max(tally.max_abs_err, at_shape.max_abs_err),
+        "mismatches": tally.mismatches + at_shape.mismatches,
+        "cases": tally.cases + at_shape.cases,
+        **times, **bound, "library_ms": library_ms, "shape": shape, **more,
+    }
+
+
+def time_sort_kernels(device, tallies, hybrid_launches, entry_launches, n_keys):
+    """K2 at ROWS_SHAPE; K3a, K3b, K3c at the main path's padded key count
+    (one pass each); the two composed sorts at the main path's key count.
+    Each kernel is also held against its plain version at the timed shape."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2024)
+    chunk, lib = bitonic_sort.DEFAULT_CHUNK, bitonic_sort.DEFAULT_LIB_CHUNK
+    entries = []
+
+    rows = random_keys(gen, ROWS_SHAPE[0] * ROWS_SHAPE[1], device, 0.3).view(ROWS_SHAPE)
+    at = Tally()
+    at.hold(bitonic_sort.sort_rows(rows), bitonic_sort.sort_rows_plain(rows))
+    entries.append(sort_entry(
+        "sort_rows", "sort_rows_kernel", "genome_assembly_tpu/ops/sort_pallas.py:56",
+        entry_launches["sort_rows"], "sort_entry_points (no pipeline calls the row sort)",
+        tallies["sort_rows"], at,
+        turn_about(lambda: bitonic_sort.sort_rows(rows),
+                   lambda: bitonic_sort.sort_rows_plain(rows), plain_reps=3, warm=1),
+        bound_fields([pass_bound(rows.numel(), network_stages(ROWS_SHAPE[1]))]),
+        timed_ms(lambda: torch.sort(rows, dim=1), reps=5), list(ROWS_SHAPE),
+        library_call="torch.sort(x, dim=1)"))
+    del rows
+
+    total = lib
+    while total < n_keys:
+        total *= 2
+    key = random_keys(gen, total, device, 0.3)
+    sizes = levels_up_to(chunk)
+    log_chunk = chunk.bit_length() - 1
+
+    at = Tally()
+    at.hold(bitonic_sort.chunk_sort(key, sizes, chunk=chunk),
+            bitonic_sort.chunk_sort_plain(key, sizes, chunk=chunk))
+    entries.append(sort_entry(
+        "chunk_sort", "chunk_sort_kernel", "genome_assembly_tpu/ops/bitonic_pallas.py:70",
+        entry_launches["chunk_sort"], "sort_entry_points (sort_keys; no pipeline calls it)",
+        tallies["chunk_sort"], at,
+        turn_about(lambda: bitonic_sort.chunk_sort(key, sizes, chunk=chunk),
+                   lambda: bitonic_sort.chunk_sort_plain(key, sizes, chunk=chunk),
+                   kernel_reps=5, plain_reps=2, warm=1),
+        bound_fields([pass_bound(total, network_stages(chunk))]), None, [total], chunk=chunk))
+
+    at = Tally()
+    at.hold(bitonic_sort.big_ce(key, total // 2, total),
+            bitonic_sort.big_ce_plain(key, total // 2, total))
+    at.hold(bitonic_sort.big_ce(key, chunk, 2 * chunk),
+            bitonic_sort.big_ce_plain(key, chunk, 2 * chunk))
+    entries.append(sort_entry(
+        "big_ce", "big_ce_kernel", "genome_assembly_tpu/ops/bitonic_pallas.py:88",
+        hybrid_launches["big_ce"], "hybrid_e2e", tallies["big_ce"], at,
+        turn_about(lambda: bitonic_sort.big_ce(key, total // 2, total),
+                   lambda: bitonic_sort.big_ce_plain(key, total // 2, total)),
+        bound_fields([pass_bound(total, 1)]), None, [total], d=total // 2, size=total,
+        ms_at_smallest_d=timed_ms(lambda: bitonic_sort.big_ce(key, chunk, 2 * chunk)),
+        ms_in_place=timed_ms(
+            lambda: bitonic_sort.big_ce(key, total // 2, total, overwrite=True))))
+    # (the in-place timing left `key` one stage on; it is random input still)
+
+    at = Tally()
+    at.hold(bitonic_sort.finish(key, total, chunk=chunk),
+            bitonic_sort.finish_plain(key, total, chunk=chunk))
+    entries.append(sort_entry(
+        "finish", "finish_kernel", "genome_assembly_tpu/ops/bitonic_pallas.py:117",
+        hybrid_launches["finish"], "hybrid_e2e", tallies["finish"], at,
+        turn_about(lambda: bitonic_sort.finish(key, total, chunk=chunk),
+                   lambda: bitonic_sort.finish_plain(key, total, chunk=chunk), plain_reps=3),
+        bound_fields([pass_bound(total, log_chunk)]), None, [total], chunk=chunk, size=total))
+    del key
+
+    # the composed sorts, at the main path's key count
+    flat = random_keys(gen, n_keys, device, 0.3)
+    want = torch.sort(flat).values
+    library_ms = timed_ms(lambda: torch.sort(flat), reps=3, warm=1)
+    # the hybrid's own library part: the row-wise sort of its 2^21-key chunks
+    padded = bitonic_sort._padded_copy(flat, lib)
+    chunk_sorts_ms = timed_ms(lambda: torch.sort(padded.view(-1, lib), dim=1), reps=3, warm=1)
+    del padded
+    big_keys, fin_keys = hybrid_pass_counts(n_keys, chunk, chunk)
+    big_hyb, fin_hyb = hybrid_pass_counts(n_keys, lib, chunk)
+    one_big, one_fin = pass_bound(total, 1), pass_bound(total, log_chunk)
+    plans = [
+        ("sort_keys", bitonic_sort.sort_keys, "genome_assembly_tpu/ops/bitonic_pallas.py:217",
+         sum(entry_launches[k] for k in ("chunk_sort", "big_ce", "finish")),
+         "sort_entry_points (kernel launches of one sort_keys call)",
+         [pass_bound(total, network_stages(chunk))] + [one_big] * big_keys + [one_fin] * fin_keys,
+         lambda: plain_network(flat, chunk, chunk), {}),
+        ("sort_keys_hybrid", bitonic_sort.sort_keys_hybrid,
+         "genome_assembly_tpu/ops/bitonic_pallas.py:285",
+         hybrid_launches["big_ce"] + hybrid_launches["finish"],
+         "hybrid_e2e (kernel launches of its one sort_keys_hybrid call)",
+         # the library sort of the chunks counts as one pass over the keys
+         [pass_bound(total, 0)] + [one_big] * big_hyb + [one_fin] * fin_hyb,
+         lambda: plain_network(flat, lib, chunk),
+         {"lib_chunk": lib, "library_chunk_sorts_ms": chunk_sorts_ms}),
+    ]
+    for name, fn, replaces, launches, launches_from, passes, plain, more in plans:
+        at = Tally()
+        at.hold(fn(flat), want)
+        at.hold(plain(), want)
+        times = {"ms": timed_ms(lambda: fn(flat), reps=3, warm=1),
+                 "plain_ms": timed_ms(plain, reps=1, warm=0)}
+        entries.append(sort_entry(
+            name, "chunk_sort_kernel, big_ce_kernel, finish_kernel", replaces,
+            launches, launches_from, tallies[name], at, times,
+            bound_fields(passes), library_ms, [n_keys],
+            source="genome_assembly_tpu_torch/ops/bitonic_sort.py", composite=True,
+            chunk=chunk, padded_to=total, passes=len(passes), library_call="torch.sort(x)",
+            **more))
+    return entries
+
+
+def plain_network(key, first_unit, chunk):
+    """sort_keys (first_unit == chunk) or sort_keys_hybrid (first_unit ==
+    lib_chunk) composed of the PLAIN passes, on the card: what the composed
+    sorts' plain_ms is."""
+    n = key.shape[0]
+    buf = bitonic_sort._padded_copy(key, first_unit)
+    if first_unit == chunk:
+        buf = bitonic_sort.chunk_sort_plain(buf, levels_up_to(chunk), chunk=chunk)
+    else:
+        buf = torch.sort(buf.view(-1, first_unit), dim=1).values
+        buf[1::2] = buf[1::2].flip(1)
+        buf = buf.view(-1)
+    size = 2 * first_unit
+    while size <= buf.shape[0]:
+        d = size // 2
+        while d >= chunk:
+            buf = bitonic_sort.big_ce_plain(buf, d, size)
+            d //= 2
+        buf = bitonic_sort.finish_plain(buf, size, chunk=chunk)
+        size *= 2
+    return buf[:n]
+
+
+def phase_chunk_choice(device, n_keys):
+    """Which chunk size and block size the shared-memory kernels should
+    default to: finish and chunk_sort over the padded main-path key count
+    for chunk 2^12 .. 2^14 and 256 .. 1024 threads, and the hybrid sort of
+    the main path's key count at each chunk (default threads)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    lib = bitonic_sort.DEFAULT_LIB_CHUNK
+    flat = random_keys(gen, n_keys, device, 0.3)
+    key = bitonic_sort._padded_copy(flat, lib)
+    total = key.shape[0]
+    default_threads = bitonic_cuda.SHARED_THREADS
+    grid, hybrid = [], []
+    try:
+        for chunk in (1 << 12, 1 << 13, 1 << 14):
+            sizes = levels_up_to(chunk)
+            for threads in (256, 512, 1024):
+                bitonic_cuda.SHARED_THREADS = threads
+                grid.append({
+                    "chunk": chunk, "threads": threads,
+                    "finish_ms": timed_ms(
+                        lambda: bitonic_sort.finish(key, total, chunk=chunk), reps=5),
+                    "chunk_sort_ms": timed_ms(
+                        lambda: bitonic_sort.chunk_sort(key, sizes, chunk=chunk), reps=3, warm=1)})
+    finally:
+        bitonic_cuda.SHARED_THREADS = default_threads
+    order = (1 << 13, 1 << 14, 1 << 14, 1 << 13, 1 << 12)
+    for chunk in order:
+        hybrid.append({"chunk": chunk, "sort_keys_hybrid_ms": timed_ms(
+            lambda: bitonic_sort.sort_keys_hybrid(flat, chunk=chunk), reps=3, warm=1)})
+    emit("chunk_choice", n_keys=n_keys, padded_to=total, lib_chunk=lib,
+         default_chunk=bitonic_sort.DEFAULT_CHUNK, default_threads=default_threads,
+         passes=grid, hybrid=hybrid)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--coverage", type=int, default=ECOLI["coverage"],
-                    help="coverage of the full_e2e read set (the preset's is 50)")
+                    help="coverage of the ecoli read set of full_e2e and hybrid_e2e "
+                         "(the preset's is 50)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -349,13 +909,28 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_env()
     phase_build()
-    mismatches, max_err = phase_kernel_check(device)
+    scan_tally = phase_kernel_check(device)
     phase_small_e2e(device)
-    launches, first_batch = phase_full_e2e(device, args.coverage)
-    kernels = phase_kernels(device, launches, first_batch, mismatches, max_err)
+    full = phase_full_e2e(device, args.coverage)
+    tallies = phase_sort_check(device)
+    hybrid_launches = phase_hybrid_e2e(device, full)
+    n_keys = full["fields"]["window_slots"]
+    first_batch, scan_launches = full["first_batch"], full["launches"]["fast_scan"]
+    del full
+    entry_launches = phase_sort_entry_points(device, n_keys)
+    torch.cuda.empty_cache()
+    kernels = [time_scan(device, first_batch, scan_launches, scan_tally)]
+    kernels += time_sort_kernels(device, tallies, hybrid_launches, entry_launches, n_keys)
+    torch.cuda.empty_cache()
+    phase_chunk_choice(device, n_keys)
+    for entry in kernels:
+        if entry["mismatches"] or not entry["launches"]:
+            raise AssertionError(
+                f"{entry['name']}: {entry['mismatches']} mismatches, "
+                f"{entry['launches']} launches on its path")
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
-    print(json.dumps(kernels), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,8 @@
 
   python -m genome_assembly_tpu_torch generate --genome-len 3000 --coverage 8 \\
       --read-len 64 --seed 5 --with-reverse --out r.txt
-  python -m genome_assembly_tpu_torch assemble r.txt --mode fast --k 21 --m 7 [--cpu]
+  python -m genome_assembly_tpu_torch assemble r.txt --mode fast --k 21 --m 7 \\
+      [--cpu] [--hybrid-sort]
 
 ``assemble`` runs on the card unless ``--cpu`` is given.  The other
 subcommands and options of the JAX package's CLI are not ported yet.
@@ -29,6 +30,13 @@ def _add_pipeline_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--batch-reads", type=int, default=16384)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     ap.add_argument(
+        "--hybrid-sort",
+        action="store_true",
+        help="fast mode: sort the counted keys with library chunk sorts "
+        "merged by the hand-written bitonic kernels instead of one library "
+        "sort (same output)",
+    )
+    ap.add_argument(
         "--outofcore-gb",
         type=float,
         default=3.0,
@@ -47,6 +55,7 @@ def _make_config(args):
         parity=args.mode == "parity",
         batch_reads=args.batch_reads,
         max_read_len=args.max_read_len,
+        hybrid_sort=args.hybrid_sort,
         outofcore_bytes=int(args.outofcore_gb * (1 << 30)),
     )
 

@@ -1,9 +1,10 @@
 """Runtime configuration for the assembly pipeline.
 
-Same fields and checks as the JAX package's ``PipelineConfig``, minus
-``pallas_scan`` / ``pallas_sort``: on a CUDA tensor the hand-written
-kernel IS the scan, and the Pallas sort back-ends have no counterpart
-here yet.
+Same fields and checks as the JAX package's ``PipelineConfig``, with two
+differences.  There is no ``pallas_scan``: on a CUDA tensor the
+hand-written kernel IS the scan.  ``pallas_sort`` is called
+``hybrid_sort`` here, because nothing in this package is Pallas: it sends
+the count sort through the bitonic kernels (``ops/bitonic_sort.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,11 @@ class PipelineConfig:
         switches to its low-memory per-round form.
       wide_state_ids: distributed extension: carry dBG state ids as wide
         (shard, local) pairs; "auto" switches at 2**31 padded states.
+      hybrid_sort: fast mode: sort the counted keys with library sorts of
+        chunks merged by the hand-written bitonic kernels
+        (``ops/bitonic_sort.sort_keys_hybrid``) instead of one library
+        sort.  Counterpart of the JAX package's ``pallas_sort``; same
+        result, off by default.
     """
 
     k: int = 31
@@ -48,6 +54,7 @@ class PipelineConfig:
     link_budget_bytes: int = 1 << 30
     bulk_jump_states: int = 1 << 26
     wide_state_ids: object = "auto"
+    hybrid_sort: bool = False
 
     def __post_init__(self) -> None:
         if not (1 <= self.m <= 15):

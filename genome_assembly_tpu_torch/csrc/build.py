@@ -30,6 +30,10 @@ NVCC_FLAGS = [
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
+# {source stem: what nvcc printed} for the sources compiled by this process
+# (with ``verbose`` that is ptxas's registers, shared memory and spills)
+build_log: Dict[str, str] = {}
+
 
 def nvcc_path() -> str:
     """The CUDA compiler: $CUDA_HOME/bin/nvcc, PATH, or /usr/local/cuda."""
@@ -83,6 +87,7 @@ def build_all(verbose: bool = False) -> Dict[str, pathlib.Path]:
             if p.returncode != 0:
                 failures.append(f"{s.name}: nvcc exited {p.returncode}\n{out}")
                 continue
+            build_log[s.stem] = out
             if verbose and out:
                 print(out, flush=True)
             os.replace(tmp, targets[s.stem])

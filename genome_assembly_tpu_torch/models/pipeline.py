@@ -144,7 +144,9 @@ class FastAssembler:
         stats = PhaseStats(n_reads=len(reads))
         clock = _PhaseClock(stats, self.device)
         combined, _ = self._flat_fast_records(reads, stats, clock)
-        kc = count_ops.count_keys(combined, cutoff=cfg.abundance_cutoff)
+        kc = count_ops.count_keys(
+            combined, cutoff=cfg.abundance_cutoff, hybrid_sort=cfg.hybrid_sort
+        )
         stats.entries_pre_prune = int((kc.group_start & kc.valid).sum())
         stats.entries_post_prune = int(kc.keep.sum())
         kmer, valid = count_ops.kept_keys_sorted(kc)
@@ -207,7 +209,9 @@ class FastAssembler:
         stats = PhaseStats(n_reads=len(reads))
         clock = _PhaseClock(stats, self.device)
         combined, _ = self._flat_fast_records(reads, stats, clock)
-        kc = count_ops.count_keys(combined, cutoff=cfg.abundance_cutoff)
+        kc = count_ops.count_keys(
+            combined, cutoff=cfg.abundance_cutoff, hybrid_sort=cfg.hybrid_sort
+        )
         stats.entries_pre_prune = int((kc.group_start & kc.valid).sum())
         stats.entries_post_prune = int(kc.keep.sum())
         kmer, valid, counts = count_ops.kept_keys_sorted_with_counts(kc)

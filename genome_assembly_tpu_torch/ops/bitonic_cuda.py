@@ -1,0 +1,134 @@
+"""ctypes bindings and wrappers of the bitonic kernels (csrc/bitonic.cu).
+
+Replace the JAX package's ``sort_rows_pallas`` (ops/sort_pallas.py) and
+``_run_chunk_pass``, ``_run_big_ce``, ``_run_finish`` (ops/bitonic_pallas.py).
+Each wrapper checks what its kernel does not take and raises; it launches on
+torch's current stream, does not synchronise and allocates only its output.
+A wrapper writes into its caller's tensor only when told ``overwrite=True``
+(the sorts say so for the buffer they own).  ``launch_count[name]`` goes up
+by one per launch of that kernel and nowhere else, so a run can show which
+kernels it went through.
+
+The library is built and loaded at the first launch, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from genome_assembly_tpu_torch.ops import bitonic_sort
+
+# launches of each kernel since import (or since a caller reset them)
+launch_count = {"sort_rows": 0, "chunk_sort": 0, "big_ce": 0, "finish": 0}
+
+# Threads of a block of the three shared-memory kernels (the launcher
+# lowers it to one thread per pair for short rows and chunks).  A 2^14-key
+# chunk leaves room for one block per SM, so the block brings all the
+# warps: ``finish`` over 2^28 keys took 4.3 ms with 1024 threads, 5.0 with
+# 512, 7.0 with 256 (H100 80GB HBM3 at 700 W, chip_smoke.py chunk_choice).
+SHARED_THREADS = 1024
+
+# Keys one block holds in shared memory (``bitonic_max_shared_keys()`` of
+# the library): the largest row of ``sort_rows`` and the largest chunk.
+MAX_SHARED_KEYS = 1 << 14
+
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from genome_assembly_tpu_torch.csrc import build
+
+        lib = build.load("bitonic")
+        ptr, i32, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
+        lib.sort_rows_launch.argtypes = [ptr, ptr, i64, i32, i32, ptr]
+        lib.chunk_sort_launch.argtypes = [ptr, ptr, i64, i32, u64, i32, ptr]
+        lib.finish_launch.argtypes = [ptr, ptr, i64, i32, u64, i32, ptr]
+        lib.big_ce_launch.argtypes = [ptr, ptr, u64, u64, u64, ptr]
+        for fn in (lib.sort_rows_launch, lib.chunk_sort_launch, lib.finish_launch,
+                   lib.big_ce_launch, lib.bitonic_max_shared_keys):
+            fn.restype = ctypes.c_int
+        lib.bitonic_max_shared_keys.argtypes = []
+        if lib.bitonic_max_shared_keys() != MAX_SHARED_KEYS:
+            raise RuntimeError("bitonic.cu and bitonic_cuda.py disagree on the largest chunk")
+        _lib = lib
+    return _lib
+
+
+def _check_on_card(name: str, key: torch.Tensor) -> None:
+    if not key.is_cuda:
+        raise ValueError(f"{name} needs a CUDA tensor")
+    if not key.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous tensor")
+
+
+def _check_fits(name: str, keys: int) -> None:
+    if keys > MAX_SHARED_KEYS:
+        raise ValueError(
+            f"{name}: {keys} keys do not fit a block's shared memory "
+            f"(at most {MAX_SHARED_KEYS})"
+        )
+
+
+def _launch(name: str, key: torch.Tensor, overwrite: bool, call) -> torch.Tensor:
+    """Run ``call(lib, in_ptr, out_ptr, stream)`` on key's device; count it."""
+    with torch.cuda.device(key.device):
+        out = key if overwrite else torch.empty_like(key)
+        err = call(_library(), key.data_ptr(), out.data_ptr(),
+                   torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+        launch_count[name] += 1
+    return out
+
+
+def sort_rows_cuda(key: torch.Tensor) -> torch.Tensor:
+    """Every row of contiguous CUDA keys [rows, C] sorted ascending; C a
+    power of two from 2 to ``MAX_SHARED_KEYS``, any rows >= 1."""
+    _check_on_card("sort_rows_cuda", key)
+    bitonic_sort.check_rows(key)
+    rows, c = key.shape
+    _check_fits("sort_rows_cuda", c)
+    return _launch("sort_rows", key, False, lambda lib, src, dst, stream:
+                   lib.sort_rows_launch(src, dst, rows, c, SHARED_THREADS, stream))
+
+
+def chunk_sort_cuda(key: torch.Tensor, sizes: Sequence[int], *, chunk: int,
+                    overwrite: bool = False) -> torch.Tensor:
+    """For each merge level of ``sizes`` the stages with distance < chunk, on
+    flat contiguous CUDA keys of a whole number of chunks."""
+    _check_on_card("chunk_sort_cuda", key)
+    bitonic_sort.check_chunked(key, chunk)
+    mask = bitonic_sort.check_sizes(sizes)
+    _check_fits("chunk_sort_cuda", chunk)
+    n_chunks = key.shape[0] // chunk
+    return _launch("chunk_sort", key, overwrite, lambda lib, src, dst, stream:
+                   lib.chunk_sort_launch(src, dst, n_chunks, chunk, mask, SHARED_THREADS, stream))
+
+
+def big_ce_cuda(key: torch.Tensor, d: int, size: int, *,
+                overwrite: bool = False) -> torch.Tensor:
+    """One compare-exchange stage at distance d of merge level size, on flat
+    contiguous CUDA keys of a whole number of blocks of 2 d."""
+    _check_on_card("big_ce_cuda", key)
+    bitonic_sort.check_stage(key, d, size)
+    n = key.shape[0]
+    return _launch("big_ce", key, overwrite, lambda lib, src, dst, stream:
+                   lib.big_ce_launch(src, dst, n, d, size, stream))
+
+
+def finish_cuda(key: torch.Tensor, size: int, *, chunk: int,
+                overwrite: bool = False) -> torch.Tensor:
+    """The stages chunk/2 .. 1 of merge level size, on flat contiguous CUDA
+    keys of a whole number of chunks."""
+    _check_on_card("finish_cuda", key)
+    bitonic_sort.check_chunked(key, chunk)
+    bitonic_sort.check_level(chunk, size)
+    _check_fits("finish_cuda", chunk)
+    n_chunks = key.shape[0] // chunk
+    return _launch("finish", key, overwrite, lambda lib, src, dst, stream:
+                   lib.finish_launch(src, dst, n_chunks, chunk, size, SHARED_THREADS, stream))

@@ -7,8 +7,12 @@ sorts past every real key and is masked out of everything.
 
 The sorts are ``torch.sort`` on one int64 key -- the library sort, as the
 JAX package leaves the same sorts to ``lax.sort`` outside any kernel.
-Outputs keep the JAX package's padded shapes (length of the input,
-sentinel tail) so the two can be compared row for row.
+``count_keys(hybrid_sort=True)`` takes the second route: library sorts of
+chunks merged by the hand-written bitonic kernels
+(``ops/bitonic_sort.sort_keys_hybrid``), the counterpart of the JAX
+package's ``pallas_sort``.  Outputs keep the JAX package's padded shapes
+(length of the input, sentinel tail) so the two can be compared row for
+row.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from genome_assembly_tpu_torch.common import SENTINEL
+from genome_assembly_tpu_torch.ops import bitonic_sort
 from genome_assembly_tpu_torch.ops.minimizer import WindowRecords
 
 
@@ -60,13 +65,26 @@ class KeyCounts(NamedTuple):
     keep: torch.Tensor
 
 
-def count_keys(records: WindowRecords, *, cutoff: int) -> KeyCounts:
+def count_keys(
+    records: WindowRecords, *, cutoff: int, hybrid_sort: bool = False
+) -> KeyCounts:
     """Count canonical k-mers without carrying read-id payloads.
 
     A sorted run has length > cutoff iff the element ``cutoff`` positions
     ahead still equals the run head -- one shifted comparison.
+
+    ``hybrid_sort`` sorts with ``sort_keys_hybrid`` instead of one
+    ``torch.sort``: on CUDA tensors through the bitonic kernels, on CPU
+    tensors through their plain versions.  (The JAX ``pallas_sort`` falls
+    back to ``lax.sort`` off the TPU without saying so; nothing here
+    switches route silently.)  The result is the same either way.
     """
-    key_s = torch.sort(_masked_flat_keys(records)).values
+    key = _masked_flat_keys(records)
+    if hybrid_sort:
+        key_s = bitonic_sort.sort_keys_hybrid(key)
+    else:
+        key_s = torch.sort(key).values
+    del key
     n = key_s.shape[0]
     valid = key_s != SENTINEL
     group_start = _run_starts(key_s)

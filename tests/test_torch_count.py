@@ -17,6 +17,7 @@ from genome_assembly_tpu.ops import count as jcount
 from genome_assembly_tpu.ops.minimizer import WindowRecords as JRecords
 from genome_assembly_tpu_torch import common as tcommon
 from genome_assembly_tpu_torch import convert
+from genome_assembly_tpu_torch.ops import bitonic_sort
 from genome_assembly_tpu_torch.ops import count as tcount
 
 K = 31
@@ -54,6 +55,52 @@ def test_count_keys_matches_jax(cutoff, seed):
     _assert_key_counts(jkc, tkc)
     assert np.array_equal(
         tcount.key_group_counts(tkc).numpy(), np.asarray(jcount.key_group_counts(jkc)))
+
+
+@pytest.fixture
+def small_network(monkeypatch):
+    """Shrink the sort's default chunks so that a few hundred keys run the
+    bitonic network; returns the list of network passes that were called."""
+    monkeypatch.setattr(bitonic_sort, "DEFAULT_LIB_CHUNK", 16)
+    monkeypatch.setattr(bitonic_sort, "DEFAULT_CHUNK", 4)
+    calls = []
+    for name in ("big_ce_plain", "finish_plain"):
+        real = getattr(bitonic_sort, name)
+        monkeypatch.setattr(
+            bitonic_sort, name,
+            lambda *a, _real=real, _name=name, **kw: (calls.append(_name), _real(*a, **kw))[1])
+    return calls
+
+
+@pytest.mark.parametrize("cutoff", [0, 1, 3])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_count_keys_hybrid_sort_matches_default_and_jax(small_network, cutoff, seed):
+    jrecs, trecs = _records(seed)
+    plain = tcount.count_keys(trecs, cutoff=cutoff)
+    assert small_network == []  # the default route runs no network pass
+    hybrid = tcount.count_keys(trecs, cutoff=cutoff, hybrid_sort=True)
+    # 300 keys pad to 512 = 16 * 2^5: five merge levels, one finish each
+    assert small_network.count("finish_plain") == 5
+    assert small_network.count("big_ce_plain") == 3 + 4 + 5 + 6 + 7
+    for f in plain._fields:
+        assert torch.equal(getattr(hybrid, f), getattr(plain, f)), f
+    _assert_key_counts(jcount.count_keys(jrecs, cutoff=cutoff), hybrid)
+    _assert_key_counts(jcount.count_keys(jrecs, cutoff=cutoff, pallas_sort=True), hybrid)
+
+
+@pytest.mark.parametrize("p_valid", [1.0, 0.0])
+def test_count_keys_hybrid_sort_all_or_nothing_valid(small_network, p_valid):
+    jrecs, trecs = _records(7, p_valid=p_valid)
+    hybrid = tcount.count_keys(trecs, cutoff=1, hybrid_sort=True)
+    assert small_network
+    _assert_key_counts(jcount.count_keys(jrecs, cutoff=1), hybrid)
+
+
+def test_count_keys_hybrid_sort_below_threshold_is_the_library_sort(small_network):
+    jrecs, trecs = _records(8, shape=(2, 16))  # 32 keys = two library chunks
+    hybrid = tcount.count_keys(trecs, cutoff=1, hybrid_sort=True)
+    assert small_network == []
+    _assert_key_counts(jcount.count_keys(jrecs, cutoff=1), hybrid)
 
 
 @pytest.mark.parametrize("p_valid", [1.0, 0.0])

@@ -20,6 +20,7 @@ from genome_assembly_tpu_torch.config import PipelineConfig as TConfig
 from genome_assembly_tpu_torch.io import datagen as tdatagen
 from genome_assembly_tpu_torch.io import reads as treads
 from genome_assembly_tpu_torch.models.pipeline import FastAssembler as TFast
+from genome_assembly_tpu_torch.ops import bitonic_sort
 
 _RC = str.maketrans("ACGT", "TGCA")
 
@@ -80,6 +81,30 @@ def test_unitigs_match_jax(name):
     assert _counters(gstats) == _counters(wstats)
     assert got, "empty assembly proves nothing"
     assert set(gstats.wall_s) == {"batch", "scan", "count", "links", "jump", "materialize"}
+
+
+@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("method", ["unitigs", "unitigs_with_coverage"])
+def test_hybrid_sort_unitigs_match_jax(monkeypatch, name, method):
+    """``hybrid_sort=True`` with the chunk defaults shrunk so the network runs
+    at toy size: the JAX unitigs in the same order, same counters."""
+    monkeypatch.setattr(bitonic_sort, "DEFAULT_LIB_CHUNK", 256)
+    monkeypatch.setattr(bitonic_sort, "DEFAULT_CHUNK", 32)
+    passes = []
+    real = bitonic_sort.finish_plain
+    monkeypatch.setattr(bitonic_sort, "finish_plain",
+                        lambda *a, **kw: (passes.append(1), real(*a, **kw))[1])
+    reads, kw = _case(name)
+    want = getattr(JFast(JConfig(**kw, pallas_sort=True)), method)(reads)
+    got = getattr(TFast(TConfig(**kw, hybrid_sort=True), device="cpu"), method)(reads)
+    assert passes, "the sort took the library route: the network was not driven"
+    assert got[0] == want[0] and got[0]
+    for g, w in zip(got[1:-1], want[1:-1]):
+        assert np.array_equal(g, w) and g.dtype == w.dtype
+    assert _counters(got[-1]) == _counters(want[-1])
+    passes.clear()
+    default = getattr(TFast(TConfig(**kw), device="cpu"), method)(reads)
+    assert not passes and default[0] == got[0]
 
 
 def test_unitigs_from_sequences_match_jax():
@@ -172,7 +197,9 @@ def test_config_fields_match_jax_minus_pallas_switches():
     jf = {f.name: f.default for f in dataclasses.fields(JConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(TConfig)}
     assert set(jf) - set(tf) == {"pallas_scan", "pallas_sort"}
-    assert set(tf) <= set(jf)
+    # the one field with another name: hybrid_sort is the port's pallas_sort
+    assert set(tf) - set(jf) == {"hybrid_sort"}
+    assert tf.pop("hybrid_sort") is False and jf["pallas_sort"] is False
     assert all(tf[n] == jf[n] for n in tf)
     c = TConfig(k=21, m=7)
     j = JConfig(k=21, m=7)

@@ -43,7 +43,8 @@ def _run(body: str) -> subprocess.CompletedProcess:
 def test_importing_every_module_pulls_in_no_jax():
     r = _run("""
 names = all_modules()
-assert len(names) >= 15, names
+assert len(names) >= 17, names
+assert pkg.__name__ + ".ops.bitonic_sort" in names and pkg.__name__ + ".ops.bitonic_cuda" in names
 for n in names:
     importlib.import_module(n)
 assert jax_side() == [], jax_side()
@@ -69,6 +70,66 @@ print("OK")
 """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "OK"
+
+
+def test_bitonic_binding_is_neither_imported_nor_built_at_package_import():
+    r = _run("""
+import genome_assembly_tpu_torch.models.pipeline
+import genome_assembly_tpu_torch.ops.count
+import genome_assembly_tpu_torch.ops.bitonic_sort
+assert "genome_assembly_tpu_torch.ops.bitonic_cuda" not in sys.modules
+assert "genome_assembly_tpu_torch.csrc.build" not in sys.modules
+# a CPU sort goes through the plain passes and still imports no binding
+import torch
+from genome_assembly_tpu_torch.ops import bitonic_sort
+key = torch.arange(99, 0, -1)
+assert torch.equal(bitonic_sort.sort_keys_hybrid(key, lib_chunk=8, chunk=4), key.flip(0))
+assert "genome_assembly_tpu_torch.ops.bitonic_cuda" not in sys.modules
+# importing the binding module builds and loads nothing
+from genome_assembly_tpu_torch.ops import bitonic_cuda
+from genome_assembly_tpu_torch.csrc import build
+assert bitonic_cuda._lib is None and build._loaded == {}
+assert set(bitonic_cuda.launch_count.values()) == {0}
+assert sorted(bitonic_cuda.launch_count) == ["big_ce", "chunk_sort", "finish", "sort_rows"]
+print("OK")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "OK"
+
+
+@pytest.mark.parametrize("call", [
+    "sort_rows_cuda(torch.zeros((4, 8), dtype=torch.int64))",
+    "chunk_sort_cuda(torch.zeros(64, dtype=torch.int64), [2, 4, 8], chunk=8)",
+    "big_ce_cuda(torch.zeros(64, dtype=torch.int64), 8, 16)",
+    "finish_cuda(torch.zeros(64, dtype=torch.int64), 16, chunk=8)",
+])
+def test_bitonic_cuda_wrappers_refuse_cpu_tensors(call):
+    r = _run(f"""
+import torch
+from genome_assembly_tpu_torch.ops import bitonic_cuda
+try:
+    bitonic_cuda.{call}
+except ValueError as e:
+    print("RAISED", e)
+assert set(bitonic_cuda.launch_count.values()) == {{0}} and bitonic_cuda._lib is None
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("RAISED") and "CUDA" in r.stdout
+
+
+def test_hybrid_sort_raises_without_a_card_rather_than_running_on_the_cpu():
+    r = _run("""
+import torch
+from genome_assembly_tpu_torch.config import PipelineConfig
+from genome_assembly_tpu_torch.models.pipeline import FastAssembler
+cfg = PipelineConfig(k=11, m=5, parity=False, max_read_len=64, batch_reads=64, hybrid_sort=True)
+try:
+    FastAssembler(cfg).unitigs(["ACGTTGCATGCCGATAGCTAGCTAGGATCGATCGA"] * 4)
+except RuntimeError as e:
+    print("RAISED", e)
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("RAISED") and "CUDA" in r.stdout
 
 
 def test_source_files_name_no_jax_import():
@@ -155,6 +216,11 @@ def test_cli_drives_the_fast_path_on_the_cpu(tmp_path):
     rows = [line.split("\t") for line in cov.stdout.splitlines()]
     assert [r[0] for r in rows] == unitigs
     assert all(int(r[1]) == len(r[0]) - 21 + 1 for r in rows)
+    # --hybrid-sort changes the sort's route, not the output
+    hybrid = subprocess.run(base + ["--cpu", "--hybrid-sort"], cwd=str(tmp_path), env=env,
+                            capture_output=True, text=True, timeout=300)
+    assert hybrid.returncode == 0, hybrid.stderr
+    assert hybrid.stdout == on_cpu.stdout
     # without --cpu on a machine without a card: refuses, prints no unitigs
     on_card = subprocess.run(base, cwd=str(tmp_path), env=env,
                              capture_output=True, text=True, timeout=300)
