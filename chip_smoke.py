@@ -11,10 +11,11 @@ the size of the repo's ``ecoli`` scale preset -- once with the default
 library sort (``full_e2e``) and once with ``hybrid_sort=True``, the count
 sort through the bitonic kernels (``hybrid_e2e``; same reads, the results
 must be equal) -- drives the sort entry points no pipeline calls
-(``sort_rows``, ``sort_keys``) at real sizes, times every kernel beside its
-plain version, its bound and the library call, and prints one JSON object
-per phase.  Exits non-zero if there is no CUDA device or any phase fails.
-Imports nothing of JAX and nothing of the JAX package.
+(``sort_rows``, ``sort_keys``, and ``sort_keys_mergepath`` on random keys and
+on the ecoli reads' own scanned keys) at the main path's key count, times
+every kernel beside its plain version, its bound and the library call, and
+prints one JSON object per phase.  Exits non-zero if there is no CUDA device
+or any phase fails.  Imports nothing of JAX and nothing of the JAX package.
 
 Last three lines of standard output: the card's name and power limit as
 nvidia-smi gives them, the ``kernels`` report, and the verdict.
@@ -44,6 +45,8 @@ from genome_assembly_tpu_torch.ops import bitonic_cuda
 from genome_assembly_tpu_torch.ops import bitonic_sort
 from genome_assembly_tpu_torch.ops import count as count_ops
 from genome_assembly_tpu_torch.ops import dbg
+from genome_assembly_tpu_torch.ops import mergepath_cuda
+from genome_assembly_tpu_torch.ops import mergepath_sort
 from genome_assembly_tpu_torch.ops import minimizer
 from genome_assembly_tpu_torch.ops import minimizer_cuda
 
@@ -120,17 +123,22 @@ def phase_env():
 
 
 SORT_KERNELS = ("sort_rows_kernel", "chunk_sort_kernel", "big_ce_kernel", "finish_kernel")
+MERGE_KERNELS = ("local_merge_kernel", "merge_pass_kernel")
 
 
 def ptxas_report(log: str, kernels) -> dict:
     """{kernel: registers, static shared bytes, spill bytes} from what
-    ``nvcc -Xptxas -v`` printed."""
+    ``nvcc -Xptxas -v`` printed; an instance of a template kernel is named
+    ``kernel<V>``."""
     report, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             current = next((k for k in kernels if k in m.group(1)), None)
             if current:
+                instance = re.search(r"^ILi(\d+)E", m.group(1).split(current, 1)[1])
+                if instance:
+                    current += f"<{instance.group(1)}>"
                 report[current] = {"static_shared_bytes": 0}
         elif current and "spill stores" in line:
             stores, loads = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
@@ -148,16 +156,22 @@ def phase_build():
     libs = csrc_build.build_all(verbose=True)
     minimizer_cuda._library()
     bitonic_cuda._library()
-    if sorted(libs) != ["bitonic", "fast_scan"]:
-        raise AssertionError(f"expected two CUDA sources, built {sorted(libs)}")
+    mergepath_cuda._library()
+    if sorted(libs) != ["bitonic", "fast_scan", "mergepath"]:
+        raise AssertionError(f"expected three CUDA sources, built {sorted(libs)}")
     report = ptxas_report(csrc_build.build_log.get("bitonic", ""), SORT_KERNELS)
-    if sorted(report) != sorted(SORT_KERNELS):
-        raise AssertionError(f"ptxas reported {sorted(report)}, expected {SORT_KERNELS}")
-    # the keys of the three shared-memory kernels are DYNAMIC shared memory,
-    # 8 bytes a key of the row or chunk, which ptxas does not see
+    report.update(ptxas_report(csrc_build.build_log.get("mergepath", ""), MERGE_KERNELS))
+    if sorted({name.split("<")[0] for name in report}) != sorted(SORT_KERNELS + MERGE_KERNELS):
+        raise AssertionError(
+            f"ptxas reported {sorted(report)}, expected {SORT_KERNELS + MERGE_KERNELS}")
+    # the keys of the shared-memory kernels are DYNAMIC shared memory, which
+    # ptxas does not see: 8 bytes a key of the row or chunk, and in
+    # merge_pass_kernel 17 bytes a key of the tile (two windows and the skew)
     emit("build", seconds=time.perf_counter() - t0,
          libraries=sorted(str(p.name) for p in libs.values()), ptxas=report,
-         dynamic_shared_bytes_per_key=8, max_shared_keys=bitonic_cuda.MAX_SHARED_KEYS)
+         dynamic_shared_bytes_per_key=8, max_shared_keys=bitonic_cuda.MAX_SHARED_KEYS,
+         max_merge_chunk_keys=mergepath_cuda.MAX_CHUNK_KEYS,
+         max_merge_tile_keys=mergepath_cuda.MAX_TILE_KEYS)
 
 
 def compare_scan(codes, lengths, k, m):
@@ -406,16 +420,21 @@ def count_refusals(device):
         lambda: bitonic_sort.sort_keys_hybrid(k64, lib_chunk=8, chunk=16),
         lambda: bitonic_sort.sort_keys(k64, chunk=12),
     ]
-    launches = dict(bitonic_cuda.launch_count)
+    return refused_of(bad, bitonic_cuda.launch_count), len(bad)
+
+
+def refused_of(bad, launch_count):
+    """How many of the calls raise ValueError or TypeError; none may launch."""
+    launches = dict(launch_count)
     refused = 0
     for call in bad:
         try:
             call()
         except (ValueError, TypeError):
             refused += 1
-    if bitonic_cuda.launch_count != launches:
+    if launch_count != launches:
         raise AssertionError("a refused call launched a kernel")
-    return refused, len(bad)
+    return refused
 
 
 def phase_sort_check(device):
@@ -441,14 +460,245 @@ def phase_sort_check(device):
     return tallies
 
 
-def kept_table(reads, cfg, device):
-    """Sorted kept canonical keys of a read set, by the ops alone."""
+# --------------------------------------------------------------------------
+# the merge-path passes (csrc/mergepath.cu)
+# --------------------------------------------------------------------------
+
+def sorted_runs(key, run):
+    """The flat keys, ascending within every run of `run` keys."""
+    return torch.sort(key.view(-1, run), dim=1).values.reshape(-1)
+
+
+def merge_inputs(gen, n, run, device):
+    """Valid inputs of one merge level (runs of `run` ascending): random keys
+    with duplicates; all-equal; every key about 50 times (ties across every
+    split, as the main path's coverage gives them); sorted (every B wholly
+    above its A) and the same with the runs of every pair swapped (A above
+    B), the two ends of the split search; a run pair of SENTINEL only; a
+    SENTINEL tail as padding leaves it."""
+    patterns = key_patterns(gen, n, device)
+    fifty = torch.randint(0, max(n // 50, 1), (n,), dtype=torch.int64, device=device,
+                          generator=gen)
+    ordered = patterns["sorted"]
+    no_pair = patterns["random"].clone()
+    no_pair[: 2 * run] = SENTINEL
+    tail = ordered.clone()
+    tail[n - n // 3:] = SENTINEL
+    swapped = ordered.view(-1, 2, run).flip(1).reshape(-1)
+    states = {"random": patterns["random"], "all_equal": patterns["all_equal"],
+              "fifty_fold": fifty, "b_above_a": ordered, "a_above_b": swapped,
+              "sentinel_pair": no_pair, "padded_tail": tail}
+    return {name: sorted_runs(key, run) for name, key in states.items()}
+
+
+def check_local_merge(gen, device, chunks=(2, 64, 4096, 8192, mergepath_cuda.MAX_CHUNK_KEYS)):
+    """K4a against its plain version: chunk 2 .. the largest, base_run 1 ..
+    chunk / 2, a chunk count that is no power of two, on valid input (runs
+    ascending) and on raw keys (the network is the same function on any
+    input), a subset of the levels, more chunks than the grid has blocks,
+    and in place."""
+    t = Tally()
+    for chunk in chunks:
+        n = chunk * 24
+        bases = sorted({1, max(chunk // 32, 1), chunk // 2})
+        for name, key in key_patterns(gen, n, device).items():
+            for base_run in bases:
+                levels = merge_levels(base_run, chunk)
+                for state in (sorted_runs(key, base_run), key):
+                    t.hold(mergepath_sort.local_merge(state, levels, chunk=chunk),
+                           mergepath_sort.local_merge_plain(state, levels, chunk=chunk))
+            some = sorted({2, chunk})
+            t.hold(mergepath_sort.local_merge(key, some, chunk=chunk),
+                   mergepath_sort.local_merge_plain(key, some, chunk=chunk))
+    key = key_patterns(gen, 2 * 5000, device)["random"]  # more chunks than blocks
+    want = mergepath_sort.local_merge_plain(key, [2], chunk=2)
+    before = key.clone()
+    t.hold(mergepath_sort.local_merge(key, [2], chunk=2), want)
+    t.hold(key, before)  # without overwrite the caller's tensor is untouched
+    got = mergepath_sort.local_merge(key, [2], chunk=2, overwrite=True)
+    if got.data_ptr() != key.data_ptr():
+        raise AssertionError("local_merge(overwrite=True) did not work in place")
+    t.hold(got, want)
+    return t
+
+
+def hold_merge_pass(t, state, run, tile, on_cpu=False):
+    """One K4b pass held against its plain version and against the library
+    sort of every run pair; merge_splits on the card against the CPU's."""
+    splits = mergepath_sort.merge_splits(state, run, tile)
+    got = mergepath_sort.merge_pass(state, splits, run=run, tile=tile)
+    t.hold(got, mergepath_sort.merge_pass_plain(state, splits, run=run, tile=tile))
+    t.hold(got, sorted_runs(state, 2 * run))
+    if on_cpu:
+        for ours, theirs in zip(splits, mergepath_sort.merge_splits(state.cpu(), run, tile)):
+            t.hold(ours.cpu(), theirs)
+
+
+def check_merge_pass(gen, device, max_tile=mergepath_cuda.MAX_TILE_KEYS):
+    """K4b: tile 2 .. the largest, run = tile .. 64 tiles, three run pairs (no
+    power of two), every input of merge_inputs, 4 and 8 keys a thread (2, for
+    a tile of 2 keys, is in the shapes)."""
+    t = Tally()
+    before = mergepath_cuda.KEYS_PER_THREAD
+    shapes = [(2, 2), (2, 64), (64, 64), (64, 4096), (max_tile // 2, max_tile // 2),
+              (max_tile // 2, 4 * max_tile), (max_tile, max_tile), (max_tile, 16 * max_tile),
+              (max_tile // 2, 32 * max_tile)]
+    for tile, run in shapes:
+        for name, state in merge_inputs(gen, 6 * run, run, device).items():
+            hold_merge_pass(t, state, run, tile, on_cpu=run <= 4096)
+    try:
+        for per_thread in (4, 8):
+            mergepath_cuda.KEYS_PER_THREAD = per_thread
+            for tile in (16, max_tile // 8, max_tile):
+                for name, state in merge_inputs(gen, 8 * tile, 2 * tile, device).items():
+                    hold_merge_pass(t, state, 2 * tile, tile)
+    finally:
+        mergepath_cuda.KEYS_PER_THREAD = before
+    return t
+
+
+def check_merge_wide_index(device, run=1 << 26, pairs=17, tile=None):
+    """Positions past 2^31: one K4b pass over 2^31 + 2^27 keys (two buffers of
+    18.3 GB).  The runs are made arithmetically (run r holds offset_r +
+    stride_r * i: ascending, with ties between the runs of a pair), since
+    sorting them there would not fit; the first and the LAST run pair are held
+    against the library sort of that pair (the plain version does not fit
+    either), every pair must come out ascending, and the sum of all keys
+    must be kept."""
+    tile = mergepath_sort.DEFAULT_MERGE_TILE if tile is None else tile
+    t = Tally()
+    n = 2 * pairs * run
+    key = torch.empty(n, dtype=torch.int64, device=device)
+    step = torch.arange(run, dtype=torch.int64, device=device)
+    for r in range(2 * pairs):
+        torch.add(step * (3 + r * 7 % 5), r * 12345 % 1000, out=key[r * run:(r + 1) * run])
+    del step
+    got = mergepath_sort.merge_pass(key, mergepath_sort.merge_splits(key, run, tile),
+                                    run=run, tile=tile)
+    for pair in (0, pairs - 1):
+        span = slice(pair * 2 * run, (pair + 1) * 2 * run)
+        t.hold(got[span], torch.sort(key[span]).values)
+    ascending = all(bool((got[p * 2 * run + 1:(p + 1) * 2 * run]
+                          >= got[p * 2 * run:(p + 1) * 2 * run - 1]).all()) for p in range(pairs))
+    if not ascending or int(got.sum()) != int(key.sum()):
+        raise AssertionError("merge_pass past position 2^31: a pair is not ascending, "
+                             "or keys were lost")
+    return t, n
+
+
+def check_composed_mergepath(gen, device):
+    """sort_keys_mergepath against torch.sort: at 4 chunk - 1 (library), 4 chunk
+    and 4 chunk + 1, at an n that is no power of two, with small constants and
+    with the defaults, and with base_run == chunk (no K4a launch).  The launch
+    counts show that the kernels ran exactly where they should."""
+    t = Tally()
+    chunk = mergepath_sort.DEFAULT_MERGE_CHUNK
+    plans = [
+        (dict(tile=16, base_run=8, chunk=64), [255, 256, 257, 50000, 1 << 16]),
+        (dict(tile=2, base_run=1, chunk=2), [7, 8, 1000]),
+        (dict(tile=64, base_run=64, chunk=64), [256, 50000]),
+        ({}, [4 * chunk - 1, 4 * chunk, 4 * chunk + 1, 300000]),
+        (dict(base_run=chunk), [4 * chunk, 300000]),
+    ]
+    for kwargs, sizes in plans:
+        c = kwargs.get("chunk", chunk)
+        for n in sizes:
+            key = key_patterns(gen, n, device)["random"]
+            before = key.clone()
+            launched = dict(mergepath_cuda.launch_count)
+            got = mergepath_sort.sort_keys_mergepath(key, **kwargs)
+            local = mergepath_cuda.launch_count["local_merge"] - launched["local_merge"]
+            passes = mergepath_cuda.launch_count["merge_pass"] - launched["merge_pass"]
+            want_passes = (max(n - 1, 1).bit_length() - (c.bit_length() - 1)) if n >= 4 * c else 0
+            want_local = int(n >= 4 * c and kwargs.get("base_run", 1) != c)
+            if (local, passes) != (want_local, want_passes):
+                raise AssertionError(
+                    f"sort_keys_mergepath({n}, {kwargs}) launched local_merge {local}, "
+                    f"merge_pass {passes}; the sizes give {want_local}, {want_passes}")
+            t.hold(got, torch.sort(key).values)
+            t.hold(key, before)
+    return t
+
+
+def merge_refusals(device):
+    """Every merge-path wrapper must refuse what its kernel does not take."""
+    k64 = torch.zeros(64, dtype=torch.int64, device=device)
+    s8 = torch.zeros(8, dtype=torch.int64, device=device)
+    big_chunk = 2 * mergepath_cuda.MAX_CHUNK_KEYS
+    big_tile = 2 * mergepath_cuda.MAX_TILE_KEYS
+    big = torch.zeros(2 * big_chunk, dtype=torch.int64, device=device)
+    s_big = torch.zeros(big.shape[0] // big_tile, dtype=torch.int64, device=device)
+    lm, mp = mergepath_cuda.local_merge_cuda, mergepath_cuda.merge_pass_cuda
+    bad = [
+        lambda: lm(k64.cpu(), [4, 8], chunk=8),
+        lambda: lm(k64.int(), [4, 8], chunk=8),
+        lambda: lm(big[::2][:64], [4, 8], chunk=8),
+        lambda: lm(k64[:48], [4], chunk=12),
+        lambda: lm(k64, [4], chunk=128),
+        lambda: lm(k64, [8, 4], chunk=8),
+        lambda: lm(k64, [16], chunk=8),
+        lambda: lm(k64, [3], chunk=8),
+        lambda: lm(big, [4], chunk=big_chunk),
+        lambda: mp(k64.cpu(), s8, s8, run=8, tile=8),
+        lambda: mp(k64.int(), s8, s8, run=8, tile=8),
+        lambda: mp(big[::2][:64], s8, s8, run=8, tile=8),
+        lambda: mp(k64, s8, s8, run=8, tile=16),
+        lambda: mp(k64, s8, s8, run=12, tile=4),
+        lambda: mp(k64[:48], s8[:6], s8[:6], run=16, tile=8),
+        lambda: mp(k64, s8.cpu(), s8, run=8, tile=8),
+        lambda: mp(k64, s8, s8.int(), run=8, tile=8),
+        lambda: mp(k64, s8[:4], s8, run=8, tile=8),
+        lambda: mp(k64, s8, s8, run=8, tile=8, out=k64),
+        lambda: mp(big[:64], s8, s8, run=8, tile=8, out=big[8:72]),
+        lambda: mp(k64, s8, s8, run=8, tile=8, out=k64.cpu()),
+        lambda: mp(k64, s8, s8, run=8, tile=8, out=big[:64].int()),
+        lambda: mp(big, s_big, s_big, run=big_tile, tile=big_tile),
+        lambda: mergepath_sort.sort_keys_mergepath(k64, tile=32, base_run=4, chunk=16),
+        lambda: mergepath_sort.sort_keys_mergepath(k64, tile=8, base_run=4, chunk=24),
+        lambda: mergepath_sort.sort_keys_mergepath(k64, tile=8, base_run=32, chunk=16),
+        lambda: mergepath_sort.sort_keys_mergepath(k64.view(8, 8), tile=8, base_run=4, chunk=16),
+    ]
+    return refused_of(bad, mergepath_cuda.launch_count), len(bad)
+
+
+def phase_merge_check(device):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8765)
+    tallies = {"local_merge": check_local_merge(gen, device),
+               "merge_pass": check_merge_pass(gen, device),
+               "sort_keys_mergepath": check_composed_mergepath(gen, device)}
+    torch.cuda.empty_cache()
+    tallies["merge_wide_index"], wide_keys = check_merge_wide_index(device)
+    torch.cuda.synchronize()
+    refused, n_bad = merge_refusals(device)
+    report = {name: t.report() for name, t in tallies.items()}
+    emit("merge_check", tolerance=0, refused_bad_inputs=refused, bad_inputs=n_bad,
+         wide_index_keys=wide_keys, **report)
+    total = sum(t.mismatches for t in tallies.values())
+    if total or refused != n_bad:
+        raise AssertionError(
+            f"merge_check failed: {total} mismatches, {refused}/{n_bad} refusals")
+    torch.cuda.empty_cache()
+    return tallies
+
+
+def scanned_keys(reads, cfg, device):
+    """The canonical k-mer key of every window slot of a read set (SENTINEL
+    where a read has no window), batch by batch through the scan: what the
+    count phase sorts (the last batch padded to a full one, as the pipeline
+    pads it)."""
     batches = reads_io.batch_reads(reads, cfg.max_read_len, cfg.batch_reads)
+    if len(batches) > 1:
+        batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
     keys = []
     for codes, lengths, _ in stream_io.feed_read_batches(batches, device):
         keys.append(minimizer.fast_scan(codes, lengths, k=cfg.k, m=cfg.m).kmer.reshape(-1))
-    key = torch.cat(keys)
-    del keys
+    return torch.cat(keys)
+
+
+def kept_table(reads, cfg, device):
+    """Sorted kept canonical keys of a read set, by the ops alone."""
+    key = scanned_keys(reads, cfg, device)
     recs = minimizer.WindowRecords(mmer=key[:0].int(), kmer=key, valid=key != SENTINEL)
     kc = count_ops.count_keys(recs, cutoff=cfg.abundance_cutoff)
     kmer, valid = count_ops.kept_keys_sorted(kc)
@@ -485,12 +735,14 @@ def phase_small_e2e(device):
 
 def reset_launch_counts():
     minimizer_cuda.launch_count = 0
-    for name in bitonic_cuda.launch_count:
-        bitonic_cuda.launch_count[name] = 0
+    for counts in (bitonic_cuda.launch_count, mergepath_cuda.launch_count):
+        for name in counts:
+            counts[name] = 0
 
 
 def read_launch_counts():
-    return {"fast_scan": minimizer_cuda.launch_count, **bitonic_cuda.launch_count}
+    return {"fast_scan": minimizer_cuda.launch_count, **bitonic_cuda.launch_count,
+            **mergepath_cuda.launch_count}
 
 
 def hybrid_pass_counts(n, lib_chunk, chunk):
@@ -546,7 +798,7 @@ def phase_full_e2e(device, coverage):
     genome, reads = coverage_reads(p["genome_len"], p["read_len"], p["coverage"], seed=0)
     t_reads = time.perf_counter() - t0
     cfg, unitigs, stats, launches, fields = run_ecoli(device, reads, hybrid_sort=False)
-    if any(launches[name] for name in bitonic_cuda.launch_count):
+    if any(launches[name] for name in (*bitonic_cuda.launch_count, *mergepath_cuda.launch_count)):
         raise AssertionError(f"the default path launched a sort kernel: {launches}")
     t0 = time.perf_counter()
     kept = kept_table(reads, cfg, device)
@@ -582,7 +834,7 @@ def phase_hybrid_e2e(device, full):
             f"{launches['finish']} times; the sizes give {want_big} and {want_finish}")
     if not (want_big and want_finish):
         raise AssertionError("the read set is too small to reach the sorting network")
-    if launches["sort_rows"] or launches["chunk_sort"]:
+    if any(launches[name] for name in ("sort_rows", "chunk_sort", *mergepath_cuda.launch_count)):
         raise AssertionError(f"hybrid_e2e launched a kernel off its path: {launches}")
     check_exactly_once(unitigs, full["kept"], cfg.k)
     emit("hybrid_e2e", preset="ecoli", same_reads_as="full_e2e",
@@ -615,12 +867,66 @@ def phase_sort_entry_points(device, n_keys):
     # sort_keys is the hybrid's network from one chunk up
     want_big, want_finish = hybrid_pass_counts(n_keys, chunk, chunk)
     want = {"fast_scan": 0, "sort_rows": 1, "chunk_sort": 1,
-            "big_ce": want_big, "finish": want_finish}
+            "big_ce": want_big, "finish": want_finish, "local_merge": 0, "merge_pass": 0}
     emit("sort_entry_points", rows_shape=list(ROWS_SHAPE), sort_keys_n=n_keys, chunk=chunk,
          launches=launches, expected_launches=want, **t.report())
     if t.mismatches or launches != want:
         raise AssertionError(f"sort_entry_points: {t.mismatches} mismatches, launches {launches}")
     return launches
+
+
+def mergepath_pass_counts(n, base_run, chunk):
+    """(local_merge launches, merge_pass launches) of sort_keys_mergepath on n
+    keys, from the sizes alone: the array pads to a power of two; one local
+    pass unless the row sorts already fill the chunk; one merge pass per
+    level chunk, 2 chunk .. total / 2."""
+    if n < 4 * chunk:
+        return 0, 0
+    return int(base_run != chunk), (n - 1).bit_length() - (chunk.bit_length() - 1)
+
+
+def phase_mergepath_entry_point(device, n_keys, real_keys):
+    """K4a and K4b are on no pipeline's path either: their entry point is
+    ``sort_keys_mergepath``.  Drive it with its defaults at the main path's key
+    count, once on random keys with 30 % sentinels and once on the ecoli read
+    set's own scanned keys (real duplicates at 50x coverage, the sentinel
+    share the reads give); counts set to 0 just before each call and read
+    just after."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(77)
+    if real_keys.shape[0] != n_keys:
+        raise AssertionError(f"{real_keys.shape[0]} scanned keys for {n_keys} window slots")
+    tile, base_run, chunk = (mergepath_sort.DEFAULT_MERGE_TILE, mergepath_sort.DEFAULT_BASE_RUN,
+                             mergepath_sort.DEFAULT_MERGE_CHUNK)
+    want_local, want_passes = mergepath_pass_counts(n_keys, base_run, chunk)
+    want = dict.fromkeys(read_launch_counts(), 0)
+    want.update(local_merge=want_local, merge_pass=want_passes)
+    t = Tally()
+    runs = {}
+    for name, key in (("random", random_keys(gen, n_keys, device, 0.3)), ("real", real_keys)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        got = mergepath_sort.sort_keys_mergepath(key)
+        torch.cuda.synchronize()
+        launches = read_launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        t.hold(got, torch.sort(key).values)
+        runs[name] = {"launches": launches, "max_memory_allocated": peak,
+                      "allocated_before_the_call": resident,
+                      "sentinel_share": float((key == SENTINEL).double().mean()),
+                      "distinct_keys": int(torch.unique_consecutive(got).shape[0])}
+        del got
+        if launches != want:
+            raise AssertionError(f"mergepath_entry_point ({name} keys): launches {launches}, "
+                                 f"the sizes give {want}")
+    emit("mergepath_entry_point", n_keys=n_keys, tile=tile, base_run=base_run, chunk=chunk,
+         expected_launches=want, runs=runs, **t.report())
+    if t.mismatches or not (want_local and want_passes):
+        raise AssertionError(f"mergepath_entry_point: {t.mismatches} mismatches, "
+                             f"expected launches {want}")
+    return runs["real"]["launches"]
 
 
 def timed_ms(fn, reps=9, warm=2):
@@ -655,12 +961,33 @@ def turn_about(kernel, plain, *, kernel_reps=9, plain_reps=5, warm=2):
 CE_OPS = 8
 
 
-def pass_bound(n_keys, stages):
+# the same in the odd-even merge network, which has no direction bit
+MERGE_CE_OPS = 6
+# 32-bit operations of one step of a binary search in a merge window: the
+# 64-bit compare 2, the two bounds' selects 2
+SEARCH_STEP_OPS = 4
+
+
+def pass_bound(n_keys, stages, ce_ops=CE_OPS):
     """(bytes ms, operations ms) of one pass over n_keys keys that runs
     `stages` stages: every key read once and written once, 16 bytes; every
     stage one compare-exchange per pair of keys."""
     return (16 * n_keys / PEAK_BYTES_PER_S * 1e3,
-            stages * (n_keys // 2) * CE_OPS / PEAK_ALU_OPS_PER_S * 1e3)
+            stages * (n_keys // 2) * ce_ops / PEAK_ALU_OPS_PER_S * 1e3)
+
+
+def merge_pass_bound(n_keys, tile, per_thread):
+    """(bytes ms, operations ms) of one merge-path pass: 16 bytes a key (the
+    split arrays, 16 bytes a tile, are left out); per output key one 64-bit
+    compare and the selects of the key and of the head that moves on, 6, and
+    its share of its thread's search, log2(tile) steps for per_thread keys."""
+    per_key = MERGE_CE_OPS + SEARCH_STEP_OPS * (tile.bit_length() - 1) / per_thread
+    return (16 * n_keys / PEAK_BYTES_PER_S * 1e3, n_keys * per_key / PEAK_ALU_OPS_PER_S * 1e3)
+
+
+def merge_levels(base_run, chunk):
+    """The levels local_merge runs in sort_keys_mergepath: 2 base_run .. chunk."""
+    return levels_up_to(chunk)[base_run.bit_length() - 1:]
 
 
 def bound_fields(passes):
@@ -837,6 +1164,184 @@ def time_sort_kernels(device, tallies, hybrid_launches, entry_launches, n_keys):
     return entries
 
 
+def plain_mergepath(key, tile, base_run, chunk):
+    """sort_keys_mergepath composed of the PLAIN passes, on the card."""
+    n = key.shape[0]
+    buf = sorted_runs(bitonic_sort._padded_copy(key, chunk), base_run)
+    levels = merge_levels(base_run, chunk)
+    if levels:
+        buf = mergepath_sort.local_merge_plain(buf, levels, chunk=chunk)
+    run = chunk
+    while run < buf.shape[0]:
+        buf = mergepath_sort.merge_pass_plain(
+            buf, mergepath_sort.merge_splits(buf, run, tile), run=run, tile=tile)
+        run *= 2
+    return buf[:n]
+
+
+def time_merge_kernels(device, tallies, launches, n_keys, real_keys):
+    """K4a and K4b at the main path's padded key count, one pass each on valid
+    input (runs ascending), K4b at its largest and its smallest run; the
+    composed sort at the main path's key count, on random and on real keys.
+    Each kernel is also held against its plain version at the timed shape."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2025)
+    tile, base_run, chunk = (mergepath_sort.DEFAULT_MERGE_TILE, mergepath_sort.DEFAULT_BASE_RUN,
+                             mergepath_sort.DEFAULT_MERGE_CHUNK)
+    per_thread = mergepath_cuda.KEYS_PER_THREAD
+    source = "genome_assembly_tpu_torch/csrc/mergepath.cu"
+    flat = random_keys(gen, n_keys, device, 0.3)
+    padded = bitonic_sort._padded_copy(flat, chunk)
+    total = padded.shape[0]
+    levels = merge_levels(base_run, chunk)
+    stages = sum(level.bit_length() - 1 for level in levels)
+    entries = []
+
+    row_sort_ms = timed_ms(lambda: torch.sort(padded.view(-1, base_run), dim=1), reps=3, warm=1)
+    state = sorted_runs(padded, base_run)
+    del padded
+    at = Tally()
+    at.hold(mergepath_sort.local_merge(state, levels, chunk=chunk),
+            mergepath_sort.local_merge_plain(state, levels, chunk=chunk))
+    # on valid input one library call computes the same function: the sort of
+    # every chunk (timed here, used nowhere in the port)
+    local_library_ms = timed_ms(lambda: torch.sort(state.view(-1, chunk), dim=1), reps=3, warm=1)
+    entries.append(sort_entry(
+        "local_merge", "local_merge_kernel", "genome_assembly_tpu/ops/mergepath_pallas.py:210",
+        launches["local_merge"], "mergepath_entry_point (no pipeline calls the merge-path sort)",
+        tallies["local_merge"], at,
+        turn_about(lambda: mergepath_sort.local_merge(state, levels, chunk=chunk),
+                   lambda: mergepath_sort.local_merge_plain(state, levels, chunk=chunk),
+                   kernel_reps=5, plain_reps=2, warm=1),
+        bound_fields([pass_bound(total, stages, MERGE_CE_OPS)]), local_library_ms, [total],
+        source=source, chunk=chunk, base_run=base_run, stages=stages,
+        library_call="torch.sort(x.view(-1, chunk), dim=1)",
+        input="rows of base_run keys ascending"))
+
+    # the sort's own state, level by level: merge_splits is timed at every
+    # level, K4b is held and timed at the first (run == chunk) and the last
+    state = mergepath_sort.local_merge(state, levels, chunk=chunk, overwrite=True)
+    spare = torch.empty_like(state)
+    at = Tally()
+    splits_ms, pass_ms, pass_times, pass_library_ms = [], [], {}, {}
+    run = chunk
+    while run < total:
+        splits = mergepath_sort.merge_splits(state, run, tile)
+        splits_ms.append(timed_ms(lambda: mergepath_sort.merge_splits(state, run, tile),
+                                  reps=3, warm=1))
+        kernel = lambda: mergepath_sort.merge_pass(state, splits, run=run, tile=tile, out=spare)
+        if run in (chunk, total // 2):
+            plain = lambda: mergepath_sort.merge_pass_plain(state, splits, run=run, tile=tile)
+            at.hold(kernel(), plain())
+            pass_times[run] = turn_about(kernel, plain, plain_reps=2, warm=1)
+            # the library call of the same function: the sort of every run pair
+            pass_library_ms[run] = timed_ms(
+                lambda: torch.sort(state.view(-1, 2 * run), dim=1), reps=3, warm=1)
+            pass_ms.append(pass_times[run]["ms"])
+        else:
+            pass_ms.append(timed_ms(kernel, reps=5, warm=1))
+        state, spare = kernel(), state
+        run *= 2
+    at.hold(state[:n_keys], torch.sort(flat).values)
+    del state, spare, splits
+    entries.append(sort_entry(
+        "merge_pass", "merge_pass_kernel", "genome_assembly_tpu/ops/mergepath_pallas.py:261",
+        launches["merge_pass"], "mergepath_entry_point", tallies["merge_pass"], at,
+        pass_times[total // 2], bound_fields([merge_pass_bound(total, tile, per_thread)]),
+        pass_library_ms[total // 2], [total], source=source, tile=tile,
+        keys_per_thread=per_thread, run=total // 2,
+        library_call="torch.sort(x.view(-1, 2 * run), dim=1)",
+        ms_at_smallest_run=pass_times[chunk]["ms"],
+        plain_ms_at_smallest_run=pass_times[chunk]["plain_ms"],
+        library_ms_at_smallest_run=pass_library_ms[chunk],
+        ms_by_level=pass_ms, merge_splits_ms_by_level=splits_ms,
+        input="the sort's own state at each level"))
+
+    # the composed sort, at the main path's key count
+    want = torch.sort(flat).values
+    at = Tally()
+    at.hold(mergepath_sort.sort_keys_mergepath(flat), want)
+    at.hold(plain_mergepath(flat, tile, base_run, chunk), want)
+    del want
+    at.hold(mergepath_sort.sort_keys_mergepath(real_keys), torch.sort(real_keys).values)
+    library_ms = timed_ms(lambda: torch.sort(flat), reps=3, warm=1)
+    times = {"ms": timed_ms(lambda: mergepath_sort.sort_keys_mergepath(flat), reps=3, warm=1),
+             "plain_ms": timed_ms(lambda: plain_mergepath(flat, tile, base_run, chunk),
+                                  reps=1, warm=0)}
+    library_real = timed_ms(lambda: torch.sort(real_keys), reps=3, warm=1)
+    real_a = timed_ms(lambda: mergepath_sort.sort_keys_mergepath(real_keys), reps=3, warm=1)
+    real_b = timed_ms(lambda: mergepath_sort.sort_keys_mergepath(real_keys), reps=3, warm=1)
+    library_real = min(library_real, timed_ms(lambda: torch.sort(real_keys), reps=3, warm=1))
+    # the library's row sorts count as one pass over the keys
+    passes = [pass_bound(total, 0)] + [pass_bound(total, stages, MERGE_CE_OPS)] * bool(levels)
+    passes += [merge_pass_bound(total, tile, per_thread)] * len(pass_ms)
+    entries.append(sort_entry(
+        "sort_keys_mergepath", "local_merge_kernel, merge_pass_kernel",
+        "genome_assembly_tpu/ops/mergepath_pallas.py:371",
+        launches["local_merge"] + launches["merge_pass"],
+        "mergepath_entry_point (kernel launches of one sort_keys_mergepath call)",
+        tallies["sort_keys_mergepath"], at, times, bound_fields(passes), library_ms, [n_keys],
+        source="genome_assembly_tpu_torch/ops/mergepath_sort.py", composite=True,
+        tile=tile, base_run=base_run, chunk=chunk, padded_to=total, passes=len(passes),
+        library_call="torch.sort(x)", row_sort_ms=row_sort_ms, splits_ms=sum(splits_ms),
+        local_merge_ms=entries[0]["ms"], merge_pass_ms_sum=sum(pass_ms),
+        ms_real_keys=min(real_a, real_b), library_ms_real_keys=library_real))
+    return entries
+
+
+def phase_tile_choice(device, n_keys):
+    """What the merge-path sort's defaults should be.  One K4b pass (run =
+    total / 2) over the padded main-path key count for tile 2^10 .. 2^13 and
+    4 and 8 keys a thread; K4a for chunk 2^13 and 2^14;
+    sort_keys_mergepath of the main path's key count over tile and over chunk,
+    there and back.  For the record, with no switch behind it: K2 sort_rows on
+    [total / chunk, chunk], which yields the array the row sorts and K4a
+    yield together."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    base_run, chunk = mergepath_sort.DEFAULT_BASE_RUN, mergepath_sort.DEFAULT_MERGE_CHUNK
+    flat = random_keys(gen, n_keys, device, 0.3)
+    padded = bitonic_sort._padded_copy(flat, chunk)
+    total = padded.shape[0]
+    rows_ms = timed_ms(lambda: torch.sort(padded.view(-1, base_run), dim=1), reps=3, warm=1)
+    sort_rows_ms = timed_ms(lambda: bitonic_sort.sort_rows(padded.view(-1, chunk)), reps=3, warm=1)
+    rows = sorted_runs(padded, base_run)
+    del padded
+    per_thread_before = mergepath_cuda.KEYS_PER_THREAD
+    local, passes, sorts = [], [], []
+    try:
+        for c in (1 << 13, 1 << 14):
+            levels = merge_levels(base_run, c)
+            local.append({"chunk": c, "local_merge_ms": timed_ms(
+                lambda: mergepath_sort.local_merge(rows, levels, chunk=c), reps=3, warm=1)})
+        del rows
+        halves = sorted_runs(bitonic_sort._padded_copy(flat, chunk), total // 2)
+        spare = torch.empty_like(halves)
+        for tile in (1 << 10, 1 << 11, 1 << 12, 1 << 13):
+            splits = mergepath_sort.merge_splits(halves, total // 2, tile)
+            for per_thread in (4, 8):
+                mergepath_cuda.KEYS_PER_THREAD = per_thread
+                passes.append({"tile": tile, "keys_per_thread": per_thread, "merge_pass_ms": timed_ms(
+                    lambda: mergepath_sort.merge_pass(halves, splits, run=total // 2, tile=tile,
+                                                      out=spare), reps=5, warm=1)})
+        mergepath_cuda.KEYS_PER_THREAD = per_thread_before
+        del halves, spare, splits
+        for tile in (1 << 12, 1 << 11, 1 << 10, 1 << 13, 1 << 13, 1 << 10, 1 << 11, 1 << 12):
+            sorts.append({"tile": tile, "chunk": chunk, "sort_keys_mergepath_ms": timed_ms(
+                lambda: mergepath_sort.sort_keys_mergepath(flat, tile=tile), reps=5, warm=1)})
+        for c in (1 << 13, 1 << 14, 1 << 14, 1 << 13):
+            sorts.append({"tile": mergepath_sort.DEFAULT_MERGE_TILE, "chunk": c,
+                          "sort_keys_mergepath_ms": timed_ms(
+                lambda: mergepath_sort.sort_keys_mergepath(flat, chunk=c), reps=5, warm=1)})
+    finally:
+        mergepath_cuda.KEYS_PER_THREAD = per_thread_before
+    emit("tile_choice", n_keys=n_keys, padded_to=total, base_run=base_run,
+         default_tile=mergepath_sort.DEFAULT_MERGE_TILE, default_chunk=chunk,
+         default_keys_per_thread=per_thread_before,
+         library_row_sort_ms=rows_ms, sort_rows_kernel_ms_on_chunk_rows=sort_rows_ms,
+         local_merge=local, merge_pass=passes, sorts=sorts)
+
+
 def plain_network(key, first_unit, chunk):
     """sort_keys (first_unit == chunk) or sort_keys_hybrid (first_unit ==
     lib_chunk) composed of the PLAIN passes, on the card: what the composed
@@ -913,16 +1418,28 @@ def main() -> int:
     phase_small_e2e(device)
     full = phase_full_e2e(device, args.coverage)
     tallies = phase_sort_check(device)
+    tallies.update(phase_merge_check(device))
     hybrid_launches = phase_hybrid_e2e(device, full)
     n_keys = full["fields"]["window_slots"]
     first_batch, scan_launches = full["first_batch"], full["launches"]["fast_scan"]
+    ecoli_cfg = PipelineConfig(k=ECOLI["k"], m=ECOLI["m"], parity=False,
+                               batch_reads=ECOLI["batch_reads"],
+                               max_read_len=ECOLI["max_read_len"])
+    real_keys = scanned_keys(full["reads"], ecoli_cfg, device)
     del full
     entry_launches = phase_sort_entry_points(device, n_keys)
+    torch.cuda.empty_cache()
+    merge_launches = phase_mergepath_entry_point(device, n_keys, real_keys)
     torch.cuda.empty_cache()
     kernels = [time_scan(device, first_batch, scan_launches, scan_tally)]
     kernels += time_sort_kernels(device, tallies, hybrid_launches, entry_launches, n_keys)
     torch.cuda.empty_cache()
+    kernels += time_merge_kernels(device, tallies, merge_launches, n_keys, real_keys)
+    del real_keys
+    torch.cuda.empty_cache()
     phase_chunk_choice(device, n_keys)
+    torch.cuda.empty_cache()
+    phase_tile_choice(device, n_keys)
     for entry in kernels:
         if entry["mismatches"] or not entry["launches"]:
             raise AssertionError(

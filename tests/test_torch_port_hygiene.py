@@ -43,8 +43,9 @@ def _run(body: str) -> subprocess.CompletedProcess:
 def test_importing_every_module_pulls_in_no_jax():
     r = _run("""
 names = all_modules()
-assert len(names) >= 17, names
+assert len(names) >= 19, names
 assert pkg.__name__ + ".ops.bitonic_sort" in names and pkg.__name__ + ".ops.bitonic_cuda" in names
+assert pkg.__name__ + ".ops.mergepath_sort" in names and pkg.__name__ + ".ops.mergepath_cuda" in names
 for n in names:
     importlib.import_module(n)
 assert jax_side() == [], jax_side()
@@ -95,6 +96,64 @@ print("OK")
 """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "OK"
+
+
+def test_mergepath_binding_is_neither_imported_nor_built_at_package_import():
+    r = _run("""
+import genome_assembly_tpu_torch.models.pipeline
+import genome_assembly_tpu_torch.ops.mergepath_sort
+assert "genome_assembly_tpu_torch.ops.mergepath_cuda" not in sys.modules
+assert "genome_assembly_tpu_torch.csrc.build" not in sys.modules
+# a CPU sort goes through the plain passes and still imports no binding
+import torch
+from genome_assembly_tpu_torch.ops import mergepath_sort
+key = torch.arange(99, 0, -1)
+assert torch.equal(mergepath_sort.sort_keys_mergepath(key, tile=4, base_run=2, chunk=8), key.flip(0))
+assert "genome_assembly_tpu_torch.ops.mergepath_cuda" not in sys.modules
+assert "genome_assembly_tpu_torch.ops.bitonic_cuda" not in sys.modules
+# importing the binding module builds and loads nothing
+from genome_assembly_tpu_torch.ops import mergepath_cuda
+from genome_assembly_tpu_torch.csrc import build
+assert mergepath_cuda._lib is None and build._loaded == {}
+assert mergepath_cuda.launch_count == {"local_merge": 0, "merge_pass": 0}
+print("OK")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "OK"
+
+
+@pytest.mark.parametrize("call", [
+    "local_merge_cuda(torch.zeros(64, dtype=torch.int64), [4, 8], chunk=8)",
+    "merge_pass_cuda(torch.zeros(64, dtype=torch.int64), torch.zeros(8, dtype=torch.int64), "
+    "torch.zeros(8, dtype=torch.int64), run=8, tile=8)",
+])
+def test_mergepath_cuda_wrappers_refuse_cpu_tensors(call):
+    r = _run(f"""
+import torch
+from genome_assembly_tpu_torch.ops import mergepath_cuda
+try:
+    mergepath_cuda.{call}
+except ValueError as e:
+    print("RAISED", e)
+assert set(mergepath_cuda.launch_count.values()) == {{0}} and mergepath_cuda._lib is None
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("RAISED") and "CUDA" in r.stdout
+
+
+def test_every_cuda_source_has_a_binding_and_no_library_sort():
+    """Each source of csrc/ is loaded by one binding module, and no kernel
+    source calls a library's sort or merge."""
+    csrc = REPO_ROOT / "genome_assembly_tpu_torch" / "csrc"
+    ops = REPO_ROOT / "genome_assembly_tpu_torch" / "ops"
+    bindings = "".join(p.read_text() for p in ops.glob("*_cuda.py"))
+    sources = sorted(csrc.glob("*.cu"))
+    assert [s.stem for s in sources] == ["bitonic", "fast_scan", "mergepath"]
+    for source in sources:
+        assert f'build.load("{source.stem}")' in bindings
+        text = source.read_text()
+        assert "__global__" in text
+        assert not re.search(r"\b(cub|thrust)::|#include\s*<(cub|thrust)/", text)
 
 
 @pytest.mark.parametrize("call", [
