@@ -123,7 +123,7 @@ def phase_env():
 
 
 SORT_KERNELS = ("sort_rows_kernel", "chunk_sort_kernel", "big_ce_kernel", "finish_kernel")
-MERGE_KERNELS = ("local_merge_kernel", "merge_pass_kernel")
+MERGE_KERNELS = ("local_merge_kernel", "merge_pass_kernel", "merge_splits_kernel")
 
 
 def ptxas_report(log: str, kernels) -> dict:
@@ -165,11 +165,15 @@ def phase_build():
         raise AssertionError(
             f"ptxas reported {sorted(report)}, expected {SORT_KERNELS + MERGE_KERNELS}")
     # the keys of the shared-memory kernels are DYNAMIC shared memory, which
-    # ptxas does not see: 8 bytes a key of the row or chunk, and in
-    # merge_pass_kernel 17 bytes a key of the tile (two windows and the skew)
+    # ptxas does not see: 8 bytes a key of the row or chunk in bitonic.cu, 8.5
+    # a key of the chunk or tile in mergepath.cu (one buffer and its skew)
+    spills = {name: r for name, r in report.items()
+              if r.get("spill_store_bytes") or r.get("spill_load_bytes")}
     emit("build", seconds=time.perf_counter() - t0,
          libraries=sorted(str(p.name) for p in libs.values()), ptxas=report,
-         dynamic_shared_bytes_per_key=8, max_shared_keys=bitonic_cuda.MAX_SHARED_KEYS,
+         kernels_with_spills=sorted(spills),
+         dynamic_shared_bytes_per_key=8, merge_dynamic_shared_bytes_per_key=8.5,
+         max_shared_keys=bitonic_cuda.MAX_SHARED_KEYS,
          max_merge_chunk_keys=mergepath_cuda.MAX_CHUNK_KEYS,
          max_merge_tile_keys=mergepath_cuda.MAX_TILE_KEYS)
 
@@ -475,7 +479,10 @@ def merge_inputs(gen, n, run, device):
     split, as the main path's coverage gives them); sorted (every B wholly
     above its A) and the same with the runs of every pair swapped (A above
     B), the two ends of the split search; a run pair of SENTINEL only; a
-    SENTINEL tail as padding leaves it."""
+    SENTINEL tail as padding leaves it; and pairs in which one run is used up
+    inside a tile while the other still holds keys EQUAL to SENTINEL (A all
+    real keys and B real keys then SENTINELs, and the reverse): a merge that
+    told a used-up run by its key's value would go wrong there."""
     patterns = key_patterns(gen, n, device)
     fifty = torch.randint(0, max(n // 50, 1), (n,), dtype=torch.int64, device=device,
                           generator=gen)
@@ -485,31 +492,45 @@ def merge_inputs(gen, n, run, device):
     tail = ordered.clone()
     tail[n - n // 3:] = SENTINEL
     swapped = ordered.view(-1, 2, run).flip(1).reshape(-1)
+    a_runs_out = random_keys(gen, n, device).view(-1, 2, run)
+    a_runs_out[:, 1, min(run // 2 + 3, run - 1):] = SENTINEL
     states = {"random": patterns["random"], "all_equal": patterns["all_equal"],
               "fifty_fold": fifty, "b_above_a": ordered, "a_above_b": swapped,
-              "sentinel_pair": no_pair, "padded_tail": tail}
+              "sentinel_pair": no_pair, "padded_tail": tail,
+              "a_runs_out_b_holds_sentinels": a_runs_out.reshape(-1),
+              "b_runs_out_a_holds_sentinels": a_runs_out.flip(1).reshape(-1)}
     return {name: sorted_runs(key, run) for name, key in states.items()}
 
 
-def check_local_merge(gen, device, chunks=(2, 64, 4096, 8192, mergepath_cuda.MAX_CHUNK_KEYS)):
-    """K4a against its plain version: chunk 2 .. the largest, base_run 1 ..
-    chunk / 2, a chunk count that is no power of two, on valid input (runs
-    ascending) and on raw keys (the network is the same function on any
-    input), a subset of the levels, more chunks than the grid has blocks,
-    and in place."""
+def check_local_merge(gen, device, chunks=(2, 4, 16, 64, 4096, 8192,
+                                           mergepath_cuda.MAX_CHUNK_KEYS)):
+    """K4a against its plain version and against the library sort of every
+    chunk, on valid input only (runs of base_run ascending: the kernel merges
+    with two heads, which is the network only there): chunk 2 .. the largest,
+    base_run 1, 2, 8, 16, 32 .. chunk / 2, a chunk count that is no power of
+    two, 8, 16 and 32 keys a thread, levels that stop below the chunk, more
+    chunks than the grid has blocks, and in place."""
     t = Tally()
-    for chunk in chunks:
-        n = chunk * 24
-        bases = sorted({1, max(chunk // 32, 1), chunk // 2})
-        for name, key in key_patterns(gen, n, device).items():
-            for base_run in bases:
-                levels = merge_levels(base_run, chunk)
-                for state in (sorted_runs(key, base_run), key):
-                    t.hold(mergepath_sort.local_merge(state, levels, chunk=chunk),
-                           mergepath_sort.local_merge_plain(state, levels, chunk=chunk))
-            some = sorted({2, chunk})
-            t.hold(mergepath_sort.local_merge(key, some, chunk=chunk),
-                   mergepath_sort.local_merge_plain(key, some, chunk=chunk))
+    before = mergepath_cuda.LOCAL_KEYS_PER_THREAD
+    try:
+        for chunk in chunks:
+            n = chunk * 24
+            bases = sorted(b for b in {1, 2, 8, 16, 32, 1024, chunk // 32, chunk // 2}
+                           if 1 <= b <= chunk // 2)
+            for per_thread in (16, 32, 8):
+                mergepath_cuda.LOCAL_KEYS_PER_THREAD = per_thread
+                for name, key in key_patterns(gen, n, device).items():
+                    for base_run in bases:
+                        levels = merge_levels(base_run, chunk)
+                        state = sorted_runs(key, base_run)
+                        got = mergepath_sort.local_merge(state, levels, chunk=chunk)
+                        t.hold(got, mergepath_sort.local_merge_plain(state, levels, chunk=chunk))
+                        t.hold(got, sorted_runs(key, chunk))
+                        if len(levels) > 1 and name == "random":  # stop one level early
+                            t.hold(mergepath_sort.local_merge(state, levels[:-1], chunk=chunk),
+                                   sorted_runs(key, chunk // 2))
+    finally:
+        mergepath_cuda.LOCAL_KEYS_PER_THREAD = before
     key = key_patterns(gen, 2 * 5000, device)["random"]  # more chunks than blocks
     want = mergepath_sort.local_merge_plain(key, [2], chunk=2)
     before = key.clone()
@@ -522,43 +543,54 @@ def check_local_merge(gen, device, chunks=(2, 64, 4096, 8192, mergepath_cuda.MAX
     return t
 
 
-def hold_merge_pass(t, state, run, tile, on_cpu=False):
-    """One K4b pass held against its plain version and against the library
-    sort of every run pair; merge_splits on the card against the CPU's."""
+def hold_merge_pass(t, splits_tally, state, run, tile):
+    """One level held against its plain versions: merge_splits_kernel against
+    merge_splits_plain (bit for bit, on any input), the segments the K4b
+    kernel derives (they must fill the tile), and K4b against merge_pass_plain
+    and against the library sort of every run pair."""
     splits = mergepath_sort.merge_splits(state, run, tile)
+    for ours, theirs in zip(splits, mergepath_sort.merge_splits_plain(state, run, tile)):
+        splits_tally.hold(ours, theirs)
+    a1, b1 = mergepath_sort.tile_segments(splits, run, tile)
+    if not bool(((a1 - splits[0]) + (b1 - splits[1]) == tile).all()):
+        raise AssertionError(f"run {run} tile {tile}: a tile's segments do not sum to the tile")
     got = mergepath_sort.merge_pass(state, splits, run=run, tile=tile)
     t.hold(got, mergepath_sort.merge_pass_plain(state, splits, run=run, tile=tile))
     t.hold(got, sorted_runs(state, 2 * run))
-    if on_cpu:
-        for ours, theirs in zip(splits, mergepath_sort.merge_splits(state.cpu(), run, tile)):
-            t.hold(ours.cpu(), theirs)
 
 
 def check_merge_pass(gen, device, max_tile=mergepath_cuda.MAX_TILE_KEYS):
-    """K4b: tile 2 .. the largest, run = tile .. 64 tiles, three run pairs (no
-    power of two), every input of merge_inputs, 4 and 8 keys a thread (2, for
-    a tile of 2 keys, is in the shapes)."""
-    t = Tally()
+    """K4b and merge_splits_kernel: tile 2 .. the largest, run = tile .. 64
+    tiles, three run pairs (no power of two), every input of merge_inputs, 4,
+    8 and 16 keys a thread (2, for a tile of 2 keys, is in the shapes).  The
+    split kernel is also held on keys whose runs do NOT ascend: its search
+    has one answer on any input."""
+    t, st = Tally(), Tally()
     before = mergepath_cuda.KEYS_PER_THREAD
-    shapes = [(2, 2), (2, 64), (64, 64), (64, 4096), (max_tile // 2, max_tile // 2),
-              (max_tile // 2, 4 * max_tile), (max_tile, max_tile), (max_tile, 16 * max_tile),
-              (max_tile // 2, 32 * max_tile)]
+    shapes = [(2, 2), (2, 64), (4, 4), (8, 32), (64, 64), (64, 4096),
+              (max_tile // 2, max_tile // 2), (max_tile // 2, 4 * max_tile),
+              (max_tile, max_tile), (max_tile, 16 * max_tile), (max_tile // 2, 32 * max_tile)]
     for tile, run in shapes:
         for name, state in merge_inputs(gen, 6 * run, run, device).items():
-            hold_merge_pass(t, state, run, tile, on_cpu=run <= 4096)
+            hold_merge_pass(t, st, state, run, tile)
+        raw = random_keys(gen, 6 * run, device, 0.3)
+        for ours, theirs in zip(mergepath_sort.merge_splits(raw, run, tile),
+                                mergepath_sort.merge_splits_plain(raw, run, tile)):
+            st.hold(ours, theirs)
     try:
-        for per_thread in (4, 8):
+        for per_thread in (4, 8, 16):
             mergepath_cuda.KEYS_PER_THREAD = per_thread
             for tile in (16, max_tile // 8, max_tile):
                 for name, state in merge_inputs(gen, 8 * tile, 2 * tile, device).items():
-                    hold_merge_pass(t, state, 2 * tile, tile)
+                    hold_merge_pass(t, st, state, 2 * tile, tile)
     finally:
         mergepath_cuda.KEYS_PER_THREAD = before
-    return t
+    return t, st
 
 
 def check_merge_wide_index(device, run=1 << 26, pairs=17, tile=None):
-    """Positions past 2^31: one K4b pass over 2^31 + 2^27 keys (two buffers of
+    """Positions past 2^31: one merge_splits_kernel launch (held against
+    merge_splits_plain) and one K4b pass over 2^31 + 2^27 keys (two buffers of
     18.3 GB).  The runs are made arithmetically (run r holds offset_r +
     stride_r * i: ascending, with ties between the runs of a pair), since
     sorting them there would not fit; the first and the LAST run pair are held
@@ -566,15 +598,18 @@ def check_merge_wide_index(device, run=1 << 26, pairs=17, tile=None):
     either), every pair must come out ascending, and the sum of all keys
     must be kept."""
     tile = mergepath_sort.DEFAULT_MERGE_TILE if tile is None else tile
-    t = Tally()
+    t, st = Tally(), Tally()
     n = 2 * pairs * run
     key = torch.empty(n, dtype=torch.int64, device=device)
     step = torch.arange(run, dtype=torch.int64, device=device)
     for r in range(2 * pairs):
         torch.add(step * (3 + r * 7 % 5), r * 12345 % 1000, out=key[r * run:(r + 1) * run])
     del step
-    got = mergepath_sort.merge_pass(key, mergepath_sort.merge_splits(key, run, tile),
-                                    run=run, tile=tile)
+    splits = mergepath_sort.merge_splits(key, run, tile)
+    for ours, theirs in zip(splits, mergepath_sort.merge_splits_plain(key, run, tile)):
+        st.hold(ours, theirs)
+    got = mergepath_sort.merge_pass(key, splits, run=run, tile=tile)
+    del splits
     for pair in (0, pairs - 1):
         span = slice(pair * 2 * run, (pair + 1) * 2 * run)
         t.hold(got[span], torch.sort(key[span]).values)
@@ -583,14 +618,15 @@ def check_merge_wide_index(device, run=1 << 26, pairs=17, tile=None):
     if not ascending or int(got.sum()) != int(key.sum()):
         raise AssertionError("merge_pass past position 2^31: a pair is not ascending, "
                              "or keys were lost")
-    return t, n
+    return t, st, n
 
 
 def check_composed_mergepath(gen, device):
     """sort_keys_mergepath against torch.sort: at 4 chunk - 1 (library), 4 chunk
     and 4 chunk + 1, at an n that is no power of two, with small constants and
-    with the defaults, and with base_run == chunk (no K4a launch).  The launch
-    counts show that the kernels ran exactly where they should."""
+    with the defaults, with base_run 1 (no library sort), 2^10 (library row
+    sorts first) and == chunk (no K4a launch).  The launch counts show that
+    the kernels ran exactly where they should."""
     t = Tally()
     chunk = mergepath_sort.DEFAULT_MERGE_CHUNK
     plans = [
@@ -598,6 +634,8 @@ def check_composed_mergepath(gen, device):
         (dict(tile=2, base_run=1, chunk=2), [7, 8, 1000]),
         (dict(tile=64, base_run=64, chunk=64), [256, 50000]),
         ({}, [4 * chunk - 1, 4 * chunk, 4 * chunk + 1, 300000]),
+        (dict(base_run=1), [4 * chunk, 300000]),
+        (dict(base_run=1 << 10), [4 * chunk, 300000]),
         (dict(base_run=chunk), [4 * chunk, 300000]),
     ]
     for kwargs, sizes in plans:
@@ -607,14 +645,14 @@ def check_composed_mergepath(gen, device):
             before = key.clone()
             launched = dict(mergepath_cuda.launch_count)
             got = mergepath_sort.sort_keys_mergepath(key, **kwargs)
-            local = mergepath_cuda.launch_count["local_merge"] - launched["local_merge"]
-            passes = mergepath_cuda.launch_count["merge_pass"] - launched["merge_pass"]
-            want_passes = (max(n - 1, 1).bit_length() - (c.bit_length() - 1)) if n >= 4 * c else 0
-            want_local = int(n >= 4 * c and kwargs.get("base_run", 1) != c)
-            if (local, passes) != (want_local, want_passes):
+            ran = tuple(mergepath_cuda.launch_count[name] - launched[name]
+                        for name in ("local_merge", "merge_pass", "merge_splits"))
+            base_run = kwargs.get("base_run", mergepath_sort.DEFAULT_BASE_RUN)
+            want = mergepath_pass_counts(n, base_run, c)
+            if ran != want:
                 raise AssertionError(
-                    f"sort_keys_mergepath({n}, {kwargs}) launched local_merge {local}, "
-                    f"merge_pass {passes}; the sizes give {want_local}, {want_passes}")
+                    f"sort_keys_mergepath({n}, {kwargs}) launched local_merge, merge_pass, "
+                    f"merge_splits {ran}; the sizes give {want}")
             t.hold(got, torch.sort(key).values)
             t.hold(key, before)
     return t
@@ -629,7 +667,18 @@ def merge_refusals(device):
     big = torch.zeros(2 * big_chunk, dtype=torch.int64, device=device)
     s_big = torch.zeros(big.shape[0] // big_tile, dtype=torch.int64, device=device)
     lm, mp = mergepath_cuda.local_merge_cuda, mergepath_cuda.merge_pass_cuda
+    sp = mergepath_cuda.merge_splits_cuda
     bad = [
+        lambda: lm(k64, [2, 8], chunk=8),     # gapped levels: not one run of merges
+        lambda: lm(k64, [4, 16], chunk=16),
+        lambda: lm(k64, [], chunk=8),
+        lambda: sp(k64.cpu(), 8, 8),
+        lambda: sp(k64.int(), 8, 8),
+        lambda: sp(big[::2][:64], 8, 8),
+        lambda: sp(k64, 8, 16),
+        lambda: sp(k64, 12, 4),
+        lambda: sp(k64[:48], 16, 8),
+        lambda: sp(k64.view(8, 8), 8, 8),
         lambda: lm(k64.cpu(), [4, 8], chunk=8),
         lambda: lm(k64.int(), [4, 8], chunk=8),
         lambda: lm(big[::2][:64], [4, 8], chunk=8),
@@ -664,11 +713,12 @@ def merge_refusals(device):
 def phase_merge_check(device):
     gen = torch.Generator(device=device)
     gen.manual_seed(8765)
-    tallies = {"local_merge": check_local_merge(gen, device),
-               "merge_pass": check_merge_pass(gen, device),
-               "sort_keys_mergepath": check_composed_mergepath(gen, device)}
+    tallies = {"local_merge": check_local_merge(gen, device)}
+    tallies["merge_pass"], tallies["merge_splits"] = check_merge_pass(gen, device)
+    tallies["sort_keys_mergepath"] = check_composed_mergepath(gen, device)
     torch.cuda.empty_cache()
-    tallies["merge_wide_index"], wide_keys = check_merge_wide_index(device)
+    (tallies["merge_wide_index"], tallies["merge_splits_wide_index"],
+     wide_keys) = check_merge_wide_index(device)
     torch.cuda.synchronize()
     refused, n_bad = merge_refusals(device)
     report = {name: t.report() for name, t in tallies.items()}
@@ -866,8 +916,8 @@ def phase_sort_entry_points(device, n_keys):
     t.hold(sorted_flat, torch.sort(flat).values)
     # sort_keys is the hybrid's network from one chunk up
     want_big, want_finish = hybrid_pass_counts(n_keys, chunk, chunk)
-    want = {"fast_scan": 0, "sort_rows": 1, "chunk_sort": 1,
-            "big_ce": want_big, "finish": want_finish, "local_merge": 0, "merge_pass": 0}
+    want = dict.fromkeys(read_launch_counts(), 0)
+    want.update(sort_rows=1, chunk_sort=1, big_ce=want_big, finish=want_finish)
     emit("sort_entry_points", rows_shape=list(ROWS_SHAPE), sort_keys_n=n_keys, chunk=chunk,
          launches=launches, expected_launches=want, **t.report())
     if t.mismatches or launches != want:
@@ -876,18 +926,19 @@ def phase_sort_entry_points(device, n_keys):
 
 
 def mergepath_pass_counts(n, base_run, chunk):
-    """(local_merge launches, merge_pass launches) of sort_keys_mergepath on n
-    keys, from the sizes alone: the array pads to a power of two; one local
-    pass unless the row sorts already fill the chunk; one merge pass per
-    level chunk, 2 chunk .. total / 2."""
+    """(local_merge, merge_pass, merge_splits launches) of sort_keys_mergepath
+    on n keys, from the sizes alone: the array pads to a power of two; one
+    local pass unless the row sorts already fill the chunk; one split search
+    and one merge pass per level chunk, 2 chunk .. total / 2."""
     if n < 4 * chunk:
-        return 0, 0
-    return int(base_run != chunk), (n - 1).bit_length() - (chunk.bit_length() - 1)
+        return 0, 0, 0
+    levels = (n - 1).bit_length() - (chunk.bit_length() - 1)
+    return int(base_run != chunk), levels, levels
 
 
 def phase_mergepath_entry_point(device, n_keys, real_keys):
-    """K4a and K4b are on no pipeline's path either: their entry point is
-    ``sort_keys_mergepath``.  Drive it with its defaults at the main path's key
+    """K4a, K4b and the split kernel are on no pipeline's path either: their
+    entry point is ``sort_keys_mergepath``.  Drive it with its defaults at the main path's key
     count, once on random keys with 30 % sentinels and once on the ecoli read
     set's own scanned keys (real duplicates at 50x coverage, the sentinel
     share the reads give); counts set to 0 just before each call and read
@@ -898,9 +949,9 @@ def phase_mergepath_entry_point(device, n_keys, real_keys):
         raise AssertionError(f"{real_keys.shape[0]} scanned keys for {n_keys} window slots")
     tile, base_run, chunk = (mergepath_sort.DEFAULT_MERGE_TILE, mergepath_sort.DEFAULT_BASE_RUN,
                              mergepath_sort.DEFAULT_MERGE_CHUNK)
-    want_local, want_passes = mergepath_pass_counts(n_keys, base_run, chunk)
+    want_local, want_passes, want_splits = mergepath_pass_counts(n_keys, base_run, chunk)
     want = dict.fromkeys(read_launch_counts(), 0)
-    want.update(local_merge=want_local, merge_pass=want_passes)
+    want.update(local_merge=want_local, merge_pass=want_passes, merge_splits=want_splits)
     t = Tally()
     runs = {}
     for name, key in (("random", random_keys(gen, n_keys, device, 0.3)), ("real", real_keys)):
@@ -983,6 +1034,36 @@ def merge_pass_bound(n_keys, tile, per_thread):
     its share of its thread's search, log2(tile) steps for per_thread keys."""
     per_key = MERGE_CE_OPS + SEARCH_STEP_OPS * (tile.bit_length() - 1) / per_thread
     return (16 * n_keys / PEAK_BYTES_PER_S * 1e3, n_keys * per_key / PEAK_ALU_OPS_PER_S * 1e3)
+
+
+def local_merge_bound(n_keys, base_run, chunk, per_thread):
+    """(bytes ms, operations ms) of one local_merge pass: 16 bytes a key; the
+    odd-even levels a thread runs in registers (2 base_run .. per_thread), a
+    compare-exchange per pair and stage, then per round run -> 2 run and key
+    one merge step and its share of the thread's search of log2(2 run) steps."""
+    ops = 0.0
+    for level in merge_levels(base_run, min(per_thread, chunk)):
+        ops += (level.bit_length() - 1) * (n_keys // 2) * MERGE_CE_OPS
+    run = max(base_run, per_thread)
+    while run < chunk:
+        ops += n_keys * (MERGE_CE_OPS + SEARCH_STEP_OPS * run.bit_length() / per_thread)
+        run *= 2
+    return 16 * n_keys / PEAK_BYTES_PER_S * 1e3, ops / PEAK_ALU_OPS_PER_S * 1e3
+
+
+def merge_splits_work(n_keys, run, tile):
+    """(bytes ms, operations ms, longest chain) of one merge_splits launch: a
+    tile on diagonal d searches min(d, run) - max(d - run, 0) + 1 candidates,
+    ceil(log2) steps of two 8-byte loads; it writes four int64.  The longest
+    chain of dependent steps is what the launch waits for."""
+    d = torch.arange(0, 2 * run, tile, dtype=torch.int64)
+    width = d.clamp(max=run) - (d - run).clamp(min=0)
+    steps = torch.ceil(torch.log2((width + 1).double())).long()
+    pairs = n_keys // (2 * run)
+    total_steps = int(steps.sum()) * pairs
+    n_tiles = n_keys // tile
+    return ((16 * total_steps + 32 * n_tiles) / PEAK_BYTES_PER_S * 1e3,
+            SEARCH_STEP_OPS * total_steps / PEAK_ALU_OPS_PER_S * 1e3, int(steps.max()))
 
 
 def merge_levels(base_run, chunk):
@@ -1164,71 +1245,103 @@ def time_sort_kernels(device, tallies, hybrid_launches, entry_launches, n_keys):
     return entries
 
 
+def chunk_runs(padded, base_run):
+    """What local_merge is given in sort_keys_mergepath: the padded keys as
+    they are for base_run 1, else their rows of base_run sorted."""
+    return padded if base_run == 1 else sorted_runs(padded, base_run)
+
+
 def plain_mergepath(key, tile, base_run, chunk):
     """sort_keys_mergepath composed of the PLAIN passes, on the card."""
     n = key.shape[0]
-    buf = sorted_runs(bitonic_sort._padded_copy(key, chunk), base_run)
+    buf = chunk_runs(bitonic_sort._padded_copy(key, chunk), base_run)
     levels = merge_levels(base_run, chunk)
     if levels:
         buf = mergepath_sort.local_merge_plain(buf, levels, chunk=chunk)
     run = chunk
     while run < buf.shape[0]:
         buf = mergepath_sort.merge_pass_plain(
-            buf, mergepath_sort.merge_splits(buf, run, tile), run=run, tile=tile)
+            buf, mergepath_sort.merge_splits_plain(buf, run, tile), run=run, tile=tile)
         run *= 2
     return buf[:n]
 
 
+# runs local_merge merged in its first form: the shape its earlier time was taken at
+EARLIER_BASE_RUN = 1 << 10
+
+
 def time_merge_kernels(device, tallies, launches, n_keys, real_keys):
-    """K4a and K4b at the main path's padded key count, one pass each on valid
-    input (runs ascending), K4b at its largest and its smallest run; the
-    composed sort at the main path's key count, on random and on real keys.
-    Each kernel is also held against its plain version at the timed shape."""
+    """K4a, K4b and the split kernel at the main path's padded key count, one
+    launch each on valid input (runs ascending): K4a from the default base_run
+    and from runs of 2^10, K4b at its largest and its smallest run, the split
+    search at every level; the composed sort at the main path's key count, on
+    random and on real keys.  Each kernel is also held against its plain
+    version at the timed shape."""
     gen = torch.Generator(device=device)
     gen.manual_seed(2025)
     tile, base_run, chunk = (mergepath_sort.DEFAULT_MERGE_TILE, mergepath_sort.DEFAULT_BASE_RUN,
                              mergepath_sort.DEFAULT_MERGE_CHUNK)
     per_thread = mergepath_cuda.KEYS_PER_THREAD
+    local_per_thread = mergepath_cuda.LOCAL_KEYS_PER_THREAD
     source = "genome_assembly_tpu_torch/csrc/mergepath.cu"
+    entry_point = "mergepath_entry_point (no pipeline calls the merge-path sort)"
     flat = random_keys(gen, n_keys, device, 0.3)
     padded = bitonic_sort._padded_copy(flat, chunk)
     total = padded.shape[0]
-    levels = merge_levels(base_run, chunk)
-    stages = sum(level.bit_length() - 1 for level in levels)
     entries = []
 
-    row_sort_ms = timed_ms(lambda: torch.sort(padded.view(-1, base_run), dim=1), reps=3, warm=1)
-    state = sorted_runs(padded, base_run)
+    row_sort_ms = (timed_ms(lambda: torch.sort(padded.view(-1, base_run), dim=1), reps=3, warm=1)
+                   if base_run > 1 else 0.0)
+    local = {}
+    for base in sorted({base_run, EARLIER_BASE_RUN}):
+        state = chunk_runs(padded, base)
+        levels = merge_levels(base, chunk)
+        at = Tally()
+        at.hold(mergepath_sort.local_merge(state, levels, chunk=chunk),
+                mergepath_sort.local_merge_plain(state, levels, chunk=chunk))
+        times = turn_about(lambda: mergepath_sort.local_merge(state, levels, chunk=chunk),
+                           lambda: mergepath_sort.local_merge_plain(state, levels, chunk=chunk),
+                           kernel_reps=5, plain_reps=2, warm=1)
+        # on valid input one library call computes the same function: the sort
+        # of every chunk (timed here, used nowhere in the port)
+        library_ms = timed_ms(lambda: torch.sort(state.view(-1, chunk), dim=1), reps=3, warm=1)
+        local[base] = dict(at=at, times=times, library_ms=library_ms, levels=levels,
+                           bound=local_merge_bound(total, base, chunk, local_per_thread))
     del padded
-    at = Tally()
-    at.hold(mergepath_sort.local_merge(state, levels, chunk=chunk),
-            mergepath_sort.local_merge_plain(state, levels, chunk=chunk))
-    # on valid input one library call computes the same function: the sort of
-    # every chunk (timed here, used nowhere in the port)
-    local_library_ms = timed_ms(lambda: torch.sort(state.view(-1, chunk), dim=1), reps=3, warm=1)
+    main, other = local[base_run], local[EARLIER_BASE_RUN]
     entries.append(sort_entry(
         "local_merge", "local_merge_kernel", "genome_assembly_tpu/ops/mergepath_pallas.py:210",
-        launches["local_merge"], "mergepath_entry_point (no pipeline calls the merge-path sort)",
-        tallies["local_merge"], at,
-        turn_about(lambda: mergepath_sort.local_merge(state, levels, chunk=chunk),
-                   lambda: mergepath_sort.local_merge_plain(state, levels, chunk=chunk),
-                   kernel_reps=5, plain_reps=2, warm=1),
-        bound_fields([pass_bound(total, stages, MERGE_CE_OPS)]), local_library_ms, [total],
-        source=source, chunk=chunk, base_run=base_run, stages=stages,
-        library_call="torch.sort(x.view(-1, chunk), dim=1)",
-        input="rows of base_run keys ascending"))
+        launches["local_merge"], entry_point, tallies["local_merge"], main["at"], main["times"],
+        bound_fields([main["bound"]]), main["library_ms"], [total],
+        source=source, chunk=chunk, base_run=base_run, keys_per_thread=local_per_thread,
+        levels=len(main["levels"]), library_call="torch.sort(x.view(-1, chunk), dim=1)",
+        input="the padded keys as they are" if base_run == 1 else "rows of base_run keys ascending",
+        at_earlier_shape=dict(
+            base_run=EARLIER_BASE_RUN, levels=len(other["levels"]), mismatches=other["at"].mismatches,
+            library_ms=other["library_ms"], **other["times"], **bound_fields([other["bound"]]))))
+    if other["at"].mismatches:
+        raise AssertionError("local_merge differs from its plain version on runs of 2^10")
 
-    # the sort's own state, level by level: merge_splits is timed at every
-    # level, K4b is held and timed at the first (run == chunk) and the last
-    state = mergepath_sort.local_merge(state, levels, chunk=chunk, overwrite=True)
+    # the sort's own state, level by level: the split search is timed at every
+    # level beside its plain version, K4b is held and timed at the first (run
+    # == chunk) and the last
+    state = mergepath_sort.local_merge(state, local[max(local)]["levels"], chunk=chunk,
+                                       overwrite=True)
     spare = torch.empty_like(state)
-    at = Tally()
-    splits_ms, pass_ms, pass_times, pass_library_ms = [], [], {}, {}
+    at, at_splits = Tally(), Tally()
+    splits_ms, splits_plain_ms, splits_work = [], [], []
+    pass_ms, pass_times, pass_library_ms = [], {}, {}
     run = chunk
     while run < total:
         splits = mergepath_sort.merge_splits(state, run, tile)
-        splits_ms.append(timed_ms(lambda: mergepath_sort.merge_splits(state, run, tile),
-                                  reps=3, warm=1))
+        for ours, theirs in zip(splits, mergepath_sort.merge_splits_plain(state, run, tile)):
+            at_splits.hold(ours, theirs)
+        search = turn_about(lambda: mergepath_sort.merge_splits(state, run, tile),
+                            lambda: mergepath_sort.merge_splits_plain(state, run, tile),
+                            kernel_reps=9, plain_reps=2, warm=1)
+        splits_ms.append(search["ms"])
+        splits_plain_ms.append(search["plain_ms"])
+        splits_work.append(merge_splits_work(total, run, tile))
         kernel = lambda: mergepath_sort.merge_pass(state, splits, run=run, tile=tile, out=spare)
         if run in (chunk, total // 2):
             plain = lambda: mergepath_sort.merge_pass_plain(state, splits, run=run, tile=tile)
@@ -1254,7 +1367,18 @@ def time_merge_kernels(device, tallies, launches, n_keys, real_keys):
         ms_at_smallest_run=pass_times[chunk]["ms"],
         plain_ms_at_smallest_run=pass_times[chunk]["plain_ms"],
         library_ms_at_smallest_run=pass_library_ms[chunk],
-        ms_by_level=pass_ms, merge_splits_ms_by_level=splits_ms,
+        ms_by_level=pass_ms, input="the sort's own state at each level"))
+    # the split kernel: the entry is the LAST level's launch (the longest
+    # search); no one PyTorch call computes the function
+    entries.append(sort_entry(
+        "merge_splits", "merge_splits_kernel", "genome_assembly_tpu/ops/mergepath_pallas.py:70",
+        launches["merge_splits"], "mergepath_entry_point", tallies["merge_splits"], at_splits,
+        {"ms": splits_ms[-1], "plain_ms": splits_plain_ms[-1]},
+        bound_fields([splits_work[-1][:2]]), None, [total], source=source, tile=tile,
+        run=total // 2, n_tiles=total // tile, dependent_steps=splits_work[-1][2],
+        ms_by_level=splits_ms, plain_ms_by_level=splits_plain_ms,
+        ms_all_levels=sum(splits_ms), plain_ms_all_levels=sum(splits_plain_ms),
+        dependent_steps_by_level=[w[2] for w in splits_work],
         input="the sort's own state at each level"))
 
     # the composed sort, at the main path's key count
@@ -1265,79 +1389,109 @@ def time_merge_kernels(device, tallies, launches, n_keys, real_keys):
     del want
     at.hold(mergepath_sort.sort_keys_mergepath(real_keys), torch.sort(real_keys).values)
     library_ms = timed_ms(lambda: torch.sort(flat), reps=3, warm=1)
-    times = {"ms": timed_ms(lambda: mergepath_sort.sort_keys_mergepath(flat), reps=3, warm=1),
+    runs_ms = [timed_ms(lambda: mergepath_sort.sort_keys_mergepath(flat), reps=3, warm=1)
+               for _ in range(4)]
+    times = {"ms": min(runs_ms),
              "plain_ms": timed_ms(lambda: plain_mergepath(flat, tile, base_run, chunk),
                                   reps=1, warm=0)}
     library_real = timed_ms(lambda: torch.sort(real_keys), reps=3, warm=1)
-    real_a = timed_ms(lambda: mergepath_sort.sort_keys_mergepath(real_keys), reps=3, warm=1)
-    real_b = timed_ms(lambda: mergepath_sort.sort_keys_mergepath(real_keys), reps=3, warm=1)
+    real_ms = [timed_ms(lambda: mergepath_sort.sort_keys_mergepath(real_keys), reps=3, warm=1)
+               for _ in range(4)]
     library_real = min(library_real, timed_ms(lambda: torch.sort(real_keys), reps=3, warm=1))
-    # the library's row sorts count as one pass over the keys
-    passes = [pass_bound(total, 0)] + [pass_bound(total, stages, MERGE_CE_OPS)] * bool(levels)
+    # the library's row sorts, where there are any, count as one pass over the keys
+    passes = [pass_bound(total, 0)] * (base_run > 1) + [main["bound"]] * (base_run < chunk)
     passes += [merge_pass_bound(total, tile, per_thread)] * len(pass_ms)
+    passes += [w[:2] for w in splits_work]
     entries.append(sort_entry(
-        "sort_keys_mergepath", "local_merge_kernel, merge_pass_kernel",
+        "sort_keys_mergepath", "local_merge_kernel, merge_pass_kernel, merge_splits_kernel",
         "genome_assembly_tpu/ops/mergepath_pallas.py:371",
-        launches["local_merge"] + launches["merge_pass"],
+        launches["local_merge"] + launches["merge_pass"] + launches["merge_splits"],
         "mergepath_entry_point (kernel launches of one sort_keys_mergepath call)",
         tallies["sort_keys_mergepath"], at, times, bound_fields(passes), library_ms, [n_keys],
         source="genome_assembly_tpu_torch/ops/mergepath_sort.py", composite=True,
         tile=tile, base_run=base_run, chunk=chunk, padded_to=total, passes=len(passes),
         library_call="torch.sort(x)", row_sort_ms=row_sort_ms, splits_ms=sum(splits_ms),
         local_merge_ms=entries[0]["ms"], merge_pass_ms_sum=sum(pass_ms),
-        ms_real_keys=min(real_a, real_b), library_ms_real_keys=library_real))
+        ms_runs=runs_ms, ms_real_keys=min(real_ms), ms_real_keys_runs=real_ms,
+        library_ms_real_keys=library_real))
     return entries
 
 
 def phase_tile_choice(device, n_keys):
-    """What the merge-path sort's defaults should be.  One K4b pass (run =
-    total / 2) over the padded main-path key count for tile 2^10 .. 2^13 and
-    4 and 8 keys a thread; K4a for chunk 2^13 and 2^14;
-    sort_keys_mergepath of the main path's key count over tile and over chunk,
-    there and back.  For the record, with no switch behind it: K2 sort_rows on
-    [total / chunk, chunk], which yields the array the row sorts and K4a
-    yield together."""
+    """What the merge-path sort's defaults should be, over the padded
+    main-path key count.  K4a for chunk 2^13 and 2^14, 8, 16 and 32 keys a
+    thread, from base_run 1 (the whole chunk sort) and from library rows of
+    2^10; one K4b pass (run = total / 2) for tile 2^10 .. 2^13 and 4, 8 and 16
+    keys a thread, and the split search beside it; sort_keys_mergepath of the
+    main path's key count over base_run, over tile and keys a thread, and over
+    chunk, there and back.  For
+    the record, with no switch behind it: K2 sort_rows on [total / chunk,
+    chunk], which yields the array K4a yields from base_run 1."""
     gen = torch.Generator(device=device)
     gen.manual_seed(11)
-    base_run, chunk = mergepath_sort.DEFAULT_BASE_RUN, mergepath_sort.DEFAULT_MERGE_CHUNK
+    chunk = mergepath_sort.DEFAULT_MERGE_CHUNK
     flat = random_keys(gen, n_keys, device, 0.3)
     padded = bitonic_sort._padded_copy(flat, chunk)
     total = padded.shape[0]
-    rows_ms = timed_ms(lambda: torch.sort(padded.view(-1, base_run), dim=1), reps=3, warm=1)
+    rows_ms = timed_ms(lambda: torch.sort(padded.view(-1, EARLIER_BASE_RUN), dim=1),
+                       reps=3, warm=1)
     sort_rows_ms = timed_ms(lambda: bitonic_sort.sort_rows(padded.view(-1, chunk)), reps=3, warm=1)
-    rows = sorted_runs(padded, base_run)
-    del padded
-    per_thread_before = mergepath_cuda.KEYS_PER_THREAD
+    before = (mergepath_cuda.KEYS_PER_THREAD, mergepath_cuda.LOCAL_KEYS_PER_THREAD)
     local, passes, sorts = [], [], []
+
+    def sort_ms(**kwargs):
+        return timed_ms(lambda: mergepath_sort.sort_keys_mergepath(flat, **kwargs), reps=5, warm=1)
+
     try:
-        for c in (1 << 13, 1 << 14):
-            levels = merge_levels(base_run, c)
-            local.append({"chunk": c, "local_merge_ms": timed_ms(
-                lambda: mergepath_sort.local_merge(rows, levels, chunk=c), reps=3, warm=1)})
-        del rows
+        for base in (1, EARLIER_BASE_RUN):
+            rows = chunk_runs(padded, base)
+            for c in (1 << 13, 1 << 14):
+                levels = merge_levels(base, c)
+                for wanted in (8, 16, 32):
+                    mergepath_cuda.LOCAL_KEYS_PER_THREAD = wanted
+                    local.append({
+                        "base_run": base, "chunk": c,
+                        "keys_per_thread": mergepath_cuda._keys_per_thread(wanted, c),
+                        "local_merge_ms": timed_ms(
+                            lambda: mergepath_sort.local_merge(rows, levels, chunk=c),
+                            reps=3, warm=1)})
+            del rows
+        del padded
+        mergepath_cuda.LOCAL_KEYS_PER_THREAD = before[1]
         halves = sorted_runs(bitonic_sort._padded_copy(flat, chunk), total // 2)
         spare = torch.empty_like(halves)
         for tile in (1 << 10, 1 << 11, 1 << 12, 1 << 13):
             splits = mergepath_sort.merge_splits(halves, total // 2, tile)
-            for per_thread in (4, 8):
-                mergepath_cuda.KEYS_PER_THREAD = per_thread
-                passes.append({"tile": tile, "keys_per_thread": per_thread, "merge_pass_ms": timed_ms(
-                    lambda: mergepath_sort.merge_pass(halves, splits, run=total // 2, tile=tile,
-                                                      out=spare), reps=5, warm=1)})
-        mergepath_cuda.KEYS_PER_THREAD = per_thread_before
+            splits_ms = timed_ms(lambda: mergepath_sort.merge_splits(halves, total // 2, tile))
+            for wanted in (4, 8, 16):
+                mergepath_cuda.KEYS_PER_THREAD = wanted
+                passes.append({
+                    "tile": tile, "keys_per_thread": mergepath_cuda._keys_per_thread(wanted, tile),
+                    "merge_splits_ms": splits_ms, "merge_pass_ms": timed_ms(
+                        lambda: mergepath_sort.merge_pass(halves, splits, run=total // 2,
+                                                          tile=tile, out=spare), reps=5, warm=1)})
+        mergepath_cuda.KEYS_PER_THREAD = before[0]
         del halves, spare, splits
-        for tile in (1 << 12, 1 << 11, 1 << 10, 1 << 13, 1 << 13, 1 << 10, 1 << 11, 1 << 12):
-            sorts.append({"tile": tile, "chunk": chunk, "sort_keys_mergepath_ms": timed_ms(
-                lambda: mergepath_sort.sort_keys_mergepath(flat, tile=tile), reps=5, warm=1)})
+        for base in (1, EARLIER_BASE_RUN, EARLIER_BASE_RUN, 1):
+            sorts.append({"base_run": base, "tile": mergepath_sort.DEFAULT_MERGE_TILE,
+                          "chunk": chunk, "sort_keys_mergepath_ms": sort_ms(base_run=base)})
+        grid = [(1 << 12, 4), (1 << 12, 8), (1 << 11, 4), (1 << 11, 8), (1 << 10, 4), (1 << 13, 8)]
+        for tile, wanted in grid + grid[::-1]:
+            mergepath_cuda.KEYS_PER_THREAD = wanted
+            sorts.append({"base_run": mergepath_sort.DEFAULT_BASE_RUN, "tile": tile, "chunk": chunk,
+                          "keys_per_thread": wanted,
+                          "sort_keys_mergepath_ms": sort_ms(tile=tile)})
+        mergepath_cuda.KEYS_PER_THREAD = before[0]
         for c in (1 << 13, 1 << 14, 1 << 14, 1 << 13):
-            sorts.append({"tile": mergepath_sort.DEFAULT_MERGE_TILE, "chunk": c,
-                          "sort_keys_mergepath_ms": timed_ms(
-                lambda: mergepath_sort.sort_keys_mergepath(flat, chunk=c), reps=5, warm=1)})
+            sorts.append({"base_run": mergepath_sort.DEFAULT_BASE_RUN,
+                          "tile": mergepath_sort.DEFAULT_MERGE_TILE, "chunk": c,
+                          "sort_keys_mergepath_ms": sort_ms(chunk=c)})
     finally:
-        mergepath_cuda.KEYS_PER_THREAD = per_thread_before
-    emit("tile_choice", n_keys=n_keys, padded_to=total, base_run=base_run,
+        mergepath_cuda.KEYS_PER_THREAD, mergepath_cuda.LOCAL_KEYS_PER_THREAD = before
+    emit("tile_choice", n_keys=n_keys, padded_to=total,
+         default_base_run=mergepath_sort.DEFAULT_BASE_RUN,
          default_tile=mergepath_sort.DEFAULT_MERGE_TILE, default_chunk=chunk,
-         default_keys_per_thread=per_thread_before,
+         default_keys_per_thread=before[0], default_local_keys_per_thread=before[1],
          library_row_sort_ms=rows_ms, sort_rows_kernel_ms_on_chunk_rows=sort_rows_ms,
          local_merge=local, merge_pass=passes, sorts=sorts)
 

@@ -1,59 +1,75 @@
 // Keys-only merge-path sort passes for Hopper (sm_90a) on one int64 key.
 //
-// Two kernels.  Each replaces a TPU kernel of the JAX package's
-// genome_assembly_tpu/ops/mergepath_pallas.py:
+// Three kernels.  The first two replace a TPU kernel of the JAX package's
+// genome_assembly_tpu/ops/mergepath_pallas.py each; the third replaces that
+// module's merge_splits, which is plain tensor code there.
 //
-//   local_merge_kernel  _local_merge_kernel (wrapper _local_merge_pass): inside
-//                       every block of `chunk` keys, the Batcher odd-even merge
-//                       levels the caller lists (2 base_run .. chunk), fused
-//                       between one load and one store of the chunk.
-//   merge_pass_kernel   _merge_kernel (wrapper _merge_pass): one merge level
-//                       run -> 2 run in ONE pass over the array.  Output tile i
-//                       (T keys) is the first T keys of the merge of the windows
-//                       A[a0 : a0 + T) and B[b0 : b0 + T) of its run pair, each
-//                       read as +inf at and past its run's end; (a0, b0) is the
-//                       tile's merge-path split, found outside the kernel
-//                       (ops/mergepath_sort.py::merge_splits).
+//   local_merge_kernel   _local_merge_kernel (wrapper _local_merge_pass): inside
+//                        every block of `chunk` keys, ascending runs of
+//                        `base_run` keys become ascending runs of `top` keys
+//                        (the merge levels 2 base_run .. top), fused between
+//                        one load and one store of the chunk.
+//   merge_pass_kernel    _merge_kernel (wrapper _merge_pass): one merge level
+//                        run -> 2 run in ONE pass over the array.  Output tile
+//                        t (T keys) is the merge of A[a0[t] : a0[t+1]) and
+//                        B[b0[t] : b0[t+1]) of its run pair A | B; (a0, b0) is
+//                        the tile's merge-path split.
+//   merge_splits_kernel  merge_splits: for every output tile of one merge level
+//                        the merge-path crossing on the tile's diagonal.
 //
 // Same functions, other form.  The TPU kernels hold a key as two uint32 lanes
 // in a [rows, width] layout, shift the flat array with lane and sublane rolls
 // to meet a partner or to align a window, copy whole 8-row groups (hence pad
-// rows behind the array) and get the splits as prefetched scalars.  Here a key
-// is one signed int64 (real keys are < 2^62, padding and the +inf mask are
-// int64 max, so signed order is the lane order), the array is flat, positions
-// are 64-bit, a block loads its own two split values, and every load is
-// guarded by its run's end: nothing outside the array is read, so there are no
-// pad rows.
+// rows behind the array), merge by the Batcher odd-even network and get the
+// splits as prefetched scalars.  Here a key is one signed int64 (real keys are
+// < 2^62, padding is int64 max, so signed order is the lane order), the array
+// is flat, positions are 64-bit, a block loads its own split values, and a
+// merge is the serial two-heads merge of a thread's own piece of the output:
+// on ascending runs it gives what the network gives, equal keys being
+// indistinguishable.
 //
-// local_merge_kernel.  Design: the odd-even network in place in shared memory,
-// one thread per pair, one block barrier per stage -- the stage structure of
-// bitonic.cu with another partner rule and no direction bit.  Stage k == m of
-// level 2 m pairs p with p + m where (p & m) == 0; a stage k < m pairs p with
-// p + k where (p & k) == k and (p & (2 m - 1)) + k < 2 m; the lower position
-// keeps the smaller key.  Chosen over per-level merge-path merges between two
-// shared-memory buffers because it holds a chunk of 2^14 keys (one buffer of
-// 128 KB, not two of 64 KB), which saves one merge_pass over the array, and
-// because it equals its plain tensor version on ANY input, not only on
-// ascending runs.  The price is sum(log2 L) stages (50 for runs of 2^10 in a
-// chunk of 2^14) where merges would take log2(chunk / base_run) rounds.
-// What bounds it: it moves 16 bytes a key through device memory once, but is
-// bound by its stages' shared-memory traffic and barriers, like finish_kernel.
+// The merge step, shared by the first two kernels.  A thread owns V
+// consecutive outputs from diagonal d of a pair of ascending segments A (la
+// keys) and B (lb keys) in shared memory.  It finds the largest j in
+// [max(0, d - lb), min(d, la)] with j at its lower end or A[j-1] <= B[d-j]
+// (equal keys of A first, the rule of merge_splits) by binary search, then
+// takes V times the smaller head.  Nothing pads the segments, and real keys
+// may equal the padding key, so the heads are guarded by INDEX, never by
+// value: take from A iff B is used up, or A is not and head_a <= head_b; a head
+// past its segment is never read.  The V results wait in registers for a
+// barrier and then go to shared memory, skewed by one key in 16 so that
+// threads V keys apart hit different banks.
 //
-// merge_pass_kernel.  One block per output tile.  The block loads the real part
-// of both windows into shared memory with coalesced 8-byte loads (the windows
-// start anywhere, so nothing wider) and fills the rest with +inf.  Thread t
-// then owns the V consecutive outputs from the tile's diagonal t V: a binary
-// search in the two shared windows for the largest j with A[j-1] <= B[tV-j]
-// (equal keys of A first, the rule of merge_splits), then V sequential merge
-// steps with the two heads in registers.  The results wait in registers for a
-// barrier, go back to shared memory (skewed by one key in 16, so that threads
-// V keys apart hit different banks) and are stored coalesced.  Since t V + V <=
-// T, neither head index leaves its window during the steps: no bound checks.
-// What bounds it: bytes, 16 a key and pass.  Not yet at that bound: every tile
-// loads 2 T keys to write T (the second read of a key comes from a tile next
-// door and mostly from L2), the sequential steps read shared memory at
-// data-dependent addresses (bank conflicts, not measured), and load, merge and
-// store of a block do not overlap.
+// local_merge_kernel.  A block merge sort: one chunk (at most 2^14 keys) in ONE
+// shared buffer in the skewed layout, chunk / V threads, V keys a thread (16
+// for a full chunk: 1024 threads).  Runs shorter than V are first merged in
+// registers, each thread on its own V keys, by the compile-time odd-even merge
+// levels 2 base_run .. V.  Then a round per level r -> 2 r: every thread
+// searches its diagonal in its run pair, merges V keys into registers,
+// barrier, writes them back in place, barrier.  Runs of 2^10 in a chunk of
+// 2^14 take 4 rounds (8 barriers) where the network this kernel had before
+// took 50 stages; from base_run 1 the kernel is a whole chunk sort (the
+// register levels and 10 rounds).  The rounds equal the network only on valid
+// input (runs of base_run ascending), which is all the sort sends.
+// What bounds it: it moves 16 bytes a key through device memory once; its
+// time is the rounds' shared-memory latency (a dependent load a merge step)
+// under one block an SM.
+//
+// merge_pass_kernel.  One block per output tile.  Tile t ends where tile t + 1
+// of the same run pair begins, the pair's last tile at the runs' ends, so the
+// block loads exactly T keys: A[a0 : a1) and B[b0 : b1) back to back into one
+// shared buffer with coalesced 8-byte loads (a split is aligned to nothing
+// wider).  Then the merge step above with la = a1 - a0, lb = b1 - b0, and a
+// coalesced store of the staged results.  The kernel trusts its splits: a
+// start outside its run, an end before its start or segments longer than a
+// tile together are cut to what lies inside, so nothing outside the run pair
+// or the shared buffer is ever read; the output of such a tile means nothing.
+// What bounds it: bytes, 16 a key and pass.
+//
+// merge_splits_kernel.  One thread per tile; the same search on the tile's
+// diagonal over the whole runs in device memory: at most ceil(log2(run)) + 1
+// steps of two independent 8-byte loads.  What bounds it: one chain of
+// dependent load latencies; all tiles search at once.
 //
 // A difference of the card: the chunk is at most 2^14 keys where the TPU's is
 // 2^17, so a sort has three more merge_pass levels here than there.
@@ -66,152 +82,259 @@ namespace {
 typedef long long sort_key;             // one int64 key
 typedef unsigned long long position;    // global index, run length
 
-constexpr sort_key kSentinel = 0x7FFFFFFFFFFFFFFFll;  // +inf; the padding key
-constexpr int kMaxChunkKeys = 1 << 14;  // local_merge: 128 KB of the block's 227 KB
-constexpr int kMaxTileKeys = 1 << 13;   // merge_pass: two windows, 16 bytes a tile key
+constexpr int kMaxChunkKeys = 1 << 14;  // local_merge: 136 KB of the block's 227 KB
+constexpr int kMaxTileKeys = 1 << 13;   // merge_pass: 8.5 bytes a tile key
 constexpr int kMaxBlocks = 132 * 16;    // local_merge strides over its chunks
-constexpr int kLocalMergeThreads = 1024;  // of a local_merge block, one pair a thread at most
+constexpr int kSplitThreads = 256;      // of a merge_splits block
 
-// One stage of merge level `window` over `len` keys in shared memory (a whole
-// number of windows).  Pair q is (i, i + k): for k == m, i is q with a zero
-// bit inserted at k's position; for k < m the same moved up by k, which is
-// the upper half of a block of 2 k keys meeting the lower half of the next
-// block, dropped where that block lies in the next window.
-__device__ __forceinline__ void merge_stage(sort_key* s, int len, int k, int window) {
-  const int shift = 2 * k == window ? 0 : k;
-  for (int q = threadIdx.x; q < len / 2; q += blockDim.x) {
-    const int i = 2 * q - (q & (k - 1)) + shift;
-    if ((i & (window - 1)) + k < window) {
-      const sort_key a = s[i];
-      const sort_key b = s[i + k];
-      if (a > b) {
-        s[i] = b;
-        s[i + k] = a;
-      }
+// Where key p of a chunk or tile lies in the skewed layout: one key of room
+// after every 16 (every 32 where a thread owns 32), so that the first keys of
+// neighbouring threads fall into different banks.
+template <int V>
+__device__ __forceinline__ int staged(int p) { return p + (p >> (V > 16 ? 5 : 4)); }
+
+// keys of shared memory for `keys` keys in the skewed layout, one to spare
+size_t staged_bytes(int keys) { return static_cast<size_t>(keys + (keys >> 4) + 1) * sizeof(sort_key); }
+
+// the most threads a block of V keys a thread can have for `keys` keys
+#define MAX_THREADS(keys, V) ((keys) / (V) > 1024 ? 1024 : (keys) / (V))
+
+// The largest j in [max(0, d - lb), min(d, la)] with j at the lower end or
+// a(j - 1) <= b(d - j): how many keys of A precede diagonal d of the merge.
+template <typename ReadA, typename ReadB>
+__device__ __forceinline__ int diagonal_split(int d, int la, int lb, ReadA a, ReadB b) {
+  int lo = d > lb ? d - lb : 0;
+  int hi = d < la ? d : la;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (a(mid - 1) <= b(d - mid)) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
     }
   }
-  __syncthreads();
+  return lo;
 }
 
-// `in` and `out` may be the same buffer: a chunk is read and written by the
-// one block that owns it.  level_mask: bit b set <=> level 2^b, ascending.
-__global__ void __launch_bounds__(1024)
-local_merge_kernel(const sort_key* in, sort_key* out, long long n_chunks, int chunk,
-                   unsigned int level_mask) {
-  extern __shared__ sort_key s[];
-  for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x) {
-    const size_t base = static_cast<size_t>(c) * chunk;
-    for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
-      s[i] = in[base + i];
+// V steps of the two-heads merge from (ia, ib); a(i) and b(i) read key i of
+// their segment and are called only with i inside it.
+template <int V, typename ReadA, typename ReadB>
+__device__ __forceinline__ void merge_steps(sort_key (&merged)[V], int ia, int ib, int la, int lb,
+                                            ReadA a, ReadB b) {
+  sort_key head_a = 0, head_b = 0;
+  if (ia < la) head_a = a(ia);
+  if (ib < lb) head_b = b(ib);
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const bool from_a = ib >= lb || (ia < la && head_a <= head_b);
+    merged[v] = from_a ? head_a : head_b;
+    if (from_a) {
+      ++ia;
+      if (ia < la) head_a = a(ia);
+    } else {
+      ++ib;
+      if (ib < lb) head_b = b(ib);
     }
-    __syncthreads();
-    for (int window = 2; window <= chunk; window <<= 1) {
-      if (level_mask & static_cast<unsigned int>(window)) {
-        for (int k = window / 2; k >= 1; k >>= 1) {
-          merge_stage(s, chunk, k, window);
+  }
+}
+
+// One compare-exchange of two registers; the lower index keeps the smaller key.
+__device__ __forceinline__ void order(sort_key& low, sort_key& high) {
+  const sort_key a = low, b = high;
+  low = a < b ? a : b;
+  high = a < b ? b : a;
+}
+
+// The odd-even merge levels 2 base_run .. min(V, top) on a thread's own V keys.  Level
+// 2 m: stage k == m pairs p with p + m where (p & m) == 0; a stage k < m pairs p
+// with p + k where (p & k) == k and (p & (2 m - 1)) + k < 2 m.  All indices
+// are compile-time constants after unrolling: the keys stay in registers.
+template <int V>
+__device__ __forceinline__ void merge_in_registers(sort_key (&r)[V], int base_run, int top) {
+#pragma unroll
+  for (int log_window = 1; (1 << log_window) <= V; ++log_window) {
+    const int window = 1 << log_window;
+    if (window > base_run && window <= top) {
+#pragma unroll
+      for (int log_k = log_window - 1; log_k >= 0; --log_k) {
+        const int k = 1 << log_k;
+#pragma unroll
+        for (int p = 0; p < V; ++p) {
+          const bool pair = 2 * k == window ? (p & k) == 0
+                                            : (p & k) == k && (p & (window - 1)) + k < window;
+          if (pair) order(r[p], r[(p + k) & (V - 1)]);  // a pair has p + k < V
         }
       }
     }
-    for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
-      out[base + i] = s[i];
+  }
+}
+
+// `in` and `out` may be the same buffer: a chunk is read and written by the
+// one block that owns it.  blockDim.x * V == chunk; base_run < top <= chunk,
+// powers of two.
+template <int V>
+__global__ void __launch_bounds__(MAX_THREADS(kMaxChunkKeys, V))
+local_merge_kernel(const sort_key* in, sort_key* out, long long n_chunks, int chunk,
+                   int base_run, int top) {
+  extern __shared__ sort_key s[];
+  const int first = threadIdx.x * V;  // of this thread's V keys in the chunk
+  for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    const size_t base = static_cast<size_t>(c) * chunk;
+    sort_key merged[V];
+    // blockDim.x * V == chunk: V coalesced loads in flight, then into the layout
+#pragma unroll
+    for (int v = 0; v < V; ++v) merged[v] = in[base + threadIdx.x + v * blockDim.x];
+#pragma unroll
+    for (int v = 0; v < V; ++v) s[staged<V>(threadIdx.x + v * blockDim.x)] = merged[v];
+    __syncthreads();
+    if (base_run < V) {
+      // only this thread touches these V keys: no barrier around the levels
+#pragma unroll
+      for (int v = 0; v < V; ++v) merged[v] = s[staged<V>(first + v)];
+      merge_in_registers<V>(merged, base_run, top);
+#pragma unroll
+      for (int v = 0; v < V; ++v) s[staged<V>(first + v)] = merged[v];
+      __syncthreads();
+    }
+    for (int run = base_run < V ? V : base_run; 2 * run <= top; run <<= 1) {
+      const int pair_at = first & ~(2 * run - 1);
+      const int d = first - pair_at;
+      auto a = [&](int i) { return s[staged<V>(pair_at + i)]; };
+      auto b = [&](int i) { return s[staged<V>(pair_at + run + i)]; };
+      const int j = diagonal_split(d, run, run, a, b);
+      merge_steps<V>(merged, j, d - j, run, run, a, b);
+      __syncthreads();  // every thread has read its keys: the runs may go
+#pragma unroll
+      for (int v = 0; v < V; ++v) s[staged<V>(first + v)] = merged[v];
+      __syncthreads();
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      out[base + threadIdx.x + v * blockDim.x] = s[staged<V>(threadIdx.x + v * blockDim.x)];
     }
     __syncthreads();  // the block's next chunk overwrites the shared keys
   }
 }
 
-// Where key p of the tile waits in shared memory for its store.
-__device__ __forceinline__ int staged(int p) { return p + (p >> 4); }
+// x cut into [low, high]
+__device__ __forceinline__ position cut(position x, position low, position high) {
+  return x < low ? low : (x > high ? high : x);
+}
 
 // `out` must not overlap `in`: a tile reads from anywhere in its run pair.
-// a0, b0: [n_tiles] start of each tile's windows, inside or at the end of its
-// runs (a start outside is read as an empty window).  blockDim.x * V == tile.
+// a0, b0: [n_tiles] start of each tile's segments.  blockDim.x * V == tile.
 template <int V>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(MAX_THREADS(kMaxTileKeys, V))
 merge_pass_kernel(const sort_key* in, sort_key* out, const long long* a0, const long long* b0,
                   long long n_tiles, int tile, unsigned long long run) {
   extern __shared__ sort_key s[];
-  sort_key* sa = s;          // window of A, then the staged results
-  sort_key* sb = s + tile + (tile >> 4);
+  const position tiles_a_pair = 2 * run / tile;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const position first = static_cast<position>(t) * tile;
     const position a_begin = first / (2 * run) * (2 * run);
     const position a_end = a_begin + run;
     const position b_end = a_end + run;
-    const position a_at = static_cast<position>(a0[t]);
-    const position b_at = static_cast<position>(b0[t]);
-    int a_len = 0, b_len = 0;
-    if (a_at >= a_begin && a_at < a_end) {
-      a_len = a_end - a_at < static_cast<position>(tile) ? static_cast<int>(a_end - a_at) : tile;
-    }
-    if (b_at >= a_end && b_at < b_end) {
-      b_len = b_end - b_at < static_cast<position>(tile) ? static_cast<int>(b_end - b_at) : tile;
-    }
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-      sa[i] = i < a_len ? in[a_at + i] : kSentinel;
-      sb[i] = i < b_len ? in[b_at + i] : kSentinel;
-    }
-    __syncthreads();
-
-    // the split of this thread's diagonal: the largest j in [0, d] with
-    // j == 0 or A[j-1] <= B[d-j]  (d < tile, so both indices stay inside)
-    const int d = threadIdx.x * V;
-    int lo = 0, hi = d;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (sa[mid - 1] <= sb[d - mid]) {
-        lo = mid;
-      } else {
-        hi = mid - 1;
-      }
-    }
-    int ia = lo, ib = d - lo;
-    sort_key head_a = sa[ia];
-    sort_key head_b = sb[ib];
+    const bool last = (static_cast<position>(t) + 1) % tiles_a_pair == 0;
+    // a start outside its run, an end before its start: an empty segment
+    const position a_at = cut(static_cast<position>(a0[t]), a_begin, a_end);
+    const position b_at = cut(static_cast<position>(b0[t]), a_end, b_end);
+    const position a_to = last ? a_end : cut(static_cast<position>(a0[t + 1]), a_at, a_end);
+    const position b_to = last ? b_end : cut(static_cast<position>(b0[t + 1]), b_at, b_end);
+    const position tile_keys = static_cast<position>(tile);
+    const int la = static_cast<int>(a_to - a_at < tile_keys ? a_to - a_at : tile_keys);
+    const int lb = static_cast<int>(b_to - b_at < tile_keys - la ? b_to - b_at : tile_keys - la);
+    // blockDim.x * V == tile >= la + lb: V coalesced loads in flight
     sort_key merged[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      // ia + ib == d + v <= tile - 1 before the step; after the thread's last
-      // step a head index may reach `tile`, which the skewed layout still holds
-      if (head_a <= head_b) {
-        merged[v] = head_a;
-        head_a = sa[++ia];
-      } else {
-        merged[v] = head_b;
-        head_b = sb[++ib];
-      }
+      const int i = threadIdx.x + v * blockDim.x;
+      if (i < la + lb) merged[v] = i < la ? in[a_at + i] : in[b_at + (i - la)];
     }
-    __syncthreads();  // every thread has read its keys: the windows may go
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      sa[staged(d + v)] = merged[v];
+      const int i = threadIdx.x + v * blockDim.x;
+      if (i < la + lb) s[i] = merged[v];
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-      out[first + i] = sa[staged(i)];
+
+    const int d = threadIdx.x * V;
+    auto a = [&](int i) { return s[i]; };
+    auto b = [&](int i) { return s[la + i]; };
+    const int j = diagonal_split(d, la, lb, a, b);
+    merge_steps<V>(merged, j, d - j, la, lb, a, b);
+    __syncthreads();  // every thread has read its keys: the segments may go
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      s[staged<V>(d + v)] = merged[v];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      out[first + threadIdx.x + v * blockDim.x] = s[staged<V>(threadIdx.x + v * blockDim.x)];
     }
     __syncthreads();  // the block's next tile overwrites the shared keys
   }
 }
 
+// Tile t of the output of one merge level starts at out0 = t * tile, on
+// diagonal d = out0 - base of its run pair A = key[base : base + run), B =
+// key[base + run : base + 2 run).  a0 = base + j, b0 = base + run + d - j for
+// the largest j in [max(0, d - run), min(d, run)] with j at its lower end or
+// A[j-1] <= B[d-j]; aend and bend are the runs' ends.
+__global__ void __launch_bounds__(kSplitThreads)
+merge_splits_kernel(const sort_key* key, long long* a0, long long* b0, long long* aend,
+                    long long* bend, long long n_tiles, int tile, unsigned long long run) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= n_tiles) return;
+  const position out0 = static_cast<position>(t) * tile;
+  const position base = out0 / (2 * run) * (2 * run);
+  const position d = out0 - base;
+  const sort_key* a_keys = key + base;
+  const sort_key* b_keys = a_keys + run;
+  position lo = d > run ? d - run : 0;
+  position hi = d < run ? d : run;
+  while (lo < hi) {
+    const position mid = (lo + hi + 1) >> 1;
+    if (a_keys[mid - 1] <= b_keys[d - mid]) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  a0[t] = static_cast<long long>(base + lo);
+  b0[t] = static_cast<long long>(base + run + (d - lo));
+  aend[t] = static_cast<long long>(base + run);
+  bend[t] = static_cast<long long>(base + 2 * run);
+}
+
 bool is_pow2(unsigned long long x) { return x != 0 && (x & (x - 1)) == 0; }
 
-// shared bytes of a merge_pass block: two windows, each with room for the
-// skew of the staged results and for a head index one past the window
-size_t merge_pass_bytes(int tile) {
-  return 2 * static_cast<size_t>(tile + (tile >> 4) + 1) * sizeof(sort_key);
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int V>
+cudaError_t launch_local_merge(const sort_key* in, sort_key* out, long long n_chunks, int chunk,
+                               int base_run, int top, cudaStream_t stream) {
+  const size_t bytes = staged_bytes(chunk);
+  cudaError_t err = allow_shared(local_merge_kernel<V>, bytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = n_chunks < kMaxBlocks ? static_cast<int>(n_chunks) : kMaxBlocks;
+  local_merge_kernel<V><<<blocks, chunk / V, bytes, stream>>>(in, out, n_chunks, chunk, base_run,
+                                                             top);
+  return cudaGetLastError();
 }
 
 template <int V>
 cudaError_t launch_merge_pass(const sort_key* in, sort_key* out, const long long* a0,
                               const long long* b0, long long n_tiles, int tile,
                               unsigned long long run, cudaStream_t stream) {
-  const size_t bytes = merge_pass_bytes(tile);
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        merge_pass_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-  }
+  const size_t bytes = staged_bytes(tile);
+  cudaError_t err = allow_shared(merge_pass_kernel<V>, bytes);
+  if (err != cudaSuccess) return err;
   const int blocks = n_tiles < 0x7FFFFFFFll ? static_cast<int>(n_tiles) : 0x7FFFFFFF;
   merge_pass_kernel<V><<<blocks, tile / V, bytes, stream>>>(in, out, a0, b0, n_tiles, tile, run);
   return cudaGetLastError();
@@ -226,30 +349,32 @@ cudaError_t launch_merge_pass(const sort_key* in, sort_key* out, const long long
 extern "C" int mergepath_max_chunk_keys() { return kMaxChunkKeys; }
 extern "C" int mergepath_max_tile_keys() { return kMaxTileKeys; }
 
+// Ascending runs of base_run keys -> ascending runs of top keys inside every
+// chunk.  per_thread: keys one thread owns (2 .. 32); the block has
+// chunk / per_thread threads.
 extern "C" int local_merge_launch(const void* in, void* out, long long n_chunks, int chunk,
-                                  unsigned int level_mask, void* stream) {
-  // levels 2 .. chunk; bit 0 names no level
-  if (n_chunks < 1 || chunk < 2 || chunk > kMaxChunkKeys || !is_pow2(chunk) ||
-      (level_mask & 1u) || level_mask >= 2u * static_cast<unsigned int>(chunk)) {
+                                  int base_run, int top, int per_thread, void* stream) {
+  if (n_chunks < 1 || chunk < 2 || chunk > kMaxChunkKeys || !is_pow2(chunk) || base_run < 1 ||
+      !is_pow2(base_run) || !is_pow2(top) || top <= base_run || top > chunk ||
+      per_thread > chunk || chunk / per_thread > 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int useful = chunk / 2 < 32 ? 32 : chunk / 2;  // one pair a thread at most
-  const int block_threads = kLocalMergeThreads < useful ? kLocalMergeThreads : useful;
-  const int blocks = n_chunks < kMaxBlocks ? static_cast<int>(n_chunks) : kMaxBlocks;
-  const size_t bytes = static_cast<size_t>(chunk) * sizeof(sort_key);
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        local_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const sort_key* src = static_cast<const sort_key*>(in);
+  sort_key* dst = static_cast<sort_key*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (per_thread) {
+    case 2: err = launch_local_merge<2>(src, dst, n_chunks, chunk, base_run, top, st); break;
+    case 4: err = launch_local_merge<4>(src, dst, n_chunks, chunk, base_run, top, st); break;
+    case 8: err = launch_local_merge<8>(src, dst, n_chunks, chunk, base_run, top, st); break;
+    case 16: err = launch_local_merge<16>(src, dst, n_chunks, chunk, base_run, top, st); break;
+    case 32: err = launch_local_merge<32>(src, dst, n_chunks, chunk, base_run, top, st); break;
+    default: break;
   }
-  local_merge_kernel<<<blocks, block_threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const sort_key*>(in), static_cast<sort_key*>(out), n_chunks, chunk,
-      level_mask);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
-// per_thread: outputs one thread merges (2, 4 or 8); the block has
+// per_thread: outputs one thread merges (2, 4, 8 or 16); the block has
 // tile / per_thread threads.
 extern "C" int merge_pass_launch(const void* in, void* out, const void* a0, const void* b0,
                                  long long n_tiles, int tile, unsigned long long run,
@@ -269,7 +394,26 @@ extern "C" int merge_pass_launch(const void* in, void* out, const void* a0, cons
     case 2: err = launch_merge_pass<2>(src, dst, a, b, n_tiles, tile, run, st); break;
     case 4: err = launch_merge_pass<4>(src, dst, a, b, n_tiles, tile, run, st); break;
     case 8: err = launch_merge_pass<8>(src, dst, a, b, n_tiles, tile, run, st); break;
+    case 16: err = launch_merge_pass<16>(src, dst, a, b, n_tiles, tile, run, st); break;
     default: break;
   }
   return static_cast<int>(err);
+}
+
+// The four [n_tiles] int64 outputs of merge_splits for one merge level.
+extern "C" int merge_splits_launch(const void* key, void* a0, void* b0, void* aend, void* bend,
+                                   long long n_tiles, int tile, unsigned long long run,
+                                   void* stream) {
+  if (n_tiles < 1 || tile < 2 || !is_pow2(tile) || !is_pow2(run) ||
+      run < static_cast<unsigned long long>(tile)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long blocks = (n_tiles + kSplitThreads - 1) / kSplitThreads;
+  if (blocks > 0x7FFFFFFFll) return static_cast<int>(cudaErrorInvalidValue);
+  merge_splits_kernel<<<static_cast<int>(blocks), kSplitThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const sort_key*>(key), static_cast<long long*>(a0),
+      static_cast<long long*>(b0), static_cast<long long*>(aend), static_cast<long long*>(bend),
+      n_tiles, tile, run);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -7,16 +7,16 @@ is ONE int64 (ops/bitonic_sort.py says why), the array is flat, and positions,
 runs and splits are int64; there is no ``[rows, width]`` layout and there are
 no pad rows.
 
-The sort.  Rows of ``base_run`` keys are sorted by the library.
-``local_merge`` then turns, inside every block of ``chunk`` keys, ascending
-runs of ``base_run`` into one ascending run of ``chunk`` with the Batcher
-odd-even merge levels ``2 base_run, 4 base_run .. chunk``, all in one pass.
-From there every level ``run -> 2 run`` is one ``merge_splits`` (tensor ops: a
-binary search on the merge diagonal for every output tile) and one
-``merge_pass``: output tile ``i`` is the first ``tile`` keys of the merge of
-``A[a0 : a0 + tile)`` and ``B[b0 : b0 + tile)``, each read as +inf at and past
-its run's end.  A bitonic level needs ``log2(run / chunk) + 1`` passes over the
-array (ops/bitonic_sort.py); a merge-path level needs one.
+The sort.  ``local_merge`` turns, inside every block of ``chunk`` keys,
+ascending runs of ``base_run`` into one ascending run of ``chunk`` by the merge
+levels ``2 base_run, 4 base_run .. chunk``, all in one pass; with ``base_run ==
+1`` that is a sort of every chunk, else rows of ``base_run`` keys are sorted by
+the library first.  From there every level ``run -> 2 run`` is one
+``merge_splits`` (a binary search on the merge diagonal for every output tile)
+and one ``merge_pass``: output tile ``i`` is the merge of ``A[a0[i] : a0[i+1])``
+and ``B[b0[i] : b0[i+1])`` (``tile_segments``).  A bitonic level needs
+``log2(run / chunk) + 1`` passes over the array (ops/bitonic_sort.py); a
+merge-path level needs one.
 
 The odd-even merge network.  Level ``window = 2 m`` merges the two ascending
 halves of every aligned window.  Its stage ``k == m`` pairs ``p`` with
@@ -26,12 +26,16 @@ position keeps the smaller key: always ascending, no direction bit.  Equal
 keys are indistinguishable, so every pass is a fixed function of its input.
 
 Every pass has two forms, as in ops/bitonic_sort.py.  The ``*_plain`` functions
-walk the network stage by stage in tensor ops and call no library sort.  The
-dispatchers send a CUDA tensor to the hand-written kernel
+are tensor ops and call no library sort: the two passes walk the network stage
+by stage, ``merge_splits_plain`` runs the binary search for all tiles at once.
+The dispatchers send a CUDA tensor to the hand-written kernel
 (ops/mergepath_cuda.py, csrc/mergepath.cu) or raise, and a CPU tensor to the
-plain form; there is no other route.  ``local_merge_plain`` is the network on
-any input; the two forms of ``merge_pass`` agree where its contract holds
-(runs ascending, splits inside their runs), which is all the sort sends it.
+plain form; there is no other route.  The kernels merge with two heads where
+the plain passes walk the network, so the two forms of ``local_merge`` and of
+``merge_pass`` agree where the contract holds (runs ascending, splits inside
+their runs), which is all the sort sends them; ``local_merge_plain`` is the
+network on any input.  ``merge_splits`` has one answer on any input, and its
+two forms give it bit for bit.
 """
 
 from __future__ import annotations
@@ -45,24 +49,25 @@ from genome_assembly_tpu_torch.ops.bitonic_sort import (
     _is_pow2, _padded_copy, check_chunked, check_sizes)
 
 # Defaults of ``sort_keys_mergepath``, read at call time.  tile: keys of one
-# output tile of ``merge_pass`` (one thread block; both windows in shared
-# memory, 17 bytes a tile key).  chunk: keys of one block of ``local_merge``
-# (8 bytes a key in shared memory, at most 2^14); a chunk half as large is one
-# more ``merge_splits`` and ``merge_pass`` over the array.  base_run: keys of
-# one library row sort.  Measured on 2^28 keys (NVIDIA H100 80GB HBM3 at
-# 700 W, one run of the ``tile_choice`` phase of chip_smoke.py): one
-# ``merge_pass`` alone is faster the smaller the tile (1.77 ms at 2^10, 1.97 at
-# 2^11, 2.14 at 2^12, 3.07 at 2^13), but ``merge_splits`` then searches for
-# more tiles, and its small tensor ops are launched from the host, so the
-# whole sort's time follows the host more than the tile: 231 M keys took, there
-# and back, 100.6 and 77.5 ms at tile 2^12, 97.4 and 74.2 at 2^11, 95.7 and
-# 89.1 at 2^10, 85.3 and 83.2 at 2^13.  No tile wins on the whole sort; 2^12 is
-# the middle.  Chunk 2^14 against 2^13: ``local_merge`` 9.93 against 6.59 ms,
-# but one split search and ``merge_pass`` fewer; the whole sort 79.7 and 77.6
-# against 71.9 and 82.3 ms, a tie.  The larger chunk is kept for the pass it
-# saves on the card.
-DEFAULT_MERGE_TILE = 1 << 12
-DEFAULT_BASE_RUN = 1 << 10
+# output tile of ``merge_pass`` (one thread block, 8.5 bytes of shared memory a
+# tile key).  chunk: keys of one block of ``local_merge`` (8.5 bytes a key, at
+# most 2^14); a chunk half as large is one more ``merge_splits`` and
+# ``merge_pass`` over the array.  base_run: keys of one library row sort; 1
+# leaves the whole chunk sort to ``local_merge`` and calls no library sort.
+# Measured on 2^28 keys (NVIDIA H100 80GB HBM3 at 700 W, one run of the
+# ``tile_choice`` phase of chip_smoke.py).  base_run: ``local_merge`` takes
+# 6.41 ms from single keys and 3.00 ms from rows of 2^10, which the library
+# needs 17.29 ms to sort: 231 M keys sort in 31.7 and 31.7 ms with base_run 1
+# against 45.5 and 45.5 with 2^10.  tile: one ``merge_pass`` with its
+# ``merge_splits`` takes 1.50 + 0.39 ms at 2^10, 1.57 + 0.21 at 2^11, 1.86 +
+# 0.14 at 2^12 (1.77 with 8 keys a thread) and 2.14 + 0.08 at 2^13: the pass
+# is faster the smaller the tile, the search the larger.  The whole sort,
+# there and back: 31.7 and 31.6 ms at 2^11, 32.5 and 32.5 at 2^10, 33.5 and
+# 33.6 at 2^12 with 8 keys a thread (34.0 and 33.9 with 4), 38.0 and 38.0 at
+# 2^13.  chunk 2^14 against 2^13: ``local_merge`` 6.41 against 5.42 ms, less
+# than the level it saves; the whole sort 31.6 and 31.7 against 32.3 and 32.3.
+DEFAULT_MERGE_TILE = 1 << 11
+DEFAULT_BASE_RUN = 1
 DEFAULT_MERGE_CHUNK = 1 << 14
 
 Splits = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -91,16 +96,18 @@ def check_out(key: torch.Tensor, out: torch.Tensor) -> None:
                          "that shares no memory with them")
 
 
-def check_levels(levels: Sequence[int], chunk: int) -> int:
-    """Merge levels of ``local_merge``: strictly ascending powers of two from
-    2 to the chunk.  Returns them as a bit mask (bit b <=> level 2^b)."""
+def check_levels(levels: Sequence[int], chunk: int) -> None:
+    """Merge levels of ``local_merge``: at least one, consecutive powers of
+    two (each twice the one before) from 2 to the chunk."""
     mask = check_sizes(levels)
-    if mask >= 2 * chunk:
-        raise ValueError(f"merge levels {list(levels)} must not exceed the chunk {chunk}")
-    return mask
+    if not mask or mask >= 2 * chunk:
+        raise ValueError(
+            f"need merge levels from 2 to the chunk {chunk}, got {list(levels)}")
+    if any(high != 2 * low for low, high in zip(levels, levels[1:])):
+        raise ValueError(f"merge levels {list(levels)} must double from one to the next")
 
 
-def merge_splits(key: torch.Tensor, run: int, tile: int) -> Splits:
+def merge_splits_plain(key: torch.Tensor, run: int, tile: int) -> Splits:
     """Per-output-tile source splits of one merge level.
 
     key: flat int64, ascending in runs of ``run``.  Returns int64 ``[n / tile]``
@@ -137,6 +144,20 @@ def merge_splits(key: torch.Tensor, run: int, tile: int) -> Splits:
         lo = torch.where(ok, mid, lo)
         hi = torch.where(ok, hi, mid.sub_(1))
     return base + lo, base + run + (d - lo), base + run, base + 2 * run
+
+
+def tile_segments(splits: Splits, run: int, tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(a1, b1)``, int64 ``[n / tile]``: where tile i's two source segments
+    end, as the ``merge_pass`` kernel derives it from ``a0, b0`` alone.  Tile
+    i consumes ``A[a0[i] : a1[i])`` and ``B[b0[i] : b1[i])``: it ends where
+    tile i + 1 of the same run pair begins, the pair's last tile at the runs'
+    ends.  For splits of ascending runs the two lengths sum to ``tile``."""
+    a0, b0, aend, bend = splits
+    n_tiles = a0.shape[0]
+    last = (torch.arange(1, n_tiles + 1, device=a0.device) % (2 * run // tile)) == 0
+    a1 = torch.where(last, aend, torch.cat((a0[1:], aend[-1:])))
+    b1 = torch.where(last, bend, torch.cat((b0[1:], bend[-1:])))
+    return a1, b1
 
 
 # --------------------------------------------------------------------------
@@ -191,8 +212,18 @@ def merge_pass_plain(key: torch.Tensor, splits: Splits, *, run: int, tile: int) 
 # dispatchers: CUDA tensor -> kernel, CPU tensor -> plain version
 # --------------------------------------------------------------------------
 
+def merge_splits(key: torch.Tensor, run: int, tile: int) -> Splits:
+    if key.is_cuda:
+        from genome_assembly_tpu_torch.ops import mergepath_cuda
+
+        return mergepath_cuda.merge_splits_cuda(key, run, tile)
+    return merge_splits_plain(key, run, tile)
+
+
 def local_merge(key: torch.Tensor, levels: Sequence[int], *, chunk: int,
                 overwrite: bool = False) -> torch.Tensor:
+    """``key``: runs of ``levels[0] / 2`` keys ascending (the kernel merges
+    with two heads, which is the network only then)."""
     if key.is_cuda:
         from genome_assembly_tpu_torch.ops import mergepath_cuda
 
@@ -224,16 +255,18 @@ def merge_pass(key: torch.Tensor, splits: Splits, *, run: int, tile: int,
 def sort_keys_mergepath(key: torch.Tensor, *, tile: int | None = None,
                         base_run: int | None = None,
                         chunk: int | None = None) -> torch.Tensor:
-    """Ascending sort of flat int64 keys: library row sorts, one
-    ``local_merge`` pass, one ``merge_pass`` per level above the chunk.
+    """Ascending sort of flat int64 keys: one ``local_merge`` pass (after
+    library row sorts where ``base_run > 1``), then one ``merge_splits`` and one
+    ``merge_pass`` per level above the chunk.
 
     Below four chunks the library sort, as the JAX ``sort_pairs_mergepath``;
     else pad with SENTINEL to a power of two, sort rows of ``base_run`` keys
     with ``torch.sort`` (the sort the JAX package also leaves to the library,
-    outside any kernel), merge them up to the chunk (skipped when ``base_run
-    == chunk``), then merge level by level between two buffers the sort owns,
-    and trim.  Needs powers of two with ``tile <= chunk`` (a tile lies inside
-    one run pair) and ``base_run <= chunk``.  Never writes into ``key``.
+    outside any kernel; none for ``base_run == 1``), merge them up to the chunk
+    (skipped when ``base_run == chunk``), then merge level by level between
+    two buffers the sort owns, and trim.  Needs powers of two with ``tile <=
+    chunk`` (a tile lies inside one run pair) and ``base_run <= chunk``.  Never
+    writes into ``key``.
     """
     tile = DEFAULT_MERGE_TILE if tile is None else tile
     base_run = DEFAULT_BASE_RUN if base_run is None else base_run
@@ -251,11 +284,14 @@ def sort_keys_mergepath(key: torch.Tensor, *, tile: int | None = None,
         return torch.sort(key).values
     spare = _padded_copy(key, chunk)
     total = spare.shape[0]
-    # .values alone is kept; the padded copy becomes the second buffer
-    buf = torch.sort(spare.view(-1, base_run), dim=1).values.view(-1)
+    # the padded copy becomes the second buffer of the merge levels
     levels = [1 << b for b in range(base_run.bit_length(), chunk.bit_length())]
-    if levels:
-        buf = local_merge(buf, levels, chunk=chunk, overwrite=True)
+    if base_run == 1:
+        buf = local_merge(spare, levels, chunk=chunk)
+    else:
+        buf = torch.sort(spare.view(-1, base_run), dim=1).values.view(-1)
+        if levels:
+            buf = local_merge(buf, levels, chunk=chunk, overwrite=True)
     run = chunk
     while run < total:
         merged = merge_pass(buf, merge_splits(buf, run, tile), run=run, tile=tile, out=spare)

@@ -1,8 +1,9 @@
 """Port vs JAX package: the merge-path sort, pass by pass and whole (CPU).
 
 The same int64 keys, made from a seed with numpy (duplicates, sentinels,
-non-power-of-two lengths), go through ``merge_splits``, each plain pass and the
-composed sort of ``genome_assembly_tpu_torch/ops/mergepath_sort.py`` and
+non-power-of-two lengths), go through ``merge_splits_plain`` (and the
+``merge_splits`` dispatcher, which on a CPU tensor is the same), each plain pass
+and the composed sort of ``genome_assembly_tpu_torch/ops/mergepath_sort.py`` and
 through their counterparts of ``genome_assembly_tpu/ops/mergepath_pallas.py``,
 the Pallas passes run in interpret mode; ``convert`` maps the int64 key to the
 JAX (hi, lo) lanes and back.  The JAX passes work on a ``[rows, width]`` layout
@@ -114,11 +115,12 @@ def test_merge_splits_match_jax_at_every_level(n, tile, width, base_run, chunk):
     total = len(_padded(key))
     for run in _merge_runs(chunk, total):
         state = _runs(key, run)
-        got = ms.merge_splits(torch.from_numpy(state), run, tile)
+        got = ms.merge_splits_plain(torch.from_numpy(state), run, tile)
         want = _jax_splits(state, run, tile)
-        for g, w in zip(got, want):
+        for g, w, dispatched in zip(got, want, ms.merge_splits(torch.from_numpy(state), run, tile)):
             assert g.dtype == torch.int64 and g.shape == (total // tile,)
             assert np.array_equal(g.numpy(), w)
+            assert torch.equal(dispatched, g)  # a CPU tensor goes to the plain form
         a0, b0, aend, bend = (g.numpy() for g in got)
         assert np.all((a0 <= aend) & (b0 <= bend) & (aend - run <= a0) & (aend <= b0))
 
@@ -132,7 +134,7 @@ def test_merge_splits_match_jax_where_the_search_ends_at_an_edge(kind):
            "a_above_b": np.where(pair_pos < run, pair_pos + 10_000, pair_pos),
            "b_above_a": up,
            "sentinels_only": np.full(n, SENTINEL, np.int64)}[kind]
-    got = ms.merge_splits(torch.from_numpy(key), run, tile)
+    got = ms.merge_splits_plain(torch.from_numpy(key), run, tile)
     for g, w in zip(got, _jax_splits(key, run, tile)):
         assert np.array_equal(g.numpy(), w)
     if kind == "all_equal":  # ties: the largest j, so A's equal keys go first
@@ -192,10 +194,86 @@ def test_passes_on_degenerate_inputs_match_pallas(kind):
                           _jax_local_merge(key, levels, chunk, width, tile))
     state = _runs(key, chunk)
     t = torch.from_numpy(state)
-    got = ms.merge_pass(t, ms.merge_splits(t, chunk, tile), run=chunk, tile=tile).numpy()
+    splits = ms.merge_splits(t, chunk, tile)
+    got = ms.merge_pass(t, splits, run=chunk, tile=tile).numpy()
     assert np.array_equal(got, _jax_merge_pass(state, chunk, tile, width))
+    _assert_segments_tile_the_runs(splits, chunk, tile)
     assert np.array_equal(ms.sort_keys_mergepath(
         torch.from_numpy(key), tile=tile, base_run=base_run, chunk=chunk).numpy(), np.sort(key))
+
+
+def _assert_segments_tile_the_runs(splits, run, tile):
+    """What the merge_pass kernel derives from a0, b0 alone: every tile's two
+    segments lie inside their runs, sum to the tile, and follow one another
+    so that each run is consumed once from its start to its end."""
+    a0, b0, aend, bend = splits
+    a1, b1 = ms.tile_segments(splits, run, tile)
+    assert a1.dtype == b1.dtype == torch.int64 and a1.shape == b1.shape == a0.shape
+    assert bool(((a1 - a0) + (b1 - b0) == tile).all())
+    assert bool(((a0 <= a1) & (a1 <= aend) & (b0 <= b1) & (b1 <= bend)).all())
+    per_pair = 2 * run // tile
+    for x0, x1, end in ((a0, a1, aend), (b0, b1, bend)):
+        x0, x1, end = (x.view(-1, per_pair) for x in (x0, x1, end))
+        assert torch.equal(x1[:, :-1], x0[:, 1:])
+        assert torch.equal(x1[:, -1], end[:, -1]) and torch.equal(x0[:, 0], end[:, 0] - run)
+
+
+@pytest.mark.parametrize("kind", ["all_equal", "sorted", "reversed_run_pairs",
+                                  "sentinels_only", "random"])
+@pytest.mark.parametrize("run,tile", [(512, 128), (64, 64), (64, 2), (256, 16)])
+def test_tile_segments_sum_to_the_tile_on_degenerate_inputs(kind, run, tile):
+    """The inputs of test_passes_on_degenerate_inputs_match_pallas, and random
+    keys with ties: the ends the kernel derives give ``la + lb == tile``."""
+    n = 2048
+    base = np.sort(_keys(5, n))
+    pairs = base.reshape(-1, 2, run)[:, ::-1].reshape(-1)
+    key = {"all_equal": np.full(n, 12345, np.int64), "sorted": base,
+           "reversed_run_pairs": pairs, "sentinels_only": np.full(n, SENTINEL, np.int64),
+           "random": _keys(6, n)}[kind]
+    state = torch.from_numpy(_runs(key, run))
+    _assert_segments_tile_the_runs(ms.merge_splits(state, run, tile), run, tile)
+
+
+@pytest.mark.parametrize("base_run", [1, 2, 4, 16, 128, 512])
+def test_sort_from_any_base_run_matches_torch_sort_and_jax(base_run):
+    """base_run 1 (no library row sort: local_merge sorts the whole chunk) up
+    to the chunk, on the same numpy-seeded keys as the JAX sort."""
+    n, tile, width, chunk = 5000, 128, 128, 512
+    key = _keys(n + base_run, n)
+    t = torch.from_numpy(key.copy())
+    got = ms.sort_keys_mergepath(t, tile=tile, base_run=base_run, chunk=chunk).numpy()
+    assert np.array_equal(got, np.sort(key))
+    assert np.array_equal(t.numpy(), key)
+    hi, lo = convert.key_to_lanes(key)
+    jhi, jlo = mp.sort_pairs_mergepath(jnp.asarray(hi), jnp.asarray(lo), tile=tile, width=width,
+                                       base_run=max(base_run, width), chunk=chunk, interpret=True)
+    assert np.array_equal(got, convert.lanes_to_key(np.asarray(jhi), np.asarray(jlo)))
+
+
+def test_base_run_1_calls_no_library_row_sort(monkeypatch):
+    local = _count_calls(monkeypatch, "local_merge_plain")
+    key = torch.from_numpy(_keys(12, 1000))
+    want = torch.sort(key).values
+    sorts = []
+    real_sort = torch.sort
+    monkeypatch.setattr(torch, "sort", lambda *a, **k: sorts.append(a) or real_sort(*a, **k))
+    assert torch.equal(ms.sort_keys_mergepath(key, tile=16, base_run=1, chunk=64), want)
+    assert (len(local), len(sorts)) == (1, 0)
+    assert torch.equal(ms.sort_keys_mergepath(key, tile=16, base_run=8, chunk=64), want)
+    assert (len(local), len(sorts)) == (2, 1)
+
+
+@pytest.mark.parametrize("levels", [[2, 8], [4, 16], [2, 4, 16], [8, 64], []])
+def test_local_merge_refuses_levels_that_do_not_double(levels):
+    """The kernel merges runs of levels[0] / 2 up to levels[-1] in rounds, so
+    the levels are one unbroken run of powers of two; both forms refuse others."""
+    with pytest.raises(ValueError):
+        ms.local_merge(_K, levels, chunk=64)
+    with pytest.raises(ValueError):
+        ms.local_merge_plain(_K, levels, chunk=64)
+    with pytest.raises(ValueError):
+        ms.check_levels(levels, 64)
+    ms.check_levels([4, 8, 16], 64)  # an unbroken run is taken
 
 
 @pytest.mark.parametrize("tile", [2, 16, 64])
@@ -282,7 +360,9 @@ def test_threshold_matches_jax(monkeypatch, n, network):
 
 def test_pass_counts_follow_from_the_sizes(monkeypatch):
     """n = 1000, chunk 64: pads to 1024; one local pass, log2(1024 / 64)
-    merge passes, as many split searches.  base_run == chunk: no local pass."""
+    merge passes, as many split searches.  base_run == chunk: no local pass.
+    The default base_run, whatever it is, gives the same counts as any other
+    below the chunk."""
     local = _count_calls(monkeypatch, "local_merge_plain")
     passes = _count_calls(monkeypatch, "merge_pass_plain")
     splits = _count_calls(monkeypatch, "merge_splits")
@@ -294,6 +374,9 @@ def test_pass_counts_follow_from_the_sizes(monkeypatch):
     assert (len(local), len(passes), len(splits)) == (1, 8, 8)
     assert torch.equal(ms.sort_keys_mergepath(key, tile=2, base_run=1, chunk=2), want)
     assert (len(local), len(passes)) == (2, 17)
+    assert ms.DEFAULT_BASE_RUN < 64  # else the next call has no local pass
+    assert torch.equal(ms.sort_keys_mergepath(key, tile=16, chunk=64), want)
+    assert (len(local), len(passes), len(splits)) == (3, 21, 21)
 
 
 def test_defaults_are_read_at_call_time(monkeypatch):

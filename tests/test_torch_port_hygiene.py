@@ -109,13 +109,19 @@ import torch
 from genome_assembly_tpu_torch.ops import mergepath_sort
 key = torch.arange(99, 0, -1)
 assert torch.equal(mergepath_sort.sort_keys_mergepath(key, tile=4, base_run=2, chunk=8), key.flip(0))
+assert torch.equal(mergepath_sort.sort_keys_mergepath(key, tile=4, base_run=1, chunk=8), key.flip(0))
+# so does the split search of a CPU tensor: the dispatcher takes the plain form
+state = torch.arange(64).view(4, 16).flip(0).reshape(-1)
+for ours, plain in zip(mergepath_sort.merge_splits(state, 16, 4),
+                       mergepath_sort.merge_splits_plain(state, 16, 4)):
+    assert torch.equal(ours, plain)
 assert "genome_assembly_tpu_torch.ops.mergepath_cuda" not in sys.modules
 assert "genome_assembly_tpu_torch.ops.bitonic_cuda" not in sys.modules
 # importing the binding module builds and loads nothing
 from genome_assembly_tpu_torch.ops import mergepath_cuda
 from genome_assembly_tpu_torch.csrc import build
 assert mergepath_cuda._lib is None and build._loaded == {}
-assert mergepath_cuda.launch_count == {"local_merge": 0, "merge_pass": 0}
+assert mergepath_cuda.launch_count == {"local_merge": 0, "merge_pass": 0, "merge_splits": 0}
 print("OK")
 """)
     assert r.returncode == 0, r.stderr
@@ -126,6 +132,7 @@ print("OK")
     "local_merge_cuda(torch.zeros(64, dtype=torch.int64), [4, 8], chunk=8)",
     "merge_pass_cuda(torch.zeros(64, dtype=torch.int64), torch.zeros(8, dtype=torch.int64), "
     "torch.zeros(8, dtype=torch.int64), run=8, tile=8)",
+    "merge_splits_cuda(torch.zeros(64, dtype=torch.int64), 8, 8)",
 ])
 def test_mergepath_cuda_wrappers_refuse_cpu_tensors(call):
     r = _run(f"""
@@ -154,6 +161,16 @@ def test_every_cuda_source_has_a_binding_and_no_library_sort():
         text = source.read_text()
         assert "__global__" in text
         assert not re.search(r"\b(cub|thrust)::|#include\s*<(cub|thrust)/", text)
+        # every kernel of the source is launched by a C function the binding names
+        kernels = re.findall(r"^(\w+_kernel)\(", text, flags=re.M)
+        assert kernels
+        for kernel in kernels:
+            launcher = kernel.replace("_kernel", "_launch")
+            assert re.search(rf'extern "C" int {launcher}\(', text), launcher
+            assert f"lib.{launcher}" in bindings or f".{launcher}(" in bindings, launcher
+    merge = (csrc / "mergepath.cu").read_text()
+    assert re.findall(r"^(\w+_kernel)\(", merge, flags=re.M) == [
+        "local_merge_kernel", "merge_pass_kernel", "merge_splits_kernel"]
 
 
 @pytest.mark.parametrize("call", [
