@@ -2,6 +2,9 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase, needs one CUDA device
+    python3 chip_smoke.py --local-merge-against DIR
+                                     # only: K4a of this tree and of the copy of
+                                     # csrc/ in DIR (another commit's), in turns
 
 Builds the port's CUDA kernels from genome_assembly_tpu_torch/csrc/, holds
 each kernel against its plain tensor version on the card (bit-exact: all
@@ -12,9 +15,10 @@ library sort (``full_e2e``) and once with ``hybrid_sort=True``, the count
 sort through the bitonic kernels (``hybrid_e2e``; same reads, the results
 must be equal) -- drives the sort entry points no pipeline calls
 (``sort_rows``, ``sort_keys``, and ``sort_keys_mergepath`` on random keys and
-on the ecoli reads' own scanned keys) at the main path's key count, times
-every kernel beside its plain version, its bound and the library call, and
-prints one JSON object per phase.  Exits non-zero if there is no CUDA device
+on the ecoli reads' own scanned keys) at the main path's key count, times every kernel beside its plain
+version, its bound and the library call, measures the grids behind the sorts'
+defaults (``chunk_choice``, ``tile_choice``, ``rows_choice``), and prints one
+JSON object per phase.  Exits non-zero if there is no CUDA device
 or any phase fails.  Imports nothing of JAX and nothing of the JAX package.
 
 Last three lines of standard output: the card's name and power limit as
@@ -24,7 +28,9 @@ nvidia-smi gives them, the ``kernels`` report, and the verdict.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import pathlib
 import re
 import statistics
 import subprocess
@@ -61,8 +67,10 @@ ECOLI = dict(genome_len=4_600_000, coverage=50, read_len=100, k=31, m=7,
              batch_reads=65536, max_read_len=128, cutoff=1)
 
 KERNEL_SHAPE = (65536, 128)
-# shape the row sort is driven and timed at: 2^26 keys
+# shapes the row sort is timed at: 2^26 keys (where it is driven too), and
+# what the chunk sorts do on 2^28 keys, as rows
 ROWS_SHAPE = (16384, 4096)
+SQUARE_ROWS_SHAPE = (1 << 14, 1 << 14)
 
 
 def emit(phase: str, **fields) -> None:
@@ -165,8 +173,9 @@ def phase_build():
         raise AssertionError(
             f"ptxas reported {sorted(report)}, expected {SORT_KERNELS + MERGE_KERNELS}")
     # the keys of the shared-memory kernels are DYNAMIC shared memory, which
-    # ptxas does not see: 8 bytes a key of the row or chunk in bitonic.cu, 8.5
-    # a key of the chunk or tile in mergepath.cu (one buffer and its skew)
+    # ptxas does not see: 8 bytes a key of the chunk in the stage-by-stage
+    # kernel of bitonic.cu, 8.5 a key of the block, chunk or tile in the merge
+    # sorts and in mergepath.cu (one buffer and its skew)
     spills = {name: r for name, r in report.items()
               if r.get("spill_store_bytes") or r.get("spill_load_bytes")}
     emit("build", seconds=time.perf_counter() - t0,
@@ -281,33 +290,89 @@ def levels_up_to(size):
     return [1 << b for b in range(1, size.bit_length())]
 
 
+@contextlib.contextmanager
+def merge_sort_block(block_keys):
+    """Inside, the two merge sorts take at least `block_keys` keys a thread
+    block."""
+    before = bitonic_cuda.BLOCK_KEYS
+    bitonic_cuda.BLOCK_KEYS = block_keys
+    try:
+        yield
+    finally:
+        bitonic_cuda.BLOCK_KEYS = before
+
+
+def sort_patterns(gen, n, device):
+    """key_patterns and keys that are all the padding key."""
+    patterns = key_patterns(gen, n, device)
+    patterns["all_sentinel"] = torch.full_like(patterns["random"], SENTINEL)
+    return patterns
+
+
 def check_sort_rows(gen, device):
+    """K2 against its plain version and the library's row sort: every row
+    length 2 .. 2^14 (rows shorter than the keys a thread among them) with 1,
+    3, 5 and 1000 rows, so that rows * C is a multiple of no block; blocks of
+    one row, of the default and of 2^14 keys; every input pattern at C = 64 and
+    2^14; more blocks than the grid."""
     t = Tally()
-    for rows in (1, 3, 1000):
-        for c in (2, 4, 32, 1024, 4096, bitonic_cuda.MAX_SHARED_KEYS):
+    widths = [1 << b for b in range(1, bitonic_cuda.MAX_SHARED_KEYS.bit_length())]
+    for rows in (1, 3, 5, 1000):
+        for c in widths:
             key = key_patterns(gen, rows * c, device)["random"].view(rows, c)
             got = bitonic_sort.sort_rows(key)
             t.hold(got, bitonic_sort.sort_rows_plain(key))
             t.hold(got, torch.sort(key, dim=1).values)
-    # more rows than the grid has blocks, and every input pattern
-    for name, key in key_patterns(gen, 5000 * 64, device).items():
-        key = key.view(5000, 64)
-        t.hold(bitonic_sort.sort_rows(key), bitonic_sort.sort_rows_plain(key))
+    for block_keys in (2, bitonic_cuda.MAX_SHARED_KEYS):  # one row a block; the largest block
+        with merge_sort_block(block_keys):
+            for rows, c in ((37, 64), (5, 1024), (3, bitonic_cuda.MAX_SHARED_KEYS)):
+                key = key_patterns(gen, rows * c, device)["random"].view(rows, c)
+                t.hold(bitonic_sort.sort_rows(key), torch.sort(key, dim=1).values)
+    for rows, c in ((5000, 64), (5, bitonic_cuda.MAX_SHARED_KEYS)):
+        for name, key in sort_patterns(gen, rows * c, device).items():
+            key = key.view(rows, c)
+            t.hold(bitonic_sort.sort_rows(key), bitonic_sort.sort_rows_plain(key))
+    key = random_keys(gen, 1 << 24, device, 0.3).view(-1, 64)  # more blocks than the grid has
+    t.hold(bitonic_sort.sort_rows(key), torch.sort(key, dim=1).values)
     return t
 
 
 def check_chunk_sort(gen, device):
+    """K3a against chunk_sort_plain, every call counted: a list 2, 4 .. s must
+    launch the merge sort once and nothing else.  Chunks 2 .. 2^14, an odd
+    number of chunks, every input pattern; at chunk 2^14 every prefix 2 .. s
+    (descending runs at every level); blocks of one run, of the default and of
+    2^14 keys; in place; more blocks of keys than the grid has blocks."""
     t = Tally()
-    for chunk in (2, 64, 4096, 8192, bitonic_cuda.MAX_SHARED_KEYS):
-        n = chunk * 24
-        for name, key in key_patterns(gen, n, device).items():
-            for sizes in (levels_up_to(chunk), [2 * chunk], [8 * chunk], [2, chunk, 1 << 40]):
-                sizes = sorted(set(sizes))
-                got = bitonic_sort.chunk_sort(key, sizes, chunk=chunk)
-                t.hold(got, bitonic_sort.chunk_sort_plain(key, sizes, chunk=chunk))
-    key = key_patterns(gen, 2 * 5000, device)["random"]  # more chunks than blocks
-    t.hold(bitonic_sort.chunk_sort(key, [2], chunk=2),
-           bitonic_sort.chunk_sort_plain(key, [2], chunk=2))
+
+    def hold(key, sizes, chunk):
+        before = dict(bitonic_cuda.launch_count)
+        got = bitonic_sort.chunk_sort(key, sizes, chunk=chunk)
+        ran = {name: count - before[name] for name, count in bitonic_cuda.launch_count.items()
+               if count != before[name]}
+        if ran != {"chunk_sort": 1}:
+            raise AssertionError(f"chunk_sort({sizes}, chunk={chunk}) launched {ran}")
+        t.hold(got, bitonic_sort.chunk_sort_plain(key, sizes, chunk=chunk))
+
+    largest = bitonic_cuda.MAX_SHARED_KEYS
+    for chunk in (2, 64, 4096, 8192, largest):
+        for name, key in sort_patterns(gen, chunk * 23, device).items():
+            hold(key, levels_up_to(chunk), chunk)
+    for top in levels_up_to(largest):
+        for name, key in sort_patterns(gen, largest * 5, device).items():
+            hold(key, levels_up_to(top), largest)
+    for block_keys in (2, largest):
+        with merge_sort_block(block_keys):
+            for top in (2, 8, 64, 1024, largest):
+                hold(key_patterns(gen, largest * 3, device)["random"], levels_up_to(top), largest)
+    hold(random_keys(gen, 1 << 24, device, 0.3), levels_up_to(64), 64)  # more blocks than the grid
+    key = key_patterns(gen, largest * 7, device)["random"]
+    sizes = levels_up_to(largest)
+    want = bitonic_sort.chunk_sort_plain(key, sizes, chunk=largest)
+    got = bitonic_sort.chunk_sort(key, sizes, chunk=largest, overwrite=True)
+    if got.data_ptr() != key.data_ptr():
+        raise AssertionError("chunk_sort(overwrite=True) did not work in place")
+    t.hold(got, want)
     return t
 
 
@@ -342,10 +407,11 @@ def check_big_ce(gen, device):
 
 
 def check_wide_index(gen, device):
-    """Positions past 2^31: in-place big_ce and finish on 2^31 + 2^22 keys
-    (17 GB), the last 2^22 keys held against the plain version.  The slice
-    starts at 2^31, a multiple of twice the level, so positions within it
-    have the level's bit where the global positions have it."""
+    """Positions past 2^31: in-place big_ce, finish and chunk_sort (the merge
+    sort: the direction of a run comes from its global position) on 2^31 +
+    2^22 keys (17 GB), the last 2^22 keys held against the plain version.  The
+    slice starts at 2^31, a multiple of twice the level, so positions within
+    it have the level's bit where the global positions have it."""
     t = Tally()
     n, tail, size, chunk = (1 << 31) + (1 << 22), 1 << 22, 1 << 21, bitonic_cuda.MAX_SHARED_KEYS
     key = random_keys(gen, n, device)
@@ -357,6 +423,14 @@ def check_wide_index(gen, device):
     key = bitonic_sort.finish(key, size, chunk=chunk, overwrite=True)
     t.hold(key[:tail], bitonic_sort.finish_plain(head_before, size, chunk=chunk))
     t.hold(key[n - tail:], bitonic_sort.finish_plain(tail_before, size, chunk=chunk))
+    head_before, tail_before = key[:tail].clone(), key[n - tail:].clone()
+    sizes = levels_up_to(chunk)
+    launched = bitonic_cuda.launch_count["chunk_sort"]
+    key = bitonic_sort.chunk_sort(key, sizes, chunk=chunk, overwrite=True)
+    if bitonic_cuda.launch_count["chunk_sort"] != launched + 1:
+        raise AssertionError("the wide chunk_sort did not go through the merge sort")
+    t.hold(key[:tail], bitonic_sort.chunk_sort_plain(head_before, sizes, chunk=chunk))
+    t.hold(key[n - tail:], bitonic_sort.chunk_sort_plain(tail_before, sizes, chunk=chunk))
     return t
 
 
@@ -409,6 +483,12 @@ def count_refusals(device):
         lambda: bitonic_cuda.chunk_sort_cuda(big, [2, 4], chunk=too_many),
         lambda: bitonic_cuda.chunk_sort_cuda(k64, [4, 2], chunk=4),
         lambda: bitonic_cuda.chunk_sort_cuda(k64, [3], chunk=4),
+        # a list that is no complete prefix 2, 4 .. s <= chunk: a partial network
+        lambda: bitonic_cuda.chunk_sort_cuda(k64, [], chunk=8),
+        lambda: bitonic_cuda.chunk_sort_cuda(k64, [16], chunk=8),
+        lambda: bitonic_cuda.chunk_sort_cuda(k64, [2, 8], chunk=8),
+        lambda: bitonic_cuda.chunk_sort_cuda(k64, [2, 4, 8, 16], chunk=8),
+        lambda: bitonic_cuda.chunk_sort_cuda(k64, [2, 8, 1 << 40], chunk=8),
         lambda: bitonic_cuda.big_ce_cuda(k64.cpu(), 8, 16),
         lambda: bitonic_cuda.big_ce_cuda(k64.int(), 8, 16),
         lambda: bitonic_cuda.big_ce_cuda(big[::2][:64], 8, 16),
@@ -424,6 +504,27 @@ def count_refusals(device):
         lambda: bitonic_sort.sort_keys_hybrid(k64, lib_chunk=8, chunk=16),
         lambda: bitonic_sort.sort_keys(k64, chunk=12),
     ]
+    # what the launchers of the two merge sorts refuse themselves (they return
+    # an error and launch nothing): a block shorter than a run or than one
+    # thread's keys, no power of two, larger than shared memory; keys that are
+    # no whole number of runs; a run that is no power of two; no rows
+    lib = bitonic_cuda._library()
+    spare = torch.empty_like(k64)
+    src, dst = k64.data_ptr(), spare.data_ptr()
+
+    def launcher(call):
+        def refused():
+            if call() != 0:
+                raise ValueError("the launcher returned an error")
+        return refused
+
+    for block_keys in (4, 8, 48, 2 * too_many):
+        bad.append(launcher(lambda b=block_keys: lib.sort_rows_launch(src, dst, 8, 8, b, None)))
+        bad.append(launcher(lambda b=block_keys: lib.chunk_sort_launch(src, dst, 64, 8, b, None)))
+    bad += [launcher(lambda: lib.chunk_sort_launch(src, dst, 64, 32, 16, None)),
+            launcher(lambda: lib.chunk_sort_launch(src, dst, 60, 8, 64, None)),
+            launcher(lambda: lib.chunk_sort_launch(src, dst, 64, 6, 64, None)),
+            launcher(lambda: lib.sort_rows_launch(src, dst, 0, 8, 64, None))]
     return refused_of(bad, bitonic_cuda.launch_count), len(bad)
 
 
@@ -900,7 +1001,8 @@ def phase_hybrid_e2e(device, full):
 def phase_sort_entry_points(device, n_keys):
     """K2 and K3a are on no pipeline's path: their entry points are
     ``sort_rows`` and ``sort_keys`` themselves.  Drive both once at a real
-    size, counts set to 0 just before and read just after."""
+    size, counts set to 0 just before and read just after: ``sort_keys`` must
+    go through the merge-sort kernel once."""
     gen = torch.Generator(device=device)
     gen.manual_seed(99)
     rows = random_keys(gen, ROWS_SHAPE[0] * ROWS_SHAPE[1], device, 0.3).view(ROWS_SHAPE)
@@ -914,14 +1016,17 @@ def phase_sort_entry_points(device, n_keys):
     t = Tally()
     t.hold(sorted_rows, torch.sort(rows, dim=1).values)
     t.hold(sorted_flat, torch.sort(flat).values)
+    del sorted_rows, sorted_flat, rows
     # sort_keys is the hybrid's network from one chunk up
     want_big, want_finish = hybrid_pass_counts(n_keys, chunk, chunk)
     want = dict.fromkeys(read_launch_counts(), 0)
     want.update(sort_rows=1, chunk_sort=1, big_ce=want_big, finish=want_finish)
+    if launches != want:
+        raise AssertionError(f"sort_entry_points: launches {launches}, the sizes give {want}")
     emit("sort_entry_points", rows_shape=list(ROWS_SHAPE), sort_keys_n=n_keys, chunk=chunk,
          launches=launches, expected_launches=want, **t.report())
-    if t.mismatches or launches != want:
-        raise AssertionError(f"sort_entry_points: {t.mismatches} mismatches, launches {launches}")
+    if t.mismatches:
+        raise AssertionError(f"sort_entry_points: {t.mismatches} mismatches")
     return launches
 
 
@@ -1082,12 +1187,6 @@ def bound_fields(passes):
             "bound_operations_ms": sum(o for _, o in passes)}
 
 
-def network_stages(length):
-    """Stages of the full network on `length` keys: 1 + 2 + .. + log2."""
-    levels = length.bit_length() - 1
-    return levels * (levels + 1) // 2
-
-
 def time_scan(device, batch, launches, tally):
     """K1 and its plain version on one batch of the main path
     ([65536, 128], k=31, m=7, the reads of full_e2e), turn about."""
@@ -1135,27 +1234,40 @@ def sort_entry(name, kernel_fn, replaces, launches, launches_from, tally, at_sha
 
 
 def time_sort_kernels(device, tallies, hybrid_launches, entry_launches, n_keys):
-    """K2 at ROWS_SHAPE; K3a, K3b, K3c at the main path's padded key count
-    (one pass each); the two composed sorts at the main path's key count.
-    Each kernel is also held against its plain version at the timed shape."""
+    """K2 at ROWS_SHAPE and at SQUARE_ROWS_SHAPE; K3a, K3b, K3c
+    at the main path's padded key count (one pass each); the two composed
+    sorts at the main path's key count.  Each kernel is also held against its
+    plain version at the timed shape.  The bound of a sort is the least time
+    for the function, whatever computes it: 16 bytes a key, or the operations
+    of the merge sort where those take longer (`local_merge_bound`)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(2024)
     chunk, lib = bitonic_sort.DEFAULT_CHUNK, bitonic_sort.DEFAULT_LIB_CHUNK
     entries = []
 
-    rows = random_keys(gen, ROWS_SHAPE[0] * ROWS_SHAPE[1], device, 0.3).view(ROWS_SHAPE)
     at = Tally()
-    at.hold(bitonic_sort.sort_rows(rows), bitonic_sort.sort_rows_plain(rows))
+    at_shape = {}
+    per_thread = bitonic_cuda.KEYS_PER_THREAD
+    for shape, plain_reps in ((ROWS_SHAPE, 3), (SQUARE_ROWS_SHAPE, 1)):
+        rows = random_keys(gen, shape[0] * shape[1], device, 0.3).view(shape)
+        at.hold(bitonic_sort.sort_rows(rows), bitonic_sort.sort_rows_plain(rows))
+        block_keys, threads, shared_bytes = bitonic_cuda.block_shape(shape[1])
+        at_shape[shape] = dict(
+            shape=list(shape), block_keys=block_keys, keys_per_thread=per_thread, threads=threads,
+            shared_bytes=shared_bytes,
+            **turn_about(lambda: bitonic_sort.sort_rows(rows),
+                         lambda: bitonic_sort.sort_rows_plain(rows), plain_reps=plain_reps, warm=1),
+            **bound_fields([local_merge_bound(rows.numel(), 1, shape[1], per_thread)]),
+            library_ms=timed_ms(lambda: torch.sort(rows, dim=1), reps=5))
+        del rows
+    main_shape = at_shape[ROWS_SHAPE]
     entries.append(sort_entry(
         "sort_rows", "sort_rows_kernel", "genome_assembly_tpu/ops/sort_pallas.py:56",
         entry_launches["sort_rows"], "sort_entry_points (no pipeline calls the row sort)",
-        tallies["sort_rows"], at,
-        turn_about(lambda: bitonic_sort.sort_rows(rows),
-                   lambda: bitonic_sort.sort_rows_plain(rows), plain_reps=3, warm=1),
-        bound_fields([pass_bound(rows.numel(), network_stages(ROWS_SHAPE[1]))]),
-        timed_ms(lambda: torch.sort(rows, dim=1), reps=5), list(ROWS_SHAPE),
-        library_call="torch.sort(x, dim=1)"))
-    del rows
+        tallies["sort_rows"], at, {}, {}, main_shape["library_ms"], list(ROWS_SHAPE),
+        library_call="torch.sort(x, dim=1)", **{k: v for k, v in main_shape.items()
+                                                if k not in ("shape", "library_ms")},
+        at_square_shape=at_shape[SQUARE_ROWS_SHAPE]))
 
     total = lib
     while total < n_keys:
@@ -1163,6 +1275,8 @@ def time_sort_kernels(device, tallies, hybrid_launches, entry_launches, n_keys):
     key = random_keys(gen, total, device, 0.3)
     sizes = levels_up_to(chunk)
     log_chunk = chunk.bit_length() - 1
+    block_keys, threads, shared_bytes = bitonic_cuda.block_shape(chunk)
+    chunk_sort_bound = local_merge_bound(total, 1, chunk, per_thread)
 
     at = Tally()
     at.hold(bitonic_sort.chunk_sort(key, sizes, chunk=chunk),
@@ -1174,7 +1288,9 @@ def time_sort_kernels(device, tallies, hybrid_launches, entry_launches, n_keys):
         turn_about(lambda: bitonic_sort.chunk_sort(key, sizes, chunk=chunk),
                    lambda: bitonic_sort.chunk_sort_plain(key, sizes, chunk=chunk),
                    kernel_reps=5, plain_reps=2, warm=1),
-        bound_fields([pass_bound(total, network_stages(chunk))]), None, [total], chunk=chunk))
+        bound_fields([chunk_sort_bound]), None, [total], chunk=chunk, levels=len(sizes),
+        block_keys=block_keys, keys_per_thread=per_thread, threads=threads,
+        shared_bytes=shared_bytes))
 
     at = Tally()
     at.hold(bitonic_sort.big_ce(key, total // 2, total),
@@ -1218,7 +1334,7 @@ def time_sort_kernels(device, tallies, hybrid_launches, entry_launches, n_keys):
         ("sort_keys", bitonic_sort.sort_keys, "genome_assembly_tpu/ops/bitonic_pallas.py:217",
          sum(entry_launches[k] for k in ("chunk_sort", "big_ce", "finish")),
          "sort_entry_points (kernel launches of one sort_keys call)",
-         [pass_bound(total, network_stages(chunk))] + [one_big] * big_keys + [one_fin] * fin_keys,
+         [chunk_sort_bound] + [one_big] * big_keys + [one_fin] * fin_keys,
          lambda: plain_network(flat, chunk, chunk), {}),
         ("sort_keys_hybrid", bitonic_sort.sort_keys_hybrid,
          "genome_assembly_tpu/ops/bitonic_pallas.py:285",
@@ -1520,10 +1636,10 @@ def plain_network(key, first_unit, chunk):
 
 
 def phase_chunk_choice(device, n_keys):
-    """Which chunk size and block size the shared-memory kernels should
-    default to: finish and chunk_sort over the padded main-path key count
-    for chunk 2^12 .. 2^14 and 256 .. 1024 threads, and the hybrid sort of
-    the main path's key count at each chunk (default threads)."""
+    """Which chunk size and block size the stage-by-stage shared-memory
+    kernel should default to: finish over the padded main-path key count for
+    chunk 2^12 .. 2^14 and 256 .. 1024 threads, and the hybrid sort of the main path's key count at each chunk
+    (default threads)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(7)
     lib = bitonic_sort.DEFAULT_LIB_CHUNK
@@ -1534,15 +1650,12 @@ def phase_chunk_choice(device, n_keys):
     grid, hybrid = [], []
     try:
         for chunk in (1 << 12, 1 << 13, 1 << 14):
-            sizes = levels_up_to(chunk)
             for threads in (256, 512, 1024):
                 bitonic_cuda.SHARED_THREADS = threads
                 grid.append({
                     "chunk": chunk, "threads": threads,
                     "finish_ms": timed_ms(
-                        lambda: bitonic_sort.finish(key, total, chunk=chunk), reps=5),
-                    "chunk_sort_ms": timed_ms(
-                        lambda: bitonic_sort.chunk_sort(key, sizes, chunk=chunk), reps=3, warm=1)})
+                        lambda: bitonic_sort.finish(key, total, chunk=chunk), reps=5)})
     finally:
         bitonic_cuda.SHARED_THREADS = default_threads
     order = (1 << 13, 1 << 14, 1 << 14, 1 << 13, 1 << 12)
@@ -1554,11 +1667,91 @@ def phase_chunk_choice(device, n_keys):
          passes=grid, hybrid=hybrid)
 
 
+def phase_rows_choice(device):
+    """What block the two merge sorts should default to.  K2 on 2^26 keys as
+    rows of C = 64, 1024, 4096 and 2^14, for blocks of C, 2048, 4096 and 2^14
+    keys (whole rows: at least C, and at least one thread's keys), then the
+    default once more, beside the library's row sort; and what a round costs:
+    K3a on 2^28 keys for every last level 2 .. 2^14 in blocks of 2^14 keys (the
+    levels up to the keys a thread run in registers, every later one is a
+    round)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    largest = bitonic_cuda.MAX_SHARED_KEYS
+    key = random_keys(gen, 1 << 28, device, 0.3)
+    quarter = key[: 1 << 26]
+    rows_grid, by_level = [], []
+
+    def shape_fields(run):
+        block_keys, threads, shared_bytes = bitonic_cuda.block_shape(run)
+        return {"block_keys": block_keys, "threads": threads, "shared_bytes": shared_bytes}
+
+    def rows_ms(rows):
+        return timed_ms(lambda: bitonic_sort.sort_rows(rows), reps=5, warm=1)
+
+    for c in (64, 1024, 4096, largest):
+        rows = quarter.view(-1, c)
+        library_ms = timed_ms(lambda: torch.sort(rows, dim=1), reps=3, warm=1)
+        seen = set()
+        for block_keys in (2, 2048, 4096, largest):
+            with merge_sort_block(block_keys):
+                shape = shape_fields(c)
+                if shape["block_keys"] not in seen:
+                    seen.add(shape["block_keys"])
+                    rows_grid.append({"C": c, **shape, "sort_rows_ms": rows_ms(rows)})
+        rows_grid.append({"C": c, **shape_fields(c), "default": True, "library_ms": library_ms,
+                          "sort_rows_ms": rows_ms(rows)})
+    with merge_sort_block(largest):
+        for top in levels_up_to(largest):
+            sizes = levels_up_to(top)
+            by_level.append({"top": top, **shape_fields(top), "chunk_sort_ms": timed_ms(
+                lambda: bitonic_sort.chunk_sort(key, sizes, chunk=largest), reps=5, warm=1)})
+    emit("rows_choice", rows_keys=quarter.shape[0], chunk_sort_keys=key.shape[0],
+         default_block_keys=bitonic_cuda.BLOCK_KEYS, keys_per_thread=bitonic_cuda.KEYS_PER_THREAD,
+         sort_rows=rows_grid, chunk_sort_by_last_level=by_level)
+
+
+def phase_local_merge_against(device, other_csrc):
+    """K4a of this tree beside the K4a of another copy of csrc/ (another
+    commit's, say ``git archive <commit> genome_assembly_tpu_torch/csrc``
+    unpacked somewhere), on one card in one process: on 2^28 keys in chunks of
+    2^14, from single keys and from runs of 2^10, in the order other, this,
+    this, other.  Every result is held against the library's sort of every
+    chunk.  The other copy must keep ``local_merge_launch``'s signature."""
+    this_lib = mergepath_cuda._library()
+    csrc_build.CSRC_DIR = pathlib.Path(other_csrc).resolve()
+    csrc_build._loaded.pop("mergepath")
+    mergepath_cuda._lib = None
+    libs = {"other": mergepath_cuda._library(), "this": this_lib}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    chunk = mergepath_cuda.MAX_CHUNK_KEYS
+    key = random_keys(gen, 1 << 28, device, 0.3)
+    want = torch.sort(key.view(-1, chunk), dim=1).values.view(-1)
+    t, runs = Tally(), []
+    for base_run in (1, EARLIER_BASE_RUN):
+        state = chunk_runs(key, base_run)
+        levels = merge_levels(base_run, chunk)
+        for name in ("other", "this", "this", "other"):
+            mergepath_cuda._lib = libs[name]
+            t.hold(mergepath_sort.local_merge(state, levels, chunk=chunk), want)
+            runs.append({"base_run": base_run, "csrc": name, "ms": timed_ms(
+                lambda: mergepath_sort.local_merge(state, levels, chunk=chunk), reps=7, warm=1)})
+    mergepath_cuda._lib = this_lib
+    emit("local_merge_against", other_csrc=str(other_csrc), n_keys=key.shape[0], chunk=chunk,
+         keys_per_thread=mergepath_cuda.LOCAL_KEYS_PER_THREAD, runs=runs, **t.report())
+    if t.mismatches:
+        raise AssertionError(f"local_merge_against: {t.mismatches} mismatches")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--coverage", type=int, default=ECOLI["coverage"],
                     help="coverage of the ecoli read set of full_e2e and hybrid_e2e "
                          "(the preset's is 50)")
+    ap.add_argument("--local-merge-against", metavar="DIR",
+                    help="only time local_merge of this tree against the one of the copy "
+                         "of genome_assembly_tpu_torch/csrc/ in DIR, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1567,6 +1760,9 @@ def main() -> int:
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     smi = phase_env()
+    if args.local_merge_against:
+        phase_local_merge_against(device, args.local_merge_against)
+        return 0
     phase_build()
     scan_tally = phase_kernel_check(device)
     phase_small_e2e(device)
@@ -1594,6 +1790,8 @@ def main() -> int:
     phase_chunk_choice(device, n_keys)
     torch.cuda.empty_cache()
     phase_tile_choice(device, n_keys)
+    torch.cuda.empty_cache()
+    phase_rows_choice(device)
     for entry in kernels:
         if entry["mismatches"] or not entry["launches"]:
             raise AssertionError(

@@ -1,62 +1,82 @@
-// Keys-only bitonic sorting network for Hopper (sm_90a) on one int64 key.
+// Keys-only sorts of rows and chunks, and the bitonic network's passes, for
+// Hopper (sm_90a) on one int64 key.
 //
-// Four kernels, one compare-exchange.  Each replaces a TPU kernel of the
-// JAX package:
+// Four kernels.  Each replaces a TPU kernel of the JAX package:
 //
-//   sort_rows_kernel   genome_assembly_tpu/ops/sort_pallas.py::_sort_kernel
-//                      (wrapper sort_rows_pallas): every row of [rows, C]
-//                      sorted ascending, the row held in fast memory.
-//   chunk_sort_kernel  ops/bitonic_pallas.py::_chunk_kernel (_run_chunk_pass):
-//                      every stage with distance < chunk of the merge levels
-//                      the caller lists, on one chunk in fast memory.
-//   big_ce_kernel      ops/bitonic_pallas.py::_big_ce_kernel (_run_big_ce):
-//                      ONE stage at distance d >= chunk of merge level `size`.
-//   finish_kernel      ops/bitonic_pallas.py::_finish_kernel (_run_finish):
-//                      the stages chunk/2 .. 1 of ONE merge level.
+//   sort_rows_kernel     genome_assembly_tpu/ops/sort_pallas.py::_sort_kernel
+//                        (wrapper sort_rows_pallas): every row of [rows, C]
+//                        sorted ascending.
+//   chunk_sort_kernel    ops/bitonic_pallas.py::_chunk_kernel (_run_chunk_pass)
+//                        for the merge levels 2, 4 .. s (s <= chunk), which is
+//                        what the sort sends: every run of s keys sorted.
+//   big_ce_kernel        ops/bitonic_pallas.py::_big_ce_kernel (_run_big_ce):
+//                        ONE stage at distance d >= chunk of merge level `size`.
+//   finish_kernel        ops/bitonic_pallas.py::_finish_kernel (_run_finish):
+//                        the stages chunk/2 .. 1 of ONE merge level.
 //
-// Same network, other form.  The TPU kernels carry a key as two uint32
+// Same functions, other form.  The TPU kernels carry a key as two uint32
 // lanes in a [rows, width] layout, flip the sign bit for unsigned order and
 // find a partner with lane and sublane rolls.  Here a key is one signed
 // int64 (every real key is < 2^62 and the padding is int64 max, so signed
-// order is the lane order), the array is flat, and a thread owns a PAIR
-// (i, i + d): it reads both keys and writes the smaller and the larger one
-// back in the order the level asks for.  The direction of a pair comes from
-// the GLOBAL position of its lower key, up = (i & size) == 0, so chunks
-// compose into one network and at the last level (size == total) every pair
-// sorts ascending.  d and size are launch arguments: one compiled kernel
+// order is the lane order) and the array is flat.
+//
+// The network.  A stage (d, size) compare-exchanges every pair (i, i + d); a
+// thread owns a PAIR: it reads both keys and writes the smaller and the
+// larger one back in the order the level asks for.  The direction of a pair
+// comes from the GLOBAL position of its lower key, up = (i & size) == 0, so
+// chunks compose into one network and at the last level (size == total) every
+// pair sorts ascending.  d and size are launch arguments: one compiled kernel
 // serves every stage of every level, which is what the prefetched scalars
 // bought on the TPU.  Equal keys are indistinguishable, so every pass is a
-// fixed function of its input and is held bit-exact against its plain
-// tensor version pass by pass.
+// fixed function of its input and is held bit-exact against its plain tensor
+// version pass by pass.
 //
-// What bounds them on this card.  big_ce_kernel moves 16 bytes a key (read
-// once, written once) for one compare: bytes.  It reads and writes
-// coalesced (neighbouring threads own neighbouring keys; from d = 32 on a
-// warp touches two runs of 256 contiguous bytes) and can work in place,
-// since a pair is owned by one thread.  The three
-// shared-memory kernels also move 16 bytes a key through device memory,
-// but run log2(chunk) (finish) to log2(chunk)*(log2(chunk)+1)/2 (chunk
-// sort, row sort) stages on it in shared memory with a block barrier after
-// each: shared-memory traffic and barriers, not device memory, are what
-// they wait for.  Several stages a thread could run in registers between
-// barriers; that is left to a later change, this is the plain form.
+// The two sorts are no network.  The levels 2, 4 .. s of the network sort any
+// input: they leave every run of s consecutive keys sorted, ascending where
+// the run's global start p has (p & s) == 0, else descending; the row sort is
+// the same with s == C and every row ascending.  Keys are values only, so any
+// sort gives the same bits.  sort_rows_kernel and chunk_sort_kernel are the
+// block merge sort of block_sort.cuh (register levels up to 16 keys, then one
+// merge round per level: 4 + 8 levels for a row of 4096 where the network has
+// 78 barrier-separated stages, 4 + 10 for 2^14 keys where it has 105), on the
+// flat array: a thread block takes block_keys >= s consecutive keys, that is
+// block_keys / s whole runs, however short a run is, 16 keys a thread, and its
+// last block is guarded by the array's end.  chunk_sort_kernel writes a descending run by
+// reading it backwards out of shared memory; the direction bit comes from the
+// 64-bit global position.  The merge sort starts from single keys, so it is
+// right on any input.  A list of levels that is no such prefix ([2 chunk],
+// [2, chunk, 2^40]) is a partial network and no sort; no sort sends one, and
+// the wrapper refuses it on the card.
+//
+// What bounds them on this card.  Every kernel moves 16 bytes a key (read
+// once, written once) through device memory.  big_ce_kernel does one compare
+// for them: bytes.  It reads and writes coalesced (neighbouring threads own
+// neighbouring keys; from d = 32 on a warp touches two runs of 256 contiguous
+// bytes) and can work in place, since a pair is owned by one thread.  The two
+// merge sorts wait for shared memory: a merge step is one dependent load at a
+// data-dependent bank, eight to ten rounds of them a key.  finish_kernel runs
+// log2(chunk) stages in shared memory with a block barrier after each:
+// shared-memory traffic and barriers.
 //
 // A difference of the card: a block has 227 KB of shared memory, so a chunk
-// is at most 2^14 keys (128 KB) where the TPU's is 2^17; a merge level
-// therefore has three more device-memory stages here than there.
+// is at most 2^14 keys (128 KB; 136 KB in the merge sort's skewed layout)
+// where the TPU's is 2^17; a merge level therefore has three more
+// device-memory stages here than there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_sort.cuh"
+
 namespace {
 
-typedef long long sort_key;             // one int64 key
-typedef unsigned long long position;    // global index, distance, level size
+// sort_key, position, sort_blocks, and kMaxBlocks: the kernels stride over
+// their rows, chunks or pairs, so any count works, also one above the
+// grid-dimension limit
+using namespace block_sort;
 
-constexpr int kMaxSharedKeys = 1 << 14;  // 128 KB of the block's 227 KB
-// grid cap: the kernels stride over their rows, chunks or pairs, so any
-// count works, also one above the grid-dimension limit
-constexpr int kMaxBlocks = 132 * 16;
+constexpr int kMaxSharedKeys = kMaxBlockKeys;  // of a row, a chunk, a block of the merge sorts
+constexpr int kSortKeysPerThread = 16;  // of the two merge sorts: the largest block has 1024 threads
 constexpr int kPairThreads = 256;
 
 // Order the pair (a: lower position, b: higher) ascending when `up`,
@@ -113,36 +133,21 @@ __device__ __forceinline__ void store_shared(sort_key* g, const sort_key* s, int
 // overlapping ones): a row, a chunk or a pair is read and written by the
 // one block or thread that owns it.
 
-__global__ void __launch_bounds__(1024)
-sort_rows_kernel(const sort_key* in, sort_key* out, long long rows, int c) {
+// Every run of c keys of the flat [rows * c] array ascending.  blockDim.x *
+// kSortKeysPerThread is a power of two and a multiple of c.
+__global__ void __launch_bounds__(BLOCK_SORT_MAX_THREADS(kMaxSharedKeys, kSortKeysPerThread))
+sort_rows_kernel(const sort_key* in, sort_key* out, unsigned long long n_keys, int c) {
   extern __shared__ sort_key s[];
-  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
-    const size_t off = static_cast<size_t>(row) * c;
-    load_shared(s, in + off, c);
-    // positions are taken within the row, so the last level (size == c)
-    // is ascending in every row
-    for (int size = 2; size <= c; size <<= 1) {
-      shared_level(s, c, 0, static_cast<position>(size));
-    }
-    store_shared(out + off, s, c);
-  }
+  sort_blocks<kSortKeysPerThread, false>(s, in, out, n_keys, 1, c);
 }
 
-// size_mask: bit b set <=> merge level 2^b is run, in ascending order.
-__global__ void __launch_bounds__(1024)
-chunk_sort_kernel(const sort_key* in, sort_key* out, long long n_chunks, int chunk,
-                  unsigned long long size_mask) {
+// Every run of `top` keys sorted, the run at global position p ascending iff
+// (p & top) == 0.  blockDim.x * kSortKeysPerThread is a power of two and a
+// multiple of top.
+__global__ void __launch_bounds__(BLOCK_SORT_MAX_THREADS(kMaxSharedKeys, kSortKeysPerThread))
+chunk_sort_kernel(const sort_key* in, sort_key* out, unsigned long long n_keys, int top) {
   extern __shared__ sort_key s[];
-  for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x) {
-    const position base = static_cast<position>(c) * chunk;
-    load_shared(s, in + base, chunk);
-    for (int b = 1; b < 63; ++b) {
-      if ((size_mask >> b) & 1ull) {
-        shared_level(s, chunk, base, 1ull << b);
-      }
-    }
-    store_shared(out + base, s, chunk);
-  }
+  sort_blocks<kSortKeysPerThread, true>(s, in, out, n_keys, 1, top);
 }
 
 __global__ void __launch_bounds__(1024)
@@ -172,10 +177,8 @@ big_ce_kernel(const sort_key* in, sort_key* out, unsigned long long n_pairs,
   }
 }
 
-bool is_pow2(unsigned long long x) { return x != 0 && (x & (x - 1)) == 0; }
-
-// Grid, block and shared bytes of a shared-memory kernel over `units` rows
-// or chunks of `len` keys; raises the kernel's dynamic shared-memory limit
+// Grid, block and shared bytes of the stage-by-stage kernel over `units` chunks
+// of `len` keys; raises the kernel's dynamic shared-memory limit
 // when the keys need more than the 48 KB every kernel may use.
 template <typename Kernel>
 cudaError_t shared_config(Kernel kernel, long long units, int len, int threads,
@@ -188,11 +191,28 @@ cudaError_t shared_config(Kernel kernel, long long units, int len, int threads,
   *block_threads = threads < useful ? threads : useful;
   *blocks = units < kMaxBlocks ? static_cast<int>(units) : kMaxBlocks;
   *bytes = static_cast<size_t>(len) * sizeof(sort_key);
-  if (*bytes > 48 * 1024) {
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(*bytes));
+  return allow_shared(kernel, *bytes);
+}
+
+// One launch of a merge-sort kernel: runs of `top` keys (a power of two from
+// 2) of the flat n_keys keys, a whole number of them; block_keys keys a thread
+// block, a power of two from the larger of top and the keys a thread to the
+// most a block holds.
+template <typename Kernel>
+cudaError_t launch_merge_sort(Kernel kernel, const void* in, void* out,
+                              unsigned long long n_keys, int top, int block_keys,
+                              void* stream) {
+  if (n_keys < 1 || top < 2 || !is_pow2(top) || n_keys % top != 0 || !is_pow2(block_keys) ||
+      block_keys < top || block_keys < kSortKeysPerThread || block_keys > kMaxSharedKeys) {
+    return cudaErrorInvalidValue;
   }
-  return cudaSuccess;
+  const size_t bytes = staged_bytes(block_keys);
+  cudaError_t err = allow_shared(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid_blocks(n_keys, block_keys), block_keys / kSortKeysPerThread, bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const sort_key*>(in), static_cast<sort_key*>(out), n_keys, top);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -203,33 +223,22 @@ cudaError_t shared_config(Kernel kernel, long long units, int len, int threads,
 
 extern "C" int bitonic_max_shared_keys() { return kMaxSharedKeys; }
 
-extern "C" int sort_rows_launch(const void* in, void* out, long long rows, int c,
-                                int threads, void* stream) {
-  int blocks, block_threads;
-  size_t bytes;
-  cudaError_t err = shared_config(sort_rows_kernel, rows, c, threads,
-                                  &blocks, &block_threads, &bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sort_rows_kernel<<<blocks, block_threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const sort_key*>(in), static_cast<sort_key*>(out), rows, c);
-  return static_cast<int>(cudaGetLastError());
+// Every row of [rows, top] ascending.  block_keys: keys one thread block takes
+// (whole rows).
+extern "C" int sort_rows_launch(const void* in, void* out, long long rows, int top,
+                                int block_keys, void* stream) {
+  if (rows < 1 || top < 2) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_merge_sort(
+      sort_rows_kernel, in, out, static_cast<unsigned long long>(rows) * top, top, block_keys,
+      stream));
 }
 
-extern "C" int chunk_sort_launch(const void* in, void* out, long long n_chunks, int chunk,
-                                 unsigned long long size_mask, int threads, void* stream) {
-  // levels 2^1 .. 2^62; bit 0 and bit 63 name no level
-  if ((size_mask & 1ull) || (size_mask >> 63)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int blocks, block_threads;
-  size_t bytes;
-  cudaError_t err = shared_config(chunk_sort_kernel, n_chunks, chunk, threads,
-                                  &blocks, &block_threads, &bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  chunk_sort_kernel<<<blocks, block_threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const sort_key*>(in), static_cast<sort_key*>(out), n_chunks, chunk,
-      size_mask);
-  return static_cast<int>(cudaGetLastError());
+// The merge levels 2, 4 .. top of the network on n_keys flat keys: every run
+// of top keys sorted, ascending iff its global start has the top bit clear.
+extern "C" int chunk_sort_launch(const void* in, void* out, unsigned long long n_keys, int top,
+                                 int block_keys, void* stream) {
+  return static_cast<int>(launch_merge_sort(chunk_sort_kernel, in, out, n_keys, top, block_keys,
+                                            stream));
 }
 
 extern "C" int finish_launch(const void* in, void* out, long long n_chunks, int chunk,

@@ -3,8 +3,9 @@
 Every ``*.cu`` here has a plain C interface (no PyTorch headers), so one
 ``nvcc`` call per source takes seconds; all sources are compiled at the
 same time.  Libraries go to ``genome_assembly_tpu_torch/build/`` (not
-tracked by git), named by the hash of their source, so an edited source
-is rebuilt and an unchanged one is reused.  They are loaded with ctypes.
+tracked by git), named by the hash of their source and of every header
+(``*.cuh``) of this directory, so an edited source or header is rebuilt and
+an unchanged one is reused.  They are loaded with ctypes.
 
 Nothing here runs at import: the first kernel launch calls ``load``.
 A failed build raises; there is no other route to the kernel's function.
@@ -54,10 +55,14 @@ def nvcc_path() -> str:
 
 
 def _library_path(source: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha1(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    """Where the library of ``source`` goes: named by the hash of the source,
+    of every header beside it (any source may include any of them) and of the
+    compiler's flags."""
+    digest = hashlib.sha1(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(verbose: bool = False) -> Dict[str, pathlib.Path]:

@@ -28,29 +28,24 @@
 // on ascending runs it gives what the network gives, equal keys being
 // indistinguishable.
 //
-// The merge step, shared by the first two kernels.  A thread owns V
-// consecutive outputs from diagonal d of a pair of ascending segments A (la
-// keys) and B (lb keys) in shared memory.  It finds the largest j in
-// [max(0, d - lb), min(d, la)] with j at its lower end or A[j-1] <= B[d-j]
-// (equal keys of A first, the rule of merge_splits) by binary search, then
-// takes V times the smaller head.  Nothing pads the segments, and real keys
-// may equal the padding key, so the heads are guarded by INDEX, never by
-// value: take from A iff B is used up, or A is not and head_a <= head_b; a head
-// past its segment is never read.  The V results wait in registers for a
-// barrier and then go to shared memory, skewed by one key in 16 so that
-// threads V keys apart hit different banks.
+// The merge step, shared by the first two kernels (block_sort.cuh:
+// diagonal_split, merge_steps).  A thread owns V consecutive outputs from
+// diagonal d of a pair of ascending segments A (la keys) and B (lb keys) in
+// shared memory.  It finds where the diagonal crosses the merge path by binary
+// search, then takes V times the smaller head.  Nothing pads the segments, and
+// real keys may equal the padding key, so the heads are guarded by INDEX, never
+// by value; a head past its segment is never read.  The V results wait in
+// registers for a barrier and then go to shared memory, skewed by one key in 16
+// so that threads V keys apart hit different banks.
 //
-// local_merge_kernel.  A block merge sort: one chunk (at most 2^14 keys) in ONE
-// shared buffer in the skewed layout, chunk / V threads, V keys a thread (16
-// for a full chunk: 1024 threads).  Runs shorter than V are first merged in
-// registers, each thread on its own V keys, by the compile-time odd-even merge
-// levels 2 base_run .. V.  Then a round per level r -> 2 r: every thread
-// searches its diagonal in its run pair, merges V keys into registers,
-// barrier, writes them back in place, barrier.  Runs of 2^10 in a chunk of
-// 2^14 take 4 rounds (8 barriers) where the network this kernel had before
-// took 50 stages; from base_run 1 the kernel is a whole chunk sort (the
-// register levels and 10 rounds).  The rounds equal the network only on valid
-// input (runs of base_run ascending), which is all the sort sends.
+// local_merge_kernel.  The block merge sort of block_sort.cuh, which the row
+// sort and the chunk sort of bitonic.cu run too: one chunk (at most 2^14 keys)
+// in ONE shared buffer in the skewed layout, chunk / V threads, V keys a thread
+// (16 for a full chunk: 1024 threads), the levels up to V in registers, then a
+// round per level.  Runs of 2^10 in a chunk of 2^14 take 4 rounds (8 barriers);
+// from base_run 1 the kernel is a whole chunk sort (the register levels and 10
+// rounds).  The rounds equal the odd-even network only on valid input (runs of
+// base_run ascending), which is all the sort sends.
 // What bounds it: it moves 16 bytes a key through device memory once; its
 // time is the rounds' shared-memory latency (a dependent load a merge step)
 // under one block an SM.
@@ -77,143 +72,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_sort.cuh"
+
 namespace {
 
-typedef long long sort_key;             // one int64 key
-typedef unsigned long long position;    // global index, run length
+using namespace block_sort;  // sort_key, position, staged, diagonal_split, merge_steps, sort_blocks
 
-constexpr int kMaxChunkKeys = 1 << 14;  // local_merge: 136 KB of the block's 227 KB
+constexpr int kMaxChunkKeys = kMaxBlockKeys;  // local_merge: one chunk a block
 constexpr int kMaxTileKeys = 1 << 13;   // merge_pass: 8.5 bytes a tile key
-constexpr int kMaxBlocks = 132 * 16;    // local_merge strides over its chunks
 constexpr int kSplitThreads = 256;      // of a merge_splits block
-
-// Where key p of a chunk or tile lies in the skewed layout: one key of room
-// after every 16 (every 32 where a thread owns 32), so that the first keys of
-// neighbouring threads fall into different banks.
-template <int V>
-__device__ __forceinline__ int staged(int p) { return p + (p >> (V > 16 ? 5 : 4)); }
-
-// keys of shared memory for `keys` keys in the skewed layout, one to spare
-size_t staged_bytes(int keys) { return static_cast<size_t>(keys + (keys >> 4) + 1) * sizeof(sort_key); }
-
-// the most threads a block of V keys a thread can have for `keys` keys
-#define MAX_THREADS(keys, V) ((keys) / (V) > 1024 ? 1024 : (keys) / (V))
-
-// The largest j in [max(0, d - lb), min(d, la)] with j at the lower end or
-// a(j - 1) <= b(d - j): how many keys of A precede diagonal d of the merge.
-template <typename ReadA, typename ReadB>
-__device__ __forceinline__ int diagonal_split(int d, int la, int lb, ReadA a, ReadB b) {
-  int lo = d > lb ? d - lb : 0;
-  int hi = d < la ? d : la;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (a(mid - 1) <= b(d - mid)) {
-      lo = mid;
-    } else {
-      hi = mid - 1;
-    }
-  }
-  return lo;
-}
-
-// V steps of the two-heads merge from (ia, ib); a(i) and b(i) read key i of
-// their segment and are called only with i inside it.
-template <int V, typename ReadA, typename ReadB>
-__device__ __forceinline__ void merge_steps(sort_key (&merged)[V], int ia, int ib, int la, int lb,
-                                            ReadA a, ReadB b) {
-  sort_key head_a = 0, head_b = 0;
-  if (ia < la) head_a = a(ia);
-  if (ib < lb) head_b = b(ib);
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const bool from_a = ib >= lb || (ia < la && head_a <= head_b);
-    merged[v] = from_a ? head_a : head_b;
-    if (from_a) {
-      ++ia;
-      if (ia < la) head_a = a(ia);
-    } else {
-      ++ib;
-      if (ib < lb) head_b = b(ib);
-    }
-  }
-}
-
-// One compare-exchange of two registers; the lower index keeps the smaller key.
-__device__ __forceinline__ void order(sort_key& low, sort_key& high) {
-  const sort_key a = low, b = high;
-  low = a < b ? a : b;
-  high = a < b ? b : a;
-}
-
-// The odd-even merge levels 2 base_run .. min(V, top) on a thread's own V keys.  Level
-// 2 m: stage k == m pairs p with p + m where (p & m) == 0; a stage k < m pairs p
-// with p + k where (p & k) == k and (p & (2 m - 1)) + k < 2 m.  All indices
-// are compile-time constants after unrolling: the keys stay in registers.
-template <int V>
-__device__ __forceinline__ void merge_in_registers(sort_key (&r)[V], int base_run, int top) {
-#pragma unroll
-  for (int log_window = 1; (1 << log_window) <= V; ++log_window) {
-    const int window = 1 << log_window;
-    if (window > base_run && window <= top) {
-#pragma unroll
-      for (int log_k = log_window - 1; log_k >= 0; --log_k) {
-        const int k = 1 << log_k;
-#pragma unroll
-        for (int p = 0; p < V; ++p) {
-          const bool pair = 2 * k == window ? (p & k) == 0
-                                            : (p & k) == k && (p & (window - 1)) + k < window;
-          if (pair) order(r[p], r[(p + k) & (V - 1)]);  // a pair has p + k < V
-        }
-      }
-    }
-  }
-}
 
 // `in` and `out` may be the same buffer: a chunk is read and written by the
 // one block that owns it.  blockDim.x * V == chunk; base_run < top <= chunk,
 // powers of two.
 template <int V>
-__global__ void __launch_bounds__(MAX_THREADS(kMaxChunkKeys, V))
+__global__ void __launch_bounds__(BLOCK_SORT_MAX_THREADS(kMaxChunkKeys, V))
 local_merge_kernel(const sort_key* in, sort_key* out, long long n_chunks, int chunk,
                    int base_run, int top) {
   extern __shared__ sort_key s[];
-  const int first = threadIdx.x * V;  // of this thread's V keys in the chunk
-  for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x) {
-    const size_t base = static_cast<size_t>(c) * chunk;
-    sort_key merged[V];
-    // blockDim.x * V == chunk: V coalesced loads in flight, then into the layout
-#pragma unroll
-    for (int v = 0; v < V; ++v) merged[v] = in[base + threadIdx.x + v * blockDim.x];
-#pragma unroll
-    for (int v = 0; v < V; ++v) s[staged<V>(threadIdx.x + v * blockDim.x)] = merged[v];
-    __syncthreads();
-    if (base_run < V) {
-      // only this thread touches these V keys: no barrier around the levels
-#pragma unroll
-      for (int v = 0; v < V; ++v) merged[v] = s[staged<V>(first + v)];
-      merge_in_registers<V>(merged, base_run, top);
-#pragma unroll
-      for (int v = 0; v < V; ++v) s[staged<V>(first + v)] = merged[v];
-      __syncthreads();
-    }
-    for (int run = base_run < V ? V : base_run; 2 * run <= top; run <<= 1) {
-      const int pair_at = first & ~(2 * run - 1);
-      const int d = first - pair_at;
-      auto a = [&](int i) { return s[staged<V>(pair_at + i)]; };
-      auto b = [&](int i) { return s[staged<V>(pair_at + run + i)]; };
-      const int j = diagonal_split(d, run, run, a, b);
-      merge_steps<V>(merged, j, d - j, run, run, a, b);
-      __syncthreads();  // every thread has read its keys: the runs may go
-#pragma unroll
-      for (int v = 0; v < V; ++v) s[staged<V>(first + v)] = merged[v];
-      __syncthreads();
-    }
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      out[base + threadIdx.x + v * blockDim.x] = s[staged<V>(threadIdx.x + v * blockDim.x)];
-    }
-    __syncthreads();  // the block's next chunk overwrites the shared keys
-  }
+  sort_blocks<V, false>(s, in, out, static_cast<size_t>(n_chunks) * chunk, base_run, top);
 }
 
 // x cut into [low, high]
@@ -224,7 +101,7 @@ __device__ __forceinline__ position cut(position x, position low, position high)
 // `out` must not overlap `in`: a tile reads from anywhere in its run pair.
 // a0, b0: [n_tiles] start of each tile's segments.  blockDim.x * V == tile.
 template <int V>
-__global__ void __launch_bounds__(MAX_THREADS(kMaxTileKeys, V))
+__global__ void __launch_bounds__(BLOCK_SORT_MAX_THREADS(kMaxTileKeys, V))
 merge_pass_kernel(const sort_key* in, sort_key* out, const long long* a0, const long long* b0,
                   long long n_tiles, int tile, unsigned long long run) {
   extern __shared__ sort_key s[];
@@ -307,22 +184,13 @@ merge_splits_kernel(const sort_key* key, long long* a0, long long* b0, long long
   bend[t] = static_cast<long long>(base + 2 * run);
 }
 
-bool is_pow2(unsigned long long x) { return x != 0 && (x & (x - 1)) == 0; }
-
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 template <int V>
 cudaError_t launch_local_merge(const sort_key* in, sort_key* out, long long n_chunks, int chunk,
                                int base_run, int top, cudaStream_t stream) {
   const size_t bytes = staged_bytes(chunk);
   cudaError_t err = allow_shared(local_merge_kernel<V>, bytes);
   if (err != cudaSuccess) return err;
-  const int blocks = n_chunks < kMaxBlocks ? static_cast<int>(n_chunks) : kMaxBlocks;
+  const int blocks = grid_blocks(static_cast<size_t>(n_chunks) * chunk, chunk);
   local_merge_kernel<V><<<blocks, chunk / V, bytes, stream>>>(in, out, n_chunks, chunk, base_run,
                                                              top);
   return cudaGetLastError();

@@ -1,4 +1,4 @@
-"""ctypes bindings and wrappers of the bitonic kernels (csrc/bitonic.cu).
+"""ctypes bindings and wrappers of the kernels of csrc/bitonic.cu.
 
 Replace the JAX package's ``sort_rows_pallas`` (ops/sort_pallas.py) and
 ``_run_chunk_pass``, ``_run_big_ce``, ``_run_finish`` (ops/bitonic_pallas.py).
@@ -9,13 +9,18 @@ A wrapper writes into its caller's tensor only when told ``overwrite=True``
 by one per launch of that kernel and nowhere else, so a run can show which
 kernels it went through.
 
+``chunk_sort_cuda`` takes the merge levels ``2, 4 .. s`` with ``s <= chunk``
+(``bitonic_sort.prefix_top``), which sort every run of ``s`` keys: one launch
+of the block merge sort.  Any other list is a partial network and no sort; no
+sort sends one and the wrapper refuses it.
+
 The library is built and loaded at the first launch, never at import.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
@@ -24,16 +29,41 @@ from genome_assembly_tpu_torch.ops import bitonic_sort
 # launches of each kernel since import (or since a caller reset them)
 launch_count = {"sort_rows": 0, "chunk_sort": 0, "big_ce": 0, "finish": 0}
 
-# Threads of a block of the three shared-memory kernels (the launcher
-# lowers it to one thread per pair for short rows and chunks).  A 2^14-key
-# chunk leaves room for one block per SM, so the block brings all the
-# warps: ``finish`` over 2^28 keys took 4.3 ms with 1024 threads, 5.0 with
-# 512, 7.0 with 256 (H100 80GB HBM3 at 700 W, chip_smoke.py chunk_choice).
+# Threads of a block of the stage-by-stage shared-memory kernel ``finish``
+# (the launcher lowers it to one thread per pair for short chunks); the two
+# merge sorts take their threads from ``block_shape``.  A 2^14-key chunk leaves room for one block per SM, so the
+# block brings all the warps: ``finish`` over 2^28 keys took 4.3 ms with 1024
+# threads, 5.0 with 512, 7.0 with 256 (NVIDIA H100 80GB HBM3 at 700 W,
+# chip_smoke.py chunk_choice).
 SHARED_THREADS = 1024
 
 # Keys one block holds in shared memory (``bitonic_max_shared_keys()`` of
 # the library): the largest row of ``sort_rows`` and the largest chunk.
 MAX_SHARED_KEYS = 1 << 14
+
+# The two merge sorts (``sort_rows``, ``chunk_sort``).  KEYS_PER_THREAD: keys
+# one thread owns, as the kernels are compiled.  BLOCK_KEYS: keys one thread
+# block takes at least (a block takes whole runs, so a longer run takes a
+# larger block).  Measured on 2^26 keys as rows of C (NVIDIA H100 80GB HBM3 at
+# 700 W, ``rows_choice`` phase of chip_smoke.py), ms: C = 4096 in blocks of
+# 4096 keys 1.25, of 2^14 1.39: 34 KB a block leave room for several blocks an
+# SM, whose loads and stores overlap the others' merge rounds; C = 1024 in
+# blocks of 1024 1.00, of 2048 0.99, of 4096 0.98, of 2^14 1.13; C = 64 in
+# blocks of one row (4 threads) 3.98, of 2048 0.49, of 4096 0.50, of 2^14 0.63.
+KEYS_PER_THREAD = 16
+BLOCK_KEYS = 1 << 12
+
+
+def block_shape(run: int) -> Tuple[int, int, int]:
+    """(block_keys, threads, shared bytes) of a thread block of the merge
+    sorts for runs of ``run`` keys (a row of ``sort_rows``, the last level of
+    ``chunk_sort``): a power of two of keys that is a multiple of the run,
+    ``KEYS_PER_THREAD`` keys a thread, held in shared memory with one key of
+    room after every 16."""
+    block_keys = max(run, BLOCK_KEYS, KEYS_PER_THREAD)
+    shared_bytes = (block_keys + block_keys // 16 + 1) * 8
+    return block_keys, block_keys // KEYS_PER_THREAD, shared_bytes
+
 
 _lib = None
 
@@ -46,7 +76,7 @@ def _library() -> ctypes.CDLL:
         lib = build.load("bitonic")
         ptr, i32, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
         lib.sort_rows_launch.argtypes = [ptr, ptr, i64, i32, i32, ptr]
-        lib.chunk_sort_launch.argtypes = [ptr, ptr, i64, i32, u64, i32, ptr]
+        lib.chunk_sort_launch.argtypes = [ptr, ptr, u64, i32, i32, ptr]
         lib.finish_launch.argtypes = [ptr, ptr, i64, i32, u64, i32, ptr]
         lib.big_ce_launch.argtypes = [ptr, ptr, u64, u64, u64, ptr]
         for fn in (lib.sort_rows_launch, lib.chunk_sort_launch, lib.finish_launch,
@@ -93,21 +123,26 @@ def sort_rows_cuda(key: torch.Tensor) -> torch.Tensor:
     bitonic_sort.check_rows(key)
     rows, c = key.shape
     _check_fits("sort_rows_cuda", c)
+    block_keys = block_shape(c)[0]
     return _launch("sort_rows", key, False, lambda lib, src, dst, stream:
-                   lib.sort_rows_launch(src, dst, rows, c, SHARED_THREADS, stream))
+                   lib.sort_rows_launch(src, dst, rows, c, block_keys, stream))
 
 
 def chunk_sort_cuda(key: torch.Tensor, sizes: Sequence[int], *, chunk: int,
                     overwrite: bool = False) -> torch.Tensor:
-    """For each merge level of ``sizes`` the stages with distance < chunk, on
-    flat contiguous CUDA keys of a whole number of chunks."""
+    """The merge levels ``sizes == [2, 4 .. s]``, ``s <= chunk``, of the network
+    on flat contiguous CUDA keys of a whole number of chunks: every run of
+    ``s`` keys sorted, ascending iff its global start has the ``s`` bit clear.
+    One launch of the block merge sort; any other list is refused."""
     _check_on_card("chunk_sort_cuda", key)
     bitonic_sort.check_chunked(key, chunk)
-    mask = bitonic_sort.check_sizes(sizes)
+    bitonic_sort.check_sizes(sizes)
     _check_fits("chunk_sort_cuda", chunk)
-    n_chunks = key.shape[0] // chunk
+    n = key.shape[0]
+    top = bitonic_sort.check_prefix(sizes, chunk)
+    block_keys = block_shape(top)[0]
     return _launch("chunk_sort", key, overwrite, lambda lib, src, dst, stream:
-                   lib.chunk_sort_launch(src, dst, n_chunks, chunk, mask, SHARED_THREADS, stream))
+                   lib.chunk_sort_launch(src, dst, n, top, block_keys, stream))
 
 
 def big_ce_cuda(key: torch.Tensor, d: int, size: int, *,

@@ -20,7 +20,11 @@ by stage in tensor ops on whatever device the keys are on.  The dispatchers
 (``sort_rows``, ``chunk_sort``, ``big_ce``, ``finish``) send a CUDA tensor to
 the hand-written kernel (ops/bitonic_cuda.py, csrc/bitonic.cu) or raise, and
 a CPU tensor to the plain form; there is no other route and no fallback
-between the two.  With ``overwrite=True`` the caller gives its tensor up:
+between the two.  On the card ``sort_rows`` and ``chunk_sort`` are block merge
+sorts and no network: keys are values only, so a sort of every run gives the
+network's bits for the levels ``2, 4 .. s`` that ``sort_keys`` sends
+(``prefix_top``); any other list of levels ``chunk_sort`` takes on the CPU
+only and refuses on the card.  With ``overwrite=True`` the caller gives its tensor up:
 the kernel then works in place, the plain form returns a new tensor.
 """
 
@@ -82,6 +86,29 @@ def check_sizes(sizes: Sequence[int]) -> int:
         mask |= size
         last = size
     return mask
+
+
+def prefix_top(sizes: Sequence[int], chunk: int) -> int:
+    """``s`` where ``sizes`` is the complete prefix ``2, 4 .. s`` of the
+    network's levels with ``s <= chunk``, else 0.  Such a list sorts any
+    input: it leaves every run of ``s`` consecutive keys sorted, the run that
+    starts at global position ``p`` ascending iff ``(p & s) == 0``, else
+    descending.  Any other list is a partial network and no sort."""
+    sizes = list(sizes)
+    if sizes and sizes == [2 << b for b in range(len(sizes))] and sizes[-1] <= chunk:
+        return sizes[-1]
+    return 0
+
+
+def check_prefix(sizes: Sequence[int], chunk: int) -> int:
+    """What ``chunk_sort`` takes on the card: the complete prefix ``2, 4 .. s``
+    with ``s <= chunk``.  Returns ``s``."""
+    top = prefix_top(sizes, chunk)
+    if not top:
+        raise ValueError(
+            f"on the card chunk_sort takes the levels 2, 4 .. s with s <= chunk {chunk}, "
+            f"got {list(sizes)}: a partial network is no sort")
+    return top
 
 
 def check_stage(key: torch.Tensor, d: int, size: int) -> None:

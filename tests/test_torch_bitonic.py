@@ -22,6 +22,7 @@ from genome_assembly_tpu.ops import bitonic_pallas as bp
 from genome_assembly_tpu.ops.sort_pallas import sort_rows_pallas
 from genome_assembly_tpu_torch import convert
 from genome_assembly_tpu_torch.common import SENTINEL
+from genome_assembly_tpu_torch.ops import bitonic_cuda as bc
 from genome_assembly_tpu_torch.ops import bitonic_sort as bs
 
 
@@ -131,6 +132,137 @@ def test_passes_on_degenerate_inputs_match_pallas(kind):
         bs.finish(t, 128, chunk=chunk).numpy(),
         _flat_key(*bp._run_finish(*j, 128, chunk_rows=cr, width=w, interpret=True)))
     assert np.array_equal(bs.sort_keys(t, chunk=chunk).numpy(), np.sort(key))
+
+
+# --------------------------------------------------------------------------
+# the prefix rule: the levels 2, 4 .. s of the network sort every run of s
+# keys, ascending or descending by the run's global position.  On the card
+# chunk_sort computes such a list with a merge sort and a reversed store; this
+# pins on the CPU that a sort plus reversal is the network's output.
+# --------------------------------------------------------------------------
+
+def _levels(top):
+    return [1 << b for b in range(1, top.bit_length())]
+
+
+def _sorted_runs_alternating(key, s):
+    """Every run of s keys sorted; the runs whose global start p has
+    (p & s) != 0 flipped to descending."""
+    runs = torch.sort(key.view(-1, s), dim=1).values
+    down = (torch.arange(0, key.shape[0], s) & s) != 0
+    runs[down] = runs[down].flip(1)
+    return runs.reshape(-1)
+
+
+def _pattern(kind, n, seed):
+    base = np.sort(_keys(seed, n))
+    return {"random": _keys(seed, n), "all_equal": np.full(n, 12345, np.int64), "sorted": base,
+            "reversed": base[::-1].copy(),
+            "sentinels_only": np.full(n, SENTINEL, np.int64)}[kind]
+
+
+_PATTERNS = ["random", "all_equal", "sorted", "reversed", "sentinels_only"]
+_PREFIXES = [(chunk, s) for chunk in (2, 8, 32, 128) for s in _levels(chunk)]
+
+
+@pytest.mark.parametrize("kind", _PATTERNS)
+@pytest.mark.parametrize("chunk,s", _PREFIXES)
+def test_prefix_levels_sort_every_run_with_alternating_direction(chunk, s, kind):
+    for n_chunks in (1, 5, 8):  # an odd and an even number of chunks
+        key = torch.from_numpy(_pattern(kind, n_chunks * chunk, 12 + s))
+        assert bs.prefix_top(_levels(s), chunk) == s
+        got = bs.chunk_sort_plain(key, _levels(s), chunk=chunk)
+        assert torch.equal(got, _sorted_runs_alternating(key, s))
+
+
+@pytest.mark.parametrize("s", [8, 32])
+def test_prefix_rule_matches_pallas_chunk_pass(s):
+    n, cr, w = 1024, 4, 8
+    key = _keys(13, n)
+    jhi, jlo = bp._run_chunk_pass(*_lanes2d(key, w), _levels(s), chunk_rows=cr, width=w,
+                                  interpret=True)
+    want = _sorted_runs_alternating(torch.from_numpy(key), s).numpy()
+    assert np.array_equal(_flat_key(jhi, jlo), want)
+
+
+@settings(max_examples=40, deadline=None, database=None)
+@given(log_s=st.integers(1, 6), log_more=st.integers(0, 2), n_chunks=st.integers(1, 7),
+       seed=st.integers(0, 2**31))
+def test_prefix_rule_for_any_keys_and_chunks(log_s, log_more, n_chunks, seed):
+    s, chunk = 1 << log_s, 1 << (log_s + log_more)
+    key = torch.from_numpy(_keys(seed, n_chunks * chunk))
+    assert torch.equal(bs.chunk_sort(key, _levels(s), chunk=chunk),
+                       _sorted_runs_alternating(key, s))
+
+
+# --------------------------------------------------------------------------
+# what the card's wrappers decide from their arguments alone: whether a list
+# of levels is a sort, and the thread block of the two merge sorts
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sizes,chunk,top", [
+    ([2], 2, 2), ([2], 64, 2), ([2, 4, 8], 8, 8), ([2, 4, 8], 64, 8),
+    (_levels(1 << 14), 1 << 14, 1 << 14), (tuple(_levels(32)), 32, 32),
+    ([], 8, 0),                    # no level: nothing to sort
+    ([2, 4, 8], 4, 0),             # the last level is above the chunk: partial
+    ([4], 8, 0), ([2, 8], 8, 0), ([4, 8], 8, 0),      # a level is missing
+    ([16], 8, 0), ([2, 8, 1 << 40], 8, 0), ([2, 4, 8, 16], 8, 0),
+])
+def test_prefix_top_names_the_complete_prefixes_only(sizes, chunk, top):
+    assert bs.prefix_top(sizes, chunk) == top
+
+
+_SHARED_BYTES_A_BLOCK = 232448  # what a thread block of the card may use
+
+
+@pytest.mark.parametrize("wanted_block_keys", [2, 2048, 4096, 1 << 14])
+@pytest.mark.parametrize("log_run", range(1, 15))
+def test_block_shape_fits_the_card_for_every_run(monkeypatch, log_run, wanted_block_keys):
+    """Every row length of sort_rows and every last level of chunk_sort, 2 ..
+    2^14, with any least block: whole runs a block, the keys a thread the
+    kernels are compiled for, at most 1024 threads, at most the shared memory
+    a block may use."""
+    monkeypatch.setattr(bc, "BLOCK_KEYS", wanted_block_keys)
+    run = 1 << log_run
+    block_keys, threads, shared_bytes = bc.block_shape(run)
+    assert block_keys >= max(run, wanted_block_keys) and block_keys % run == 0
+    assert block_keys & (block_keys - 1) == 0 and block_keys <= bc.MAX_SHARED_KEYS
+    assert threads * bc.KEYS_PER_THREAD == block_keys and 1 <= threads <= 1024
+    assert 8 * block_keys < shared_bytes <= _SHARED_BYTES_A_BLOCK
+
+
+@pytest.mark.parametrize("log_chunk", range(1, 15))
+def test_block_shape_of_a_chunk_sort_follows_its_last_level(log_chunk):
+    """chunk_sort(levels 2 .. s, chunk): the block holds whole runs of s keys,
+    whatever the chunk; with the defaults a block of at least 4096 keys."""
+    chunk = 1 << log_chunk
+    for s in _levels(chunk):
+        top = bs.check_prefix(_levels(s), chunk)
+        block_keys, threads, shared_bytes = bc.block_shape(top)
+        assert top == s and block_keys == max(s, bc.BLOCK_KEYS) and block_keys % s == 0
+        assert threads <= 1024 and shared_bytes <= _SHARED_BYTES_A_BLOCK
+
+
+@pytest.mark.parametrize("sizes,chunk", [
+    ([], 8), ([2, 4, 8], 4), ([4], 8), ([2, 8], 8), ([4, 8], 8), ([16], 8),
+    ([2, 8, 1 << 40], 8), ([2, 4, 8, 16], 8), ([1 << 15], 1 << 14),
+])
+def test_the_card_refuses_a_partial_list_of_levels(sizes, chunk):
+    """A list that is no complete prefix is a partial network: the plain
+    version runs it (as the JAX chunk pass does), the card's wrapper does not."""
+    with pytest.raises(ValueError):
+        bs.check_prefix(sizes, chunk)
+    key = torch.from_numpy(_keys(15, 4 * chunk))
+    assert bs.chunk_sort(key, sizes, chunk=chunk).shape == key.shape  # the CPU takes it
+
+
+def test_dispatcher_sends_cpu_keys_to_the_plain_version_for_any_list(monkeypatch):
+    calls = _count_calls(monkeypatch, "chunk_sort_plain")
+    key = torch.from_numpy(_keys(14, 256))
+    assert torch.equal(bs.chunk_sort(key, _levels(32), chunk=32),
+                       _sorted_runs_alternating(key, 32))
+    bs.chunk_sort(key, [64], chunk=32)
+    assert len(calls) == 2 and set(bc.launch_count.values()) == {0}
 
 
 # --------------------------------------------------------------------------
@@ -259,6 +391,14 @@ _K = torch.zeros(64, dtype=torch.int64)
     (lambda: bs.chunk_sort(_K, [2, 6], chunk=8), ValueError),
     (lambda: bs.chunk_sort(_K, [1, 2], chunk=8), ValueError),
     (lambda: bs.chunk_sort(_K.int(), [2], chunk=8), TypeError),
+    (lambda: bs.chunk_sort(_K, [2, 2], chunk=8), ValueError),
+    (lambda: bs.chunk_sort(_K, [0], chunk=8), ValueError),
+    (lambda: bs.chunk_sort(_K, [2, 1 << 63], chunk=8), ValueError),
+    (lambda: bs.chunk_sort(_K.view(8, 8), [2, 4, 8], chunk=8), ValueError),
+    (lambda: bs.chunk_sort(_K[:60], [2, 4, 8], chunk=8), ValueError),
+    (lambda: bc.sort_rows_cuda(_K.view(8, 8)), ValueError),
+    (lambda: bc.chunk_sort_cuda(_K, [2, 4, 8], chunk=8), ValueError),
+    (lambda: bc.chunk_sort_cuda(_K, [16], chunk=8), ValueError),
     (lambda: bs.big_ce(_K, 3, 8), ValueError),
     (lambda: bs.big_ce(_K, 8, 8), ValueError),
     (lambda: bs.big_ce(_K, 64, 128), ValueError),

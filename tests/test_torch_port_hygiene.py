@@ -91,7 +91,8 @@ from genome_assembly_tpu_torch.ops import bitonic_cuda
 from genome_assembly_tpu_torch.csrc import build
 assert bitonic_cuda._lib is None and build._loaded == {}
 assert set(bitonic_cuda.launch_count.values()) == {0}
-assert sorted(bitonic_cuda.launch_count) == ["big_ce", "chunk_sort", "finish", "sort_rows"]
+assert sorted(bitonic_cuda.launch_count) == [
+    "big_ce", "chunk_sort", "finish", "sort_rows"]
 print("OK")
 """)
     assert r.returncode == 0, r.stderr
@@ -171,11 +172,63 @@ def test_every_cuda_source_has_a_binding_and_no_library_sort():
     merge = (csrc / "mergepath.cu").read_text()
     assert re.findall(r"^(\w+_kernel)\(", merge, flags=re.M) == [
         "local_merge_kernel", "merge_pass_kernel", "merge_splits_kernel"]
+    bitonic = (csrc / "bitonic.cu").read_text()
+    assert re.findall(r"^(\w+_kernel)\(", bitonic, flags=re.M) == [
+        "sort_rows_kernel", "chunk_sort_kernel", "finish_kernel", "big_ce_kernel"]
+    # the three block merge sorts are one device routine, from the header
+    for text, kernels in ((bitonic, ("sort_rows", "chunk_sort")), (merge, ("local_merge",))):
+        for kernel in kernels:
+            body = text.split(f"\n{kernel}_kernel(", 1)[1].split("\n}\n", 1)[0]
+            assert "sort_blocks<" in body, kernel
+
+
+def test_every_cuda_header_is_included_and_holds_no_interface_and_no_library_sort():
+    csrc = REPO_ROOT / "genome_assembly_tpu_torch" / "csrc"
+    headers = sorted(csrc.glob("*.cuh"))
+    assert [h.name for h in headers] == ["block_sort.cuh"]
+    sources = {s.name: s.read_text() for s in csrc.glob("*.cu")}
+    for header in headers:
+        users = [name for name, text in sources.items() if f'#include "{header.name}"' in text]
+        assert sorted(users) == ["bitonic.cu", "mergepath.cu"]
+        text = header.read_text()
+        assert 'extern "C"' not in text and "__global__" not in text
+        assert not re.search(r"\b(cub|thrust)::|#include\s*<(cub|thrust)/", text)
+        assert "#pragma once" in text
+
+
+def test_library_name_follows_the_source_the_headers_and_nothing_else(tmp_path):
+    """An edited header must leave no stale library behind: the name of every
+    source's library changes with any ``*.cuh`` beside it (no nvcc needed)."""
+    import shutil
+
+    from genome_assembly_tpu_torch.csrc import build
+
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, copy, ignore=shutil.ignore_patterns("__pycache__"))
+    names = {s.stem: build._library_path(s).name for s in sorted(copy.glob("*.cu"))}
+    assert names == {s.stem: build._library_path(s).name
+                     for s in sorted(build.CSRC_DIR.glob("*.cu"))}
+    assert all(build._library_path(copy / f"{stem}.cu").parent == build.BUILD_DIR
+               for stem in names)
+    (copy / "build.py").write_text("# not a source\n")
+    assert names == {s.stem: build._library_path(s).name for s in copy.glob("*.cu")}
+    header = copy / "block_sort.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after_header = {s.stem: build._library_path(s).name for s in copy.glob("*.cu")}
+    assert all(after_header[stem] != names[stem] for stem in names)
+    source = copy / "bitonic.cu"
+    source.write_text(source.read_text() + "\n// edited\n")
+    after_source = {s.stem: build._library_path(s).name for s in copy.glob("*.cu")}
+    assert after_source["bitonic"] != after_header["bitonic"]
+    assert after_source["mergepath"] == after_header["mergepath"]
+    (copy / "other.cuh").write_text("// a new header\n")
+    assert all(build._library_path(s).name != after_source[s.stem] for s in copy.glob("*.cu"))
 
 
 @pytest.mark.parametrize("call", [
     "sort_rows_cuda(torch.zeros((4, 8), dtype=torch.int64))",
     "chunk_sort_cuda(torch.zeros(64, dtype=torch.int64), [2, 4, 8], chunk=8)",
+    "chunk_sort_cuda(torch.zeros(64, dtype=torch.int64), [16], chunk=8)",
     "big_ce_cuda(torch.zeros(64, dtype=torch.int64), 8, 16)",
     "finish_cuda(torch.zeros(64, dtype=torch.int64), 16, chunk=8)",
 ])
