@@ -2,9 +2,10 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase, needs one CUDA device
-    python3 chip_smoke.py --local-merge-against DIR
-                                     # only: K4a of this tree and of the copy of
-                                     # csrc/ in DIR (another commit's), in turns
+    python3 chip_smoke.py --against DIR
+                                     # only: K1, K3c and K4a of this tree and of
+                                     # the copy of csrc/ in DIR (another
+                                     # commit's), in turns
 
 Builds the port's CUDA kernels from genome_assembly_tpu_torch/csrc/, holds
 each kernel against its plain tensor version on the card (bit-exact: all
@@ -13,13 +14,17 @@ end through ``FastAssembler.unitigs`` at a small size (card vs CPU) and at
 the size of the repo's ``ecoli`` scale preset -- once with the default
 library sort (``full_e2e``) and once with ``hybrid_sort=True``, the count
 sort through the bitonic kernels (``hybrid_e2e``; same reads, the results
-must be equal) -- drives the sort entry points no pipeline calls
+must be equal; the scan phase must read back from the card once) -- drives
+the sort entry points no pipeline calls
 (``sort_rows``, ``sort_keys``, and ``sort_keys_mergepath`` on random keys and
 on the ecoli reads' own scanned keys) at the main path's key count, times every kernel beside its plain
 version, its bound and the library call, measures the grids behind the sorts'
 defaults (``chunk_choice``, ``tile_choice``, ``rows_choice``), and prints one
-JSON object per phase.  Exits non-zero if there is no CUDA device
-or any phase fails.  Imports nothing of JAX and nothing of the JAX package.
+JSON object per phase.  Exits non-zero if there is no CUDA device, if the
+package cannot be imported (run it from the root of a checkout) or if any
+phase fails.  Imports nothing of JAX and nothing of the JAX package.  A
+second run in the same checkout reuses the built libraries and their
+build logs.
 
 Last three lines of standard output: the card's name and power limit as
 nvidia-smi gives them, the ``kernels`` report, and the verdict.
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import pathlib
 import re
@@ -37,24 +43,32 @@ import subprocess
 import sys
 import time
 
+import warnings
+
 import numpy as np
 import torch
 
-from genome_assembly_tpu_torch.common import SENTINEL
-from genome_assembly_tpu_torch.config import PipelineConfig
-from genome_assembly_tpu_torch.csrc import build as csrc_build
-from genome_assembly_tpu_torch.io import datagen
-from genome_assembly_tpu_torch.io import reads as reads_io
-from genome_assembly_tpu_torch.io import stream as stream_io
-from genome_assembly_tpu_torch.models.pipeline import FastAssembler
-from genome_assembly_tpu_torch.ops import bitonic_cuda
-from genome_assembly_tpu_torch.ops import bitonic_sort
-from genome_assembly_tpu_torch.ops import count as count_ops
-from genome_assembly_tpu_torch.ops import dbg
-from genome_assembly_tpu_torch.ops import mergepath_cuda
-from genome_assembly_tpu_torch.ops import mergepath_sort
-from genome_assembly_tpu_torch.ops import minimizer
-from genome_assembly_tpu_torch.ops import minimizer_cuda
+try:
+    from genome_assembly_tpu_torch.common import SENTINEL
+    from genome_assembly_tpu_torch.config import PipelineConfig
+    from genome_assembly_tpu_torch.csrc import build as csrc_build
+    from genome_assembly_tpu_torch.io import datagen
+    from genome_assembly_tpu_torch.io import reads as reads_io
+    from genome_assembly_tpu_torch.io import stream as stream_io
+    from genome_assembly_tpu_torch.models.pipeline import FastAssembler, PhaseStats
+    from genome_assembly_tpu_torch.ops import bitonic_cuda
+    from genome_assembly_tpu_torch.ops import bitonic_sort
+    from genome_assembly_tpu_torch.ops import count as count_ops
+    from genome_assembly_tpu_torch.ops import dbg
+    from genome_assembly_tpu_torch.ops import mergepath_cuda
+    from genome_assembly_tpu_torch.ops import mergepath_sort
+    from genome_assembly_tpu_torch.ops import minimizer
+    from genome_assembly_tpu_torch.ops import minimizer_cuda
+except ImportError as missing:
+    # the run fails all the same; it says why instead of failing in silence
+    sys.exit(f"chip_smoke: cannot import {missing.name} (looked for the package "
+             f"genome_assembly_tpu_torch in {pathlib.Path(__file__).resolve().parent} "
+             f"and on sys.path): {missing}. Run it from the root of a checkout of the repo.")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
 # and the float32 rate outside the tensor cores, taken here as the peak for
@@ -130,8 +144,11 @@ def phase_env():
     return smi
 
 
+SCAN_KERNELS = ("fast_scan_kernel",)
 SORT_KERNELS = ("sort_rows_kernel", "chunk_sort_kernel", "big_ce_kernel", "finish_kernel")
 MERGE_KERNELS = ("local_merge_kernel", "merge_pass_kernel", "merge_splits_kernel")
+# redesigned for registers: a spill would undo the design
+NO_SPILL_KERNELS = ("fast_scan_kernel", "finish_kernel")
 
 
 def ptxas_report(log: str, kernels) -> dict:
@@ -163,28 +180,42 @@ def phase_build():
     t0 = time.perf_counter()
     libs = csrc_build.build_all(verbose=True)
     minimizer_cuda._library()
-    bitonic_cuda._library()
+    lib = bitonic_cuda._library()
     mergepath_cuda._library()
     if sorted(libs) != ["bitonic", "fast_scan", "mergepath"]:
         raise AssertionError(f"expected three CUDA sources, built {sorted(libs)}")
-    report = ptxas_report(csrc_build.build_log.get("bitonic", ""), SORT_KERNELS)
+    # build_log holds what nvcc printed whether it built now or an earlier
+    # run did (the log is kept beside each library)
+    report = ptxas_report(csrc_build.build_log.get("fast_scan", ""), SCAN_KERNELS)
+    report.update(ptxas_report(csrc_build.build_log.get("bitonic", ""), SORT_KERNELS))
     report.update(ptxas_report(csrc_build.build_log.get("mergepath", ""), MERGE_KERNELS))
-    if sorted({name.split("<")[0] for name in report}) != sorted(SORT_KERNELS + MERGE_KERNELS):
-        raise AssertionError(
-            f"ptxas reported {sorted(report)}, expected {SORT_KERNELS + MERGE_KERNELS}")
-    # the keys of the shared-memory kernels are DYNAMIC shared memory, which
-    # ptxas does not see: 8 bytes a key of the chunk in the stage-by-stage
-    # kernel of bitonic.cu, 8.5 a key of the block, chunk or tile in the merge
-    # sorts and in mergepath.cu (one buffer and its skew)
+    every = SCAN_KERNELS + SORT_KERNELS + MERGE_KERNELS
+    if sorted({name.split("<")[0] for name in report}) != sorted(every):
+        raise AssertionError(f"ptxas reported {sorted(report)}, expected {every}")
+    # what ptxas does not see is the DYNAMIC shared memory: 4.25 bytes a base
+    # of a warp's read in the scan (its 2-bit words and int32 m-mer scores);
+    # 8.5 bytes a key of the chunk in finish (the skewed layout; none where
+    # one thread holds the chunk), of the block in the merge sorts and of
+    # the chunk or tile in mergepath.cu
     spills = {name: r for name, r in report.items()
               if r.get("spill_store_bytes") or r.get("spill_load_bytes")}
+    # the wrapper's block shape and the launcher's shared memory agree
+    for log_chunk in range(1, bitonic_cuda.MAX_SHARED_KEYS.bit_length()):
+        chunk = 1 << log_chunk
+        _, per_thread, _, shared_bytes = bitonic_cuda.finish_shape(chunk)
+        if lib.finish_shared_launch_bytes(chunk, per_thread) != shared_bytes:
+            raise AssertionError(f"finish_shape({chunk}) and finish_launch disagree on shared memory")
     emit("build", seconds=time.perf_counter() - t0,
          libraries=sorted(str(p.name) for p in libs.values()), ptxas=report,
          kernels_with_spills=sorted(spills),
-         dynamic_shared_bytes_per_key=8, merge_dynamic_shared_bytes_per_key=8.5,
+         scan_dynamic_shared_bytes_per_base=4.25, finish_dynamic_shared_bytes_per_key=8.5,
+         merge_dynamic_shared_bytes_per_key=8.5,
+         finish_shape_at_max_chunk=bitonic_cuda.finish_shape(bitonic_cuda.MAX_SHARED_KEYS),
          max_shared_keys=bitonic_cuda.MAX_SHARED_KEYS,
          max_merge_chunk_keys=mergepath_cuda.MAX_CHUNK_KEYS,
          max_merge_tile_keys=mergepath_cuda.MAX_TILE_KEYS)
+    if any(name.split("<")[0] in NO_SPILL_KERNELS for name in spills):
+        raise AssertionError(f"spills in {sorted(spills)}")
 
 
 def compare_scan(codes, lengths, k, m):
@@ -204,18 +235,53 @@ def compare_scan(codes, lengths, k, m):
     return mismatches, max_err
 
 
+def scan_batch(rng, batch, max_len, device, kind, offset=0):
+    """A batch of a kind: "random" (random_batch), "acgt" (every read ACGT
+    repeated to full length: a window of even k that starts at an even base
+    equals its reverse complement), "empty" (every length 0).  With an
+    offset the codes start that many bytes into their buffer: a row then
+    lies at no multiple of 4 bytes."""
+    codes, lengths = random_batch(rng, batch, max_len, device)
+    if kind == "acgt":
+        codes = torch.arange(max_len, device=device).remainder(4).to(torch.uint8).expand(
+            batch, max_len).contiguous()
+        lengths = torch.full_like(lengths, max_len)
+    elif kind == "empty":
+        codes = torch.zeros_like(codes)
+        lengths = torch.zeros_like(lengths)
+    if offset:
+        buf = torch.empty(batch * max_len + offset, dtype=torch.uint8, device=device)
+        codes = buf[offset:].view(batch, max_len).copy_(codes)
+    return codes, lengths
+
+
 def phase_kernel_check(device):
     rng = np.random.default_rng(1234)
-    cases = [(KERNEL_SHAPE[0], KERNEL_SHAPE[1], 31, 7)]
+    cases = [(KERNEL_SHAPE[0], KERNEL_SHAPE[1], 31, 7, "random", 0)]
     for k, m in [(31, 7), (21, 7), (17, 5), (16, 5), (15, 5), (31, 4)]:
-        cases.append((1000, 128, k, m))
-        cases.append((1000, 100, k, m))
-    cases += [(1, 128, 31, 7), (3, 31, 31, 7), (257, 1000, 31, 15)]
+        cases.append((1000, 128, k, m, "random", 0))
+        cases.append((1000, 100, k, m, "random", 0))
+    cases += [(1, 128, 31, 7, "random", 0), (3, 31, 31, 7, "random", 0),
+              (257, 1000, 31, 15, "random", 0)]
+    cases += [
+        (3, 8192, 31, 7, "random", 0), (2, 8192, 21, 15, "random", 1),  # the longest rows
+        (64, 31, 31, 7, "random", 0), (64, 7, 7, 3, "random", 0),  # L == k
+        (1000, 129, 31, 7, "random", 0), (1000, 130, 31, 7, "random", 0),  # L % 4 == 1, 2, 3
+        (1000, 131, 31, 7, "random", 0), (999, 127, 21, 5, "random", 0),
+        (1000, 128, 31, 7, "random", 1), (1000, 131, 31, 7, "random", 3),  # rows off 4 bytes
+        (1000, 128, 31, 1, "random", 0), (1000, 64, 5, 1, "random", 0),  # m == 1
+        (1000, 128, 15, 15, "random", 0), (1000, 100, 7, 7, "random", 0),  # k == m
+        (1000, 128, 1, 1, "random", 0),
+        (100, 128, 16, 5, "acgt", 0), (100, 128, 20, 7, "acgt", 0),  # k-mer == its rc
+        (100, 130, 30, 15, "acgt", 2),
+        (500, 128, 31, 7, "empty", 0), (5, 8192, 31, 7, "empty", 0),
+    ]
     report, total, worst = [], 0, 0.0
-    for batch, max_len, k, m in cases:
-        codes, lengths = random_batch(rng, batch, max_len, device)
+    for batch, max_len, k, m, kind, offset in cases:
+        codes, lengths = scan_batch(rng, batch, max_len, device, kind, offset)
         mism, err = compare_scan(codes, lengths, k, m)
-        report.append({"B": batch, "L": max_len, "k": k, "m": m, "mismatches": mism})
+        report.append({"B": batch, "L": max_len, "k": k, "m": m, "reads": kind,
+                       "byte_offset": offset, "mismatches": mism})
         total += mism
         worst = max(worst, err)
     # what the wrapper must refuse
@@ -376,14 +442,61 @@ def check_chunk_sort(gen, device):
     return t
 
 
+def bitonic_chunks(key, chunk):
+    """Every chunk of `key` bitonic: its first half ascending, its second
+    half descending (what finish meets in a sort)."""
+    halves = torch.sort(key.view(-1, chunk // 2), dim=1).values
+    halves[1::2] = halves[1::2].flip(1)
+    return halves.view(-1)
+
+
+@contextlib.contextmanager
+def finish_keys_per_thread(per_thread):
+    """Inside, finish takes `per_thread` keys a thread."""
+    before = bitonic_cuda.FINISH_KEYS_PER_THREAD
+    bitonic_cuda.FINISH_KEYS_PER_THREAD = per_thread
+    try:
+        yield
+    finally:
+        bitonic_cuda.FINISH_KEYS_PER_THREAD = before
+
+
 def check_finish(gen, device):
+    """K3c against finish_plain, every call counted: every chunk 2 .. 2^14 (an
+    odd number of chunks), the level at the chunk (the direction alternates
+    chunk by chunk) and above it, up to and past the array; random keys (no
+    bitonic runs: the kernel is the same compare-exchanges, so it equals the
+    plain version on any input), bitonic chunks, all-equal and all-pad keys;
+    16 and 32 keys a thread; more chunks than the grid has blocks; in place."""
     t = Tally()
-    for chunk in (2, 64, 8192, bitonic_cuda.MAX_SHARED_KEYS):
-        n = chunk * 32
-        for name, key in key_patterns(gen, n, device).items():
-            for size in (chunk, 2 * chunk, n):  # size == n: every pair ascends
-                got = bitonic_sort.finish(key, size, chunk=chunk)
-                t.hold(got, bitonic_sort.finish_plain(key, size, chunk=chunk))
+
+    def hold(key, size, chunk, overwrite=False):
+        want = bitonic_sort.finish_plain(key, size, chunk=chunk)
+        launched = bitonic_cuda.launch_count["finish"]
+        got = bitonic_sort.finish(key, size, chunk=chunk, overwrite=overwrite)
+        if bitonic_cuda.launch_count["finish"] != launched + 1:
+            raise AssertionError(f"finish(size={size}, chunk={chunk}) did not launch once")
+        if overwrite and got.data_ptr() != key.data_ptr():
+            raise AssertionError("finish(overwrite=True) did not work in place")
+        t.hold(got, want)
+
+    largest = bitonic_cuda.MAX_SHARED_KEYS
+    for per_thread in (16, 32):
+        with finish_keys_per_thread(per_thread):
+            for chunk in levels_up_to(largest):
+                n = chunk * 23
+                patterns = sort_patterns(gen, n, device)
+                patterns["bitonic"] = bitonic_chunks(patterns["random"], chunk)
+                for name, key in patterns.items():
+                    for size in (chunk, 2 * chunk, 32 * chunk, 1 << 40):
+                        hold(key, size, chunk)
+    hold(random_keys(gen, 64 * 5000, device, 0.3), 64, 64)  # more chunks than the grid
+    hold(random_keys(gen, 1 << 24, device, 0.3), 1 << 24, largest)
+    for chunk in (2, 64, largest):
+        hold(key_patterns(gen, chunk * 7, device)["random"], 2 * chunk, chunk, overwrite=True)
+        # keys at 8 bytes past a multiple of 16: the stores go one key at a time
+        hold(key_patterns(gen, chunk * 7 + 1, device)["random"][1:], 2 * chunk, chunk,
+             overwrite=True)
     return t
 
 
@@ -911,12 +1024,53 @@ def hybrid_pass_counts(n, lib_chunk, chunk):
     return sum(level - log_chunk for level in levels), len(levels)
 
 
+def ecoli_config(hybrid_sort=False):
+    return PipelineConfig(k=ECOLI["k"], m=ECOLI["m"], parity=False,
+                          abundance_cutoff=ECOLI["cutoff"], batch_reads=ECOLI["batch_reads"],
+                          max_read_len=ECOLI["max_read_len"], hybrid_sort=hybrid_sort)
+
+
+class NoClock:
+    """A phase clock that neither times nor synchronises."""
+
+    def lap(self, name):
+        pass
+
+
+def synchronising_calls(fn):
+    """(result of fn(), the synchronising CUDA calls torch reported while it
+    ran under set_sync_debug_mode("warn"), where in Python they came from)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    calls = [w for w in caught if "synchroniz" in str(w.message)]
+    return out, len(calls), sorted({f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in calls})
+
+
+def scan_read_backs(device, reads, n_batches):
+    """The synchronising CUDA calls of FastAssembler's scan phase over
+    `n_batches` batches of `reads` (the last one ragged, padded as the
+    pipeline pads it): ``_flat_fast_records`` with a phase clock that does not
+    synchronise.  Returns (calls, where from, windows counted, valid windows
+    in the records)."""
+    cfg = ecoli_config()
+    subset = reads[: (n_batches - 1) * cfg.batch_reads + cfg.batch_reads // 3]
+    asm = FastAssembler(cfg, device=device)
+    stats = PhaseStats()
+    (recs, _), calls, where = synchronising_calls(
+        lambda: asm._flat_fast_records(subset, stats, NoClock()))
+    return calls, where, stats.n_windows, int(recs.valid.sum())
+
+
 def run_ecoli(device, reads, *, hybrid_sort):
     """One FastAssembler.unitigs call on the ecoli read set, with the launch
     counts set to 0 just before it and read just after."""
-    cfg = PipelineConfig(k=ECOLI["k"], m=ECOLI["m"], parity=False,
-                         abundance_cutoff=ECOLI["cutoff"], batch_reads=ECOLI["batch_reads"],
-                         max_read_len=ECOLI["max_read_len"], hybrid_sort=hybrid_sort)
+    cfg = ecoli_config(hybrid_sort)
     asm = FastAssembler(cfg, device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -960,10 +1114,23 @@ def phase_full_e2e(device, coverage):
     if longest not in genome and dbg._rc_str(longest) not in genome:
         raise AssertionError("longest unitig is not a substring of the genome")
     t_check = time.perf_counter() - t0
+    # the scan phase reads back once, after its last batch, however many
+    # batches it has: one synchronising call over 2 batches and over 5.  The
+    # first measurement in a process is reported, not held: it also counts
+    # what torch synchronises once on its first use under the debug mode
+    read_backs = {}
+    for label, n_batches in (("first, 1", 1), (2, 2), (5, 5)):
+        calls, where, counted, valid = scan_read_backs(device, reads, n_batches)
+        read_backs[label] = {"synchronising_calls": calls, "from": where}
+        if counted != valid or (n_batches > 1 and calls != 1):
+            raise AssertionError(f"scan phase over {n_batches} batches: {calls} synchronising "
+                                 f"calls ({where}), {counted} windows counted of {valid}")
     emit("full_e2e", preset="ecoli", genome_len=p["genome_len"], coverage=p["coverage"],
          coverage_cut=p["coverage"] != ECOLI["coverage"], read_len=p["read_len"],
          read_generation_host_seconds=t_reads, longest_unitig=len(longest),
-         exactly_once=True, longest_in_genome=True, check_seconds=t_check, **fields)
+         exactly_once=True, longest_in_genome=True, check_seconds=t_check,
+         scan_synchronising_calls_by_batches=read_backs,
+         **fields)
     # the first batch of this run is what the scan kernel is timed on
     first = reads_io.batch_reads(reads[: cfg.batch_reads], cfg.max_read_len, cfg.batch_reads)[0]
     return dict(reads=reads, kept=kept, unitigs=unitigs, counters=counters(stats),
@@ -1085,7 +1252,10 @@ def phase_mergepath_entry_point(device, n_keys, real_keys):
     return runs["real"]["launches"]
 
 
-def timed_ms(fn, reps=9, warm=2):
+def timed_ms(fn, reps=9, warm=2, calls=1):
+    """Median ms of one fn() over `reps` event pairs.  With `calls` > 1 each
+    pair spans that many calls back to back, so that a kernel shorter than
+    its wrapper's host work is timed on the card and not on the host."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -1094,19 +1264,20 @@ def timed_ms(fn, reps=9, warm=2):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
-def turn_about(kernel, plain, *, kernel_reps=9, plain_reps=5, warm=2):
+def turn_about(kernel, plain, *, kernel_reps=9, plain_reps=5, warm=2, kernel_calls=1):
     """Median times in the order plain, kernel, kernel, plain; the smaller
     of each pair is reported."""
     plain_a = timed_ms(plain, reps=plain_reps, warm=warm)
-    kernel_a = timed_ms(kernel, reps=kernel_reps, warm=warm)
-    kernel_b = timed_ms(kernel, reps=kernel_reps, warm=warm)
+    kernel_a = timed_ms(kernel, reps=kernel_reps, warm=warm, calls=kernel_calls)
+    kernel_b = timed_ms(kernel, reps=kernel_reps, warm=warm, calls=kernel_calls)
     plain_b = timed_ms(plain, reps=plain_reps, warm=warm)
     return {"ms": min(kernel_a, kernel_b), "plain_ms": min(plain_a, plain_b),
             "kernel_ms_runs": [kernel_a, kernel_b], "plain_ms_runs": [plain_a, plain_b]}
@@ -1195,18 +1366,27 @@ def time_scan(device, batch, launches, tally):
     lengths = torch.from_numpy(batch.lengths).to(device)
     if tuple(codes.shape) != KERNEL_SHAPE:
         raise AssertionError(f"main-path batch is {tuple(codes.shape)}, not {KERNEL_SHAPE}")
+    # 20 launches an event pair: the wrapper's host work (checks, three
+    # allocations, the ctypes call) takes longer than the kernel
     times = turn_about(lambda: minimizer.fast_scan(codes, lengths, k=k, m=m),
-                       lambda: minimizer.fast_scan_plain(codes, lengths, k=k, m=m))
+                       lambda: minimizer.fast_scan_plain(codes, lengths, k=k, m=m),
+                       kernel_calls=20)
+    times["ms_one_call_an_event_pair"] = timed_ms(
+        lambda: minimizer.fast_scan(codes, lengths, k=k, m=m))
     # bound: each input read once, each output (mmer 4 B, kmer 8 B, valid
-    # 1 B per window slot) written once; operations as the kernel's loops
-    # need them for THIS batch: 5 per base of every m-mer position, and per
-    # window that exists 5 64-bit (= 10 32-bit) per base plus one min per
-    # m-mer position of the window
+    # 1 B per window slot) written once; operations the least the function
+    # needs for THIS batch, O(1) a window whatever k and m: a base packed
+    # into two bits (1); per m-mer position its 32 bits from two words and
+    # their reverse complement and the smaller one (12); one min per position
+    # and level of the log-step window minimum (log2(k - m + 1) levels); per
+    # window that exists its 64 bits, reverse complement, the smaller one
+    # and the window minimum (24)
     b_rows, max_len = codes.shape
     n_win, n_mpos = max_len - k + 1, max_len - m + 1
     n_valid = int((torch.arange(n_win, device=device)[None, :] + k <= lengths[:, None]).sum())
+    levels = (k - m + 1).bit_length() - 1
     n_bytes = b_rows * max_len + 4 * b_rows + 13 * b_rows * n_win
-    n_ops = b_rows * n_mpos * 5 * m + n_valid * (10 * k + (k - m + 1))
+    n_ops = b_rows * max_len + b_rows * n_mpos * (12 + levels) + n_valid * 24
     bound = bound_fields([(n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_ALU_OPS_PER_S * 1e3)])
     return {
         "name": "fast_scan", "route": "cuda",
@@ -1311,13 +1491,28 @@ def time_sort_kernels(device, tallies, hybrid_launches, entry_launches, n_keys):
     at = Tally()
     at.hold(bitonic_sort.finish(key, total, chunk=chunk),
             bitonic_sort.finish_plain(key, total, chunk=chunk))
+    times = turn_about(lambda: bitonic_sort.finish(key, total, chunk=chunk),
+                       lambda: bitonic_sort.finish_plain(key, total, chunk=chunk), plain_reps=3)
+    # what the sort gives finish at level == total: bitonic chunks, each of
+    # which it sorts ascending; there one library call computes the same
+    # function, the sort of every chunk (timed here, used nowhere in the port)
+    bitonic = bitonic_chunks(key, chunk)
+    library = torch.sort(bitonic.view(-1, chunk), dim=1).values.view(-1)
+    at.hold(bitonic_sort.finish(bitonic, total, chunk=chunk), library)
+    del library
+    threads, per_thread, groups, shared_bytes = bitonic_cuda.finish_shape(chunk)
     entries.append(sort_entry(
         "finish", "finish_kernel", "genome_assembly_tpu/ops/bitonic_pallas.py:117",
-        hybrid_launches["finish"], "hybrid_e2e", tallies["finish"], at,
-        turn_about(lambda: bitonic_sort.finish(key, total, chunk=chunk),
-                   lambda: bitonic_sort.finish_plain(key, total, chunk=chunk), plain_reps=3),
-        bound_fields([pass_bound(total, log_chunk)]), None, [total], chunk=chunk, size=total))
-    del key
+        hybrid_launches["finish"], "hybrid_e2e", tallies["finish"], at, times,
+        bound_fields([pass_bound(total, log_chunk)]),
+        timed_ms(lambda: torch.sort(bitonic.view(-1, chunk), dim=1), reps=5, warm=1), [total],
+        chunk=chunk, size=total, threads=threads, keys_per_thread=per_thread,
+        stage_groups=len(groups), shared_exchanges=len(groups) - 1, shared_bytes=shared_bytes,
+        library_call="torch.sort(x.view(-1, chunk), dim=1) on bitonic chunks",
+        ms_bitonic_input=timed_ms(lambda: bitonic_sort.finish(bitonic, total, chunk=chunk)),
+        ms_in_place=timed_ms(
+            lambda: bitonic_sort.finish(key, total, chunk=chunk, overwrite=True))))
+    del key, bitonic
 
     # the composed sorts, at the main path's key count
     flat = random_keys(gen, n_keys, device, 0.3)
@@ -1636,35 +1831,34 @@ def plain_network(key, first_unit, chunk):
 
 
 def phase_chunk_choice(device, n_keys):
-    """Which chunk size and block size the stage-by-stage shared-memory
-    kernel should default to: finish over the padded main-path key count for
-    chunk 2^12 .. 2^14 and 256 .. 1024 threads, and the hybrid sort of the main path's key count at each chunk
-    (default threads)."""
+    """What chunk size and keys a thread finish should default to: finish
+    over the padded main-path key count at level == total for chunk 2^12 ..
+    2^14 and 8, 16 and 32 keys a thread (where a block of chunk / keys
+    threads fits), there and back, and the hybrid sort of the main path's key
+    count at each chunk (default keys a thread)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(7)
     lib = bitonic_sort.DEFAULT_LIB_CHUNK
     flat = random_keys(gen, n_keys, device, 0.3)
     key = bitonic_sort._padded_copy(flat, lib)
     total = key.shape[0]
-    default_threads = bitonic_cuda.SHARED_THREADS
     grid, hybrid = [], []
-    try:
-        for chunk in (1 << 12, 1 << 13, 1 << 14):
-            for threads in (256, 512, 1024):
-                bitonic_cuda.SHARED_THREADS = threads
-                grid.append({
-                    "chunk": chunk, "threads": threads,
-                    "finish_ms": timed_ms(
-                        lambda: bitonic_sort.finish(key, total, chunk=chunk), reps=5)})
-    finally:
-        bitonic_cuda.SHARED_THREADS = default_threads
+    shapes = [(chunk, per_thread) for chunk in (1 << 12, 1 << 13, 1 << 14)
+              for per_thread in (8, 16, 32) if chunk // per_thread <= 1024]
+    for chunk, per_thread in shapes + shapes[::-1]:
+        with finish_keys_per_thread(per_thread):
+            threads, _, groups, shared_bytes = bitonic_cuda.finish_shape(chunk)
+            grid.append({
+                "chunk": chunk, "keys_per_thread": per_thread, "threads": threads,
+                "shared_exchanges": len(groups) - 1, "shared_bytes": shared_bytes,
+                "finish_ms": timed_ms(lambda: bitonic_sort.finish(key, total, chunk=chunk), reps=5)})
     order = (1 << 13, 1 << 14, 1 << 14, 1 << 13, 1 << 12)
     for chunk in order:
         hybrid.append({"chunk": chunk, "sort_keys_hybrid_ms": timed_ms(
             lambda: bitonic_sort.sort_keys_hybrid(flat, chunk=chunk), reps=3, warm=1)})
     emit("chunk_choice", n_keys=n_keys, padded_to=total, lib_chunk=lib,
-         default_chunk=bitonic_sort.DEFAULT_CHUNK, default_threads=default_threads,
-         passes=grid, hybrid=hybrid)
+         default_chunk=bitonic_sort.DEFAULT_CHUNK,
+         default_keys_per_thread=bitonic_cuda.FINISH_KEYS_PER_THREAD, passes=grid, hybrid=hybrid)
 
 
 def phase_rows_choice(device):
@@ -1711,37 +1905,121 @@ def phase_rows_choice(device):
          sort_rows=rows_grid, chunk_sort_by_last_level=by_level)
 
 
-def phase_local_merge_against(device, other_csrc):
-    """K4a of this tree beside the K4a of another copy of csrc/ (another
-    commit's, say ``git archive <commit> genome_assembly_tpu_torch/csrc``
-    unpacked somewhere), on one card in one process: on 2^28 keys in chunks of
-    2^14, from single keys and from runs of 2^10, in the order other, this,
-    this, other.  Every result is held against the library's sort of every
-    chunk.  The other copy must keep ``local_merge_launch``'s signature."""
-    this_lib = mergepath_cuda._library()
-    csrc_build.CSRC_DIR = pathlib.Path(other_csrc).resolve()
-    csrc_build._loaded.pop("mergepath")
-    mergepath_cuda._lib = None
-    libs = {"other": mergepath_cuda._library(), "this": this_lib}
+def load_libraries(csrc_dir):
+    """{stem: library} built from the sources in `csrc_dir`, beside this
+    tree's in the build directory (a library is named by its sources'
+    hash), with the argument types of the three launchers timed against
+    another commit's."""
+    before = csrc_build.CSRC_DIR, dict(csrc_build._loaded)
+    csrc_build.CSRC_DIR = pathlib.Path(csrc_dir).resolve()
+    csrc_build._loaded.clear()
+    try:
+        libs = {stem: csrc_build.load(stem) for stem in ("fast_scan", "bitonic", "mergepath")}
+    finally:
+        csrc_build.CSRC_DIR, loaded = before
+        csrc_build._loaded.clear()
+        csrc_build._loaded.update(loaded)
+    ptr, i32, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
+    text = (pathlib.Path(csrc_dir) / "fast_scan.cu").read_text()
+    # the scan's launcher took no `valid` output before the kernel wrote it
+    scan_writes_valid = "valid_out" in text.split("fast_scan_launch(", 1)[1].split(")", 1)[0]
+    libs["fast_scan"].fast_scan_launch.argtypes = (
+        [ptr] * (5 if scan_writes_valid else 4) + [i32] * 4 + [ptr])
+    libs["bitonic"].finish_launch.argtypes = [ptr, ptr, i64, i32, u64, i32, ptr]
+    libs["mergepath"].local_merge_launch.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr]
+    # the last int of finish_launch was the threads of a block before it was
+    # the keys a thread (the stage-by-stage kernel ran 1024 threads a block)
+    finish_per_thread = bitonic_cuda.finish_shape(bitonic_cuda.MAX_SHARED_KEYS)[1]
+    finish_last = (finish_per_thread if "finish_shared_launch_bytes"
+                   in (pathlib.Path(csrc_dir) / "bitonic.cu").read_text() else 1024)
+    return libs, scan_writes_valid, finish_last
+
+
+def phase_against(device, other_csrc):
+    """K1, K3c and K4a of this tree beside those of another copy of csrc/
+    (another commit's, say ``git archive <commit> genome_assembly_tpu_torch/csrc``
+    unpacked somewhere), on one card in one process, each launched through its
+    C launcher: K1 on the first batch of the ecoli reads, K3c on 2^28 keys at
+    level 2^28 in chunks of 2^14, K4a on 2^28 keys in chunks of 2^14 from
+    single keys and from runs of 2^10, in the order other, this, this, other.
+    Every result is held: K1's m-mers and keys (and `valid`, where the
+    launcher writes it) against fast_scan_plain, K3c against finish_plain, K4a
+    against the library's sort of every chunk."""
+    libs = {"other": load_libraries(other_csrc), "this": load_libraries(csrc_build.CSRC_DIR)}
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    t, runs = Tally(), []
+
+    def turns(kernel, launch, hold, reps=7, **fields):
+        for name in ("other", "this", "this", "other"):
+            if launch(name) != 0:
+                raise AssertionError(f"{kernel} of {name} csrc/: the launch failed")
+            hold(name)
+            runs.append({"kernel": kernel, "csrc": name, **fields,
+                         "ms": timed_ms(lambda: launch(name), reps=reps, warm=1)})
+
+    # K1
+    _, reads = coverage_reads(ECOLI["genome_len"], ECOLI["read_len"], ECOLI["coverage"], seed=0)
+    cfg = ecoli_config()
+    batch = reads_io.batch_reads(reads[: cfg.batch_reads], cfg.max_read_len, cfg.batch_reads)[0]
+    del reads
+    codes = torch.from_numpy(batch.codes).to(device)
+    lengths = torch.from_numpy(batch.lengths).to(device)
+    want = minimizer.fast_scan_plain(codes, lengths, k=cfg.k, m=cfg.m)
+    got = minimizer.WindowRecords(*(torch.empty_like(x) for x in want))
+    b_rows, max_len = codes.shape
+
+    def scan(name):
+        lib, writes_valid, _ = libs[name]
+        outs = [got.mmer.data_ptr(), got.kmer.data_ptr()] + [got.valid.data_ptr()] * writes_valid
+        return lib["fast_scan"].fast_scan_launch(codes.data_ptr(), lengths.data_ptr(), *outs,
+                                                 b_rows, max_len, cfg.k, cfg.m, stream())
+
+    def hold_scan(name):
+        got.valid.fill_(False)
+        scan(name)
+        t.hold(got.mmer, want.mmer)
+        t.hold(got.kmer, want.kmer)
+        if libs[name][1]:
+            t.hold(got.valid, want.valid)
+
+    turns("fast_scan", scan, hold_scan, reps=21, shape=list(codes.shape))
+    del codes, lengths, want, got
+
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
-    chunk = mergepath_cuda.MAX_CHUNK_KEYS
+    chunk = bitonic_cuda.MAX_SHARED_KEYS
     key = random_keys(gen, 1 << 28, device, 0.3)
+    out = torch.empty_like(key)
+
+    # K3c
+    n_chunks = key.shape[0] // chunk
+    want = bitonic_sort.finish_plain(key, key.shape[0], chunk=chunk)
+
+    def finish(name):
+        lib, _, last = libs[name]
+        return lib["bitonic"].finish_launch(key.data_ptr(), out.data_ptr(), n_chunks, chunk,
+                                            key.shape[0], last, stream())
+
+    turns("finish", finish, lambda name: t.hold(out, want), n_keys=key.shape[0],
+          size=key.shape[0], chunk=chunk)
+    del want
+
+    # K4a
     want = torch.sort(key.view(-1, chunk), dim=1).values.view(-1)
-    t, runs = Tally(), []
+    per_thread = mergepath_cuda.LOCAL_KEYS_PER_THREAD
     for base_run in (1, EARLIER_BASE_RUN):
         state = chunk_runs(key, base_run)
-        levels = merge_levels(base_run, chunk)
-        for name in ("other", "this", "this", "other"):
-            mergepath_cuda._lib = libs[name]
-            t.hold(mergepath_sort.local_merge(state, levels, chunk=chunk), want)
-            runs.append({"base_run": base_run, "csrc": name, "ms": timed_ms(
-                lambda: mergepath_sort.local_merge(state, levels, chunk=chunk), reps=7, warm=1)})
-    mergepath_cuda._lib = this_lib
-    emit("local_merge_against", other_csrc=str(other_csrc), n_keys=key.shape[0], chunk=chunk,
-         keys_per_thread=mergepath_cuda.LOCAL_KEYS_PER_THREAD, runs=runs, **t.report())
+
+        def local_merge(name):
+            return libs[name][0]["mergepath"].local_merge_launch(
+                state.data_ptr(), out.data_ptr(), n_chunks, chunk, base_run, chunk, per_thread,
+                stream())
+
+        turns("local_merge", local_merge, lambda name: t.hold(out, want), n_keys=key.shape[0],
+              chunk=chunk, base_run=base_run)
+    emit("against", other_csrc=str(other_csrc), runs=runs, **t.report())
     if t.mismatches:
-        raise AssertionError(f"local_merge_against: {t.mismatches} mismatches")
+        raise AssertionError(f"against: {t.mismatches} mismatches")
 
 
 def main() -> int:
@@ -1749,9 +2027,9 @@ def main() -> int:
     ap.add_argument("--coverage", type=int, default=ECOLI["coverage"],
                     help="coverage of the ecoli read set of full_e2e and hybrid_e2e "
                          "(the preset's is 50)")
-    ap.add_argument("--local-merge-against", metavar="DIR",
-                    help="only time local_merge of this tree against the one of the copy "
-                         "of genome_assembly_tpu_torch/csrc/ in DIR, in turns")
+    ap.add_argument("--against", metavar="DIR",
+                    help="only time fast_scan, finish and local_merge of this tree against "
+                         "those of the copy of genome_assembly_tpu_torch/csrc/ in DIR, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1760,8 +2038,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     smi = phase_env()
-    if args.local_merge_against:
-        phase_local_merge_against(device, args.local_merge_against)
+    if args.against:
+        phase_against(device, args.against)
         return 0
     phase_build()
     scan_tally = phase_kernel_check(device)
@@ -1772,10 +2050,7 @@ def main() -> int:
     hybrid_launches = phase_hybrid_e2e(device, full)
     n_keys = full["fields"]["window_slots"]
     first_batch, scan_launches = full["first_batch"], full["launches"]["fast_scan"]
-    ecoli_cfg = PipelineConfig(k=ECOLI["k"], m=ECOLI["m"], parity=False,
-                               batch_reads=ECOLI["batch_reads"],
-                               max_read_len=ECOLI["max_read_len"])
-    real_keys = scanned_keys(full["reads"], ecoli_cfg, device)
+    real_keys = scanned_keys(full["reads"], ecoli_config(), device)
     del full
     entry_launches = phase_sort_entry_points(device, n_keys)
     torch.cuda.empty_cache()

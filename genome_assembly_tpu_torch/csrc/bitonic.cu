@@ -20,9 +20,10 @@
 // int64 (every real key is < 2^62 and the padding is int64 max, so signed
 // order is the lane order) and the array is flat.
 //
-// The network.  A stage (d, size) compare-exchanges every pair (i, i + d); a
-// thread owns a PAIR: it reads both keys and writes the smaller and the
-// larger one back in the order the level asks for.  The direction of a pair
+// The network.  A stage (d, size) compare-exchanges every pair (i, i + d);
+// in big_ce_kernel a thread owns a PAIR: it reads both keys and writes the
+// smaller and the larger one back in the order the level asks for (in
+// finish_kernel a thread owns V keys, see there).  The direction of a pair
 // comes from the GLOBAL position of its lower key, up = (i & size) == 0, so
 // chunks compose into one network and at the last level (size == total) every
 // pair sorts ascending.  d and size are launch arguments: one compiled kernel
@@ -54,9 +55,12 @@
 // neighbouring keys; from d = 32 on a warp touches two runs of 256 contiguous
 // bytes) and can work in place, since a pair is owned by one thread.  The two
 // merge sorts wait for shared memory: a merge step is one dependent load at a
-// data-dependent bank, eight to ten rounds of them a key.  finish_kernel runs
-// log2(chunk) stages in shared memory with a block barrier after each:
-// shared-memory traffic and barriers.
+// data-dependent bank, eight to ten rounds of them a key.  finish_kernel
+// moves its 16 bytes a key too: it keeps the keys in registers for log2(V)
+// stages at a time (V keys a thread) and goes through shared memory only
+// between those groups, twice for a chunk of 2^14 keys at V = 32 (three
+// times at 16), where a stage-by-stage kernel reads and writes the chunk
+// there 14 times, each behind a block barrier.
 //
 // A difference of the card: a block has 227 KB of shared memory, so a chunk
 // is at most 2^14 keys (128 KB; 136 KB in the merge sort's skewed layout)
@@ -89,46 +93,6 @@ __device__ __forceinline__ void compare_exchange(sort_key& a, sort_key& b, bool 
   }
 }
 
-// One stage (distance d, merge level `size`) over `len` keys in shared
-// memory whose first key has global position `base`.  Pair p of the stage
-// is (i, i + d) with i = p with a zero bit inserted at d's position.
-__device__ __forceinline__ void shared_stage(sort_key* s, int len, int d,
-                                             position base, position size) {
-  for (int p = threadIdx.x; p < len / 2; p += blockDim.x) {
-    const int i = 2 * p - (p & (d - 1));
-    sort_key a = s[i];
-    sort_key b = s[i + d];
-    compare_exchange(a, b, ((base + static_cast<position>(i)) & size) == 0);
-    s[i] = a;
-    s[i + d] = b;
-  }
-  __syncthreads();
-}
-
-// The stages of merge level `size` that fit in `len` keys:
-// min(size, len) / 2 .. 1.
-__device__ __forceinline__ void shared_level(sort_key* s, int len,
-                                             position base, position size) {
-  int d = size / 2 < static_cast<position>(len / 2) ? static_cast<int>(size / 2) : len / 2;
-  for (; d >= 1; d >>= 1) {
-    shared_stage(s, len, d, base, size);
-  }
-}
-
-__device__ __forceinline__ void load_shared(sort_key* s, const sort_key* g, int len) {
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    s[i] = g[i];
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void store_shared(sort_key* g, const sort_key* s, int len) {
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    g[i] = s[i];
-  }
-  __syncthreads();  // the block's next row or chunk overwrites the shared keys
-}
-
 // `in` and `out` of every kernel may be the same buffer (never partly
 // overlapping ones): a row, a chunk or a pair is read and written by the
 // one block or thread that owns it.
@@ -150,15 +114,90 @@ chunk_sort_kernel(const sort_key* in, sort_key* out, unsigned long long n_keys, 
   sort_blocks<kSortKeysPerThread, true>(s, in, out, n_keys, 1, top);
 }
 
-__global__ void __launch_bounds__(1024)
+// The stages chunk/2 .. 1 of merge level `size` on every chunk, V keys a
+// thread, chunk / V threads a block, one chunk at a time.  The stages are
+// taken in groups of log2(V) stage bits, from the top: in a group a thread
+// holds the V keys whose positions differ in the group's bits and agree with
+// its thread index in all others, so the group's stages are compare-exchanges
+// between its own registers with no barrier.  The first group is loaded
+// straight from device memory (key t + j * chunk / V: coalesced across
+// threads), the last one holds the low bits, V consecutive keys a thread;
+// between two groups the keys go through shared memory in block_sort.cuh's
+// skewed layout, where neither layout meets a bank twice.  Stored straight
+// from registers, a thread's V consecutive keys make every store of a warp
+// touch 32 lines; on the card those stores, not the stages, were the cost of
+// this kernel's first form.  So the last group is stored through the warp's
+// own slice of the buffer, transposed: a warp barrier, no block barrier,
+// every store of a warp one contiguous run.
+// The last group may share bits with the one before; it runs only the stages
+// that are left.  The level's direction is one bit a chunk (size >= chunk):
+// a descending chunk is sorted as the complement of its keys (~x reverses
+// the order of int64 and is its own inverse), so every compare-exchange is
+// an ascending one.
+template <int V>
+__global__ void __launch_bounds__(BLOCK_SORT_MAX_THREADS(kMaxSharedKeys, V))
 finish_kernel(const sort_key* in, sort_key* out, long long n_chunks, int chunk,
               unsigned long long size) {
   extern __shared__ sort_key s[];
+  constexpr int G = V == 2 ? 1 : V == 4 ? 2 : V == 8 ? 3 : V == 16 ? 4 : 5;  // log2(V)
+  const int log_chunk = 31 - __clz(chunk);
+  const int t = threadIdx.x;
+  const int first = log_chunk - G;  // the first group: bits first .. log_chunk - 1
   for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x) {
     const position base = static_cast<position>(c) * chunk;
-    load_shared(s, in + base, chunk);
-    shared_level(s, chunk, base, size);
-    store_shared(out + base, s, chunk);
+    const sort_key flip = (base & size) == 0 ? 0 : ~0ll;
+    sort_key r[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) r[j] = in[base + t + (j << first)] ^ flip;
+    int lo = first;       // the group's lowest bit
+    int done = log_chunk;  // the stages of bits done .. log_chunk - 1 have run
+    while (true) {
+#pragma unroll
+      for (int b = G - 1; b >= 0; --b) {
+        if (lo + b < done) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            if ((j & (1 << b)) == 0) order(r[j], r[j | (1 << b)]);
+          }
+        }
+      }
+      done = lo;
+      if (lo == 0) break;
+      // to the next group's layout: key j of thread t lies at position
+      // (t's bits below lo) | j << lo | (t's other bits) << (lo + G)
+      const int next = lo > G ? lo - G : 0;
+      const int from = (t & ((1 << lo) - 1)) | ((t >> lo) << (lo + G));
+      const int to = (t & ((1 << next) - 1)) | ((t >> next) << (next + G));
+      __syncthreads();  // every thread has read what the buffer held before
+#pragma unroll
+      for (int j = 0; j < V; ++j) s[staged<V>(from | (j << lo))] = r[j];
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < V; ++j) r[j] = s[staged<V>(to | (j << next))];
+      lo = next;
+    }
+    if (first == 0) {  // one group: the chunk is this thread's, no buffer
+#pragma unroll
+      for (int j = 0; j < V; ++j) out[base + j] = r[j] ^ flip;
+      continue;
+    }
+    // the last group holds V consecutive keys a thread, a warp's lanes one
+    // run of lanes * V keys: it goes out through the warp's own slice of the
+    // buffer (the slice the warp read last, so no block barrier), transposed,
+    // so that each store of the warp is one contiguous run
+    const int lanes = blockDim.x < 32 ? blockDim.x : 32;
+    const unsigned mask = lanes == 32 ? 0xFFFFFFFFu : (1u << lanes) - 1;
+    const int lane = t & 31;
+    const int slice = (t - lane) * V;
+    __syncwarp(mask);
+#pragma unroll
+    for (int j = 0; j < V; ++j) s[staged<V>((t << G) | j)] = r[j];
+    __syncwarp(mask);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int i = slice + j * lanes + lane;
+      out[base + i] = s[staged<V>(i)] ^ flip;
+    }
   }
 }
 
@@ -177,21 +216,22 @@ big_ce_kernel(const sort_key* in, sort_key* out, unsigned long long n_pairs,
   }
 }
 
-// Grid, block and shared bytes of the stage-by-stage kernel over `units` chunks
-// of `len` keys; raises the kernel's dynamic shared-memory limit
-// when the keys need more than the 48 KB every kernel may use.
-template <typename Kernel>
-cudaError_t shared_config(Kernel kernel, long long units, int len, int threads,
-                          int* blocks, int* block_threads, size_t* bytes) {
-  if (units < 1 || len < 2 || len > kMaxSharedKeys || !is_pow2(len) ||
-      threads < 32 || threads > 1024 || threads % 32 != 0) {
-    return cudaErrorInvalidValue;
-  }
-  const int useful = len / 2 < 32 ? 32 : len / 2;  // one pair a thread at most
-  *block_threads = threads < useful ? threads : useful;
-  *blocks = units < kMaxBlocks ? static_cast<int>(units) : kMaxBlocks;
-  *bytes = static_cast<size_t>(len) * sizeof(sort_key);
-  return allow_shared(kernel, *bytes);
+// Bytes of shared memory finish_kernel<V> takes for a chunk: none where one
+// group holds all its stages, else the chunk in the skewed layout.
+inline size_t finish_shared_bytes(int chunk, int v) {
+  return chunk > v ? staged_bytes(chunk) : 0;
+}
+
+template <int V>
+cudaError_t launch_finish(const void* in, void* out, long long n_chunks, int chunk,
+                          unsigned long long size, cudaStream_t stream) {
+  const size_t bytes = finish_shared_bytes(chunk, V);
+  cudaError_t err = allow_shared(finish_kernel<V>, bytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = n_chunks < kMaxBlocks ? static_cast<int>(n_chunks) : kMaxBlocks;
+  finish_kernel<V><<<blocks, chunk / V, bytes, stream>>>(
+      static_cast<const sort_key*>(in), static_cast<sort_key*>(out), n_chunks, chunk, size);
+  return cudaGetLastError();
 }
 
 // One launch of a merge-sort kernel: runs of `top` keys (a power of two from
@@ -241,19 +281,35 @@ extern "C" int chunk_sort_launch(const void* in, void* out, unsigned long long n
                                             stream));
 }
 
+// The stages chunk/2 .. 1 of merge level `size` on every chunk.  per_thread:
+// keys a thread holds (a power of two from 2 to 32; a chunk shorter than that
+// takes one thread of `chunk` keys); the block has chunk / that threads.
 extern "C" int finish_launch(const void* in, void* out, long long n_chunks, int chunk,
-                             unsigned long long size, int threads, void* stream) {
-  if (!is_pow2(size) || size < static_cast<unsigned long long>(chunk)) {
+                             unsigned long long size, int per_thread, void* stream) {
+  if (n_chunks < 1 || chunk < 2 || chunk > kMaxSharedKeys || !is_pow2(chunk) || !is_pow2(size) ||
+      size < static_cast<unsigned long long>(chunk) || per_thread < 2 || per_thread > 32 ||
+      !is_pow2(per_thread)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int blocks, block_threads;
-  size_t bytes;
-  cudaError_t err = shared_config(finish_kernel, n_chunks, chunk, threads,
-                                  &blocks, &block_threads, &bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finish_kernel<<<blocks, block_threads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const sort_key*>(in), static_cast<sort_key*>(out), n_chunks, chunk, size);
-  return static_cast<int>(cudaGetLastError());
+  const int v = per_thread < chunk ? per_thread : chunk;
+  if (chunk / v > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (v) {
+    case 2: err = launch_finish<2>(in, out, n_chunks, chunk, size, st); break;
+    case 4: err = launch_finish<4>(in, out, n_chunks, chunk, size, st); break;
+    case 8: err = launch_finish<8>(in, out, n_chunks, chunk, size, st); break;
+    case 16: err = launch_finish<16>(in, out, n_chunks, chunk, size, st); break;
+    case 32: err = launch_finish<32>(in, out, n_chunks, chunk, size, st); break;
+    default: break;
+  }
+  return static_cast<int>(err);
+}
+
+// Shared bytes a launch of finish_kernel takes: what bitonic_cuda.finish_shape
+// must agree with.
+extern "C" long long finish_shared_launch_bytes(int chunk, int per_thread) {
+  return static_cast<long long>(finish_shared_bytes(chunk, per_thread < chunk ? per_thread : chunk));
 }
 
 extern "C" int big_ce_launch(const void* in, void* out, unsigned long long n,

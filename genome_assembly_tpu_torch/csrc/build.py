@@ -5,7 +5,10 @@ Every ``*.cu`` here has a plain C interface (no PyTorch headers), so one
 same time.  Libraries go to ``genome_assembly_tpu_torch/build/`` (not
 tracked by git), named by the hash of their source and of every header
 (``*.cuh``) of this directory, so an edited source or header is rebuilt and
-an unchanged one is reused.  They are loaded with ctypes.
+an unchanged one is reused.  They are loaded with ctypes.  What nvcc printed
+(ptxas's registers, shared memory and spills: every build asks for them) is
+kept beside each library as ``lib<stem>-<hash>.log`` and read back into
+``build_log`` when the library is reused.
 
 Nothing here runs at import: the first kernel launch calls ``load``.
 A failed build raises; there is no other route to the kernel's function.
@@ -31,8 +34,7 @@ NVCC_FLAGS = [
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
-# {source stem: what nvcc printed} for the sources compiled by this process
-# (with ``verbose`` that is ptxas's registers, shared memory and spills)
+# {source stem: what nvcc printed when it built the library in use}
 build_log: Dict[str, str] = {}
 
 
@@ -65,9 +67,15 @@ def _library_path(source: pathlib.Path) -> pathlib.Path:
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:12]}.so"
 
 
+def _log_path(library: pathlib.Path) -> pathlib.Path:
+    return library.with_suffix(".log")
+
+
 def build_all(verbose: bool = False) -> Dict[str, pathlib.Path]:
     """Compile every source that has no up-to-date library; one nvcc per
-    source, all started together.  Returns {source stem: library path}."""
+    source, all started together.  Fills ``build_log`` for every source,
+    built now or before; ``verbose`` prints what a build now printed.
+    Returns {source stem: library path}."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     targets = {s.stem: _library_path(s) for s in sources}
     todo = [s for s in sources if not targets[s.stem].exists()]
@@ -77,10 +85,7 @@ def build_all(verbose: bool = False) -> Dict[str, pathlib.Path]:
         procs = []
         for s in todo:
             tmp = targets[s.stem].with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [nvcc, *NVCC_FLAGS]
-            if verbose:
-                cmd += ["-Xptxas", "-v"]
-            cmd += ["-o", str(tmp), str(s)]
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(s)]
             procs.append(
                 (s, tmp, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -92,12 +97,18 @@ def build_all(verbose: bool = False) -> Dict[str, pathlib.Path]:
             if p.returncode != 0:
                 failures.append(f"{s.name}: nvcc exited {p.returncode}\n{out}")
                 continue
-            build_log[s.stem] = out
             if verbose and out:
                 print(out, flush=True)
+            log = _log_path(targets[s.stem])
+            log_tmp = log.with_suffix(f".tmp{os.getpid()}.log")
+            log_tmp.write_text(out)
+            os.replace(log_tmp, log)
             os.replace(tmp, targets[s.stem])
         if failures:
             raise RuntimeError("CUDA build failed:\n" + "\n".join(failures))
+    for stem, library in targets.items():
+        log = _log_path(library)
+        build_log[stem] = log.read_text() if log.exists() else ""
     return targets
 
 

@@ -176,6 +176,9 @@ class FastAssembler:
             batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
         clock.lap("batch")
         kmers, valids, rid_parts = [], [], []
+        # the valid windows are summed on the device and read back once,
+        # after the last batch: the scan loop itself never waits for the card
+        n_windows = torch.zeros((), dtype=torch.int64, device=self.device)
         for codes, lengths, rids in stream_io.feed_read_batches(batches, self.device):
             recs = self.counter.scan(codes, lengths)
             kmers.append(recs.kmer.reshape(-1))
@@ -184,7 +187,8 @@ class FastAssembler:
                 rid_parts.append(
                     rids[:, None].expand(recs.kmer.shape).reshape(-1)
                 )
-            stats.n_windows += int(recs.valid.sum())
+            n_windows += recs.valid.sum()
+        stats.n_windows += int(n_windows)
         # the main path throws the minimizers away (routing in the
         # multi-device path is what needs them)
         combined = minimizer.WindowRecords(

@@ -9,6 +9,7 @@ A wrapper writes into its caller's tensor only when told ``overwrite=True``
 by one per launch of that kernel and nowhere else, so a run can show which
 kernels it went through.
 
+``finish_cuda`` takes its block's shape from ``finish_shape``.
 ``chunk_sort_cuda`` takes the merge levels ``2, 4 .. s`` with ``s <= chunk``
 (``bitonic_sort.prefix_top``), which sort every run of ``s`` keys: one launch
 of the block merge sort.  Any other list is a partial network and no sort; no
@@ -29,13 +30,15 @@ from genome_assembly_tpu_torch.ops import bitonic_sort
 # launches of each kernel since import (or since a caller reset them)
 launch_count = {"sort_rows": 0, "chunk_sort": 0, "big_ce": 0, "finish": 0}
 
-# Threads of a block of the stage-by-stage shared-memory kernel ``finish``
-# (the launcher lowers it to one thread per pair for short chunks); the two
-# merge sorts take their threads from ``block_shape``.  A 2^14-key chunk leaves room for one block per SM, so the
-# block brings all the warps: ``finish`` over 2^28 keys took 4.3 ms with 1024
-# threads, 5.0 with 512, 7.0 with 256 (NVIDIA H100 80GB HBM3 at 700 W,
-# chip_smoke.py chunk_choice).
-SHARED_THREADS = 1024
+# Keys one thread of ``finish`` holds (a chunk shorter than that is one
+# thread's).  It runs log2 of it stages in registers between two trips
+# through shared memory; the block has chunk / FINISH_KEYS_PER_THREAD threads
+# (``finish_shape``).  ``finish`` over 2^28 keys at level 2^28, ms by keys a
+# thread 8 / 16 / 32 (H100 80GB HBM3 at 700 W, chip_smoke.py chunk_choice,
+# there and back): chunk 2^14 - / 2.06, 2.06 / 2.07, 2.03 (32: two exchanges
+# instead of three, 109 registers); 2^13 2.08, 2.03 / 1.82, 1.85 / 1.72,
+# 1.70; 2^12 1.74, 1.73 / 1.65, 1.64 / 1.65, 1.65.
+FINISH_KEYS_PER_THREAD = 32
 
 # Keys one block holds in shared memory (``bitonic_max_shared_keys()`` of
 # the library): the largest row of ``sort_rows`` and the largest chunk.
@@ -65,6 +68,22 @@ def block_shape(run: int) -> Tuple[int, int, int]:
     return block_keys, block_keys // KEYS_PER_THREAD, shared_bytes
 
 
+def finish_shape(chunk: int) -> Tuple[int, int, Tuple[Tuple[int, ...], ...], int]:
+    """(threads, keys a thread, groups of stage bits, shared bytes) of a
+    ``finish`` block for chunks of ``chunk`` keys (a power of two from 2 to
+    ``MAX_SHARED_KEYS``).  The stage of distance 2^b is named by its bit b.
+    The groups run from the top bit down, log2(keys a thread) bits each, the
+    last one the bits left at the bottom; the keys cross shared memory once
+    between two groups, in block_sort.cuh's skewed layout (room for one key
+    after every 16), and not at all where one group holds every stage."""
+    per_thread = min(FINISH_KEYS_PER_THREAD, chunk)
+    g = per_thread.bit_length() - 1
+    bits = list(range(chunk.bit_length() - 2, -1, -1))  # log2(chunk) - 1 .. 0
+    groups = tuple(tuple(bits[i:i + g]) for i in range(0, len(bits), g))
+    shared_bytes = (chunk + chunk // 16 + 1) * 8 if len(groups) > 1 else 0
+    return chunk // per_thread, per_thread, groups, shared_bytes
+
+
 _lib = None
 
 
@@ -78,6 +97,8 @@ def _library() -> ctypes.CDLL:
         lib.sort_rows_launch.argtypes = [ptr, ptr, i64, i32, i32, ptr]
         lib.chunk_sort_launch.argtypes = [ptr, ptr, u64, i32, i32, ptr]
         lib.finish_launch.argtypes = [ptr, ptr, i64, i32, u64, i32, ptr]
+        lib.finish_shared_launch_bytes.argtypes = [i32, i32]
+        lib.finish_shared_launch_bytes.restype = i64
         lib.big_ce_launch.argtypes = [ptr, ptr, u64, u64, u64, ptr]
         for fn in (lib.sort_rows_launch, lib.chunk_sort_launch, lib.finish_launch,
                    lib.big_ce_launch, lib.bitonic_max_shared_keys):
@@ -159,11 +180,12 @@ def big_ce_cuda(key: torch.Tensor, d: int, size: int, *,
 def finish_cuda(key: torch.Tensor, size: int, *, chunk: int,
                 overwrite: bool = False) -> torch.Tensor:
     """The stages chunk/2 .. 1 of merge level size, on flat contiguous CUDA
-    keys of a whole number of chunks."""
+    keys of a whole number of chunks; a block of ``finish_shape(chunk)``."""
     _check_on_card("finish_cuda", key)
     bitonic_sort.check_chunked(key, chunk)
     bitonic_sort.check_level(chunk, size)
     _check_fits("finish_cuda", chunk)
     n_chunks = key.shape[0] // chunk
+    per_thread = finish_shape(chunk)[1]
     return _launch("finish", key, overwrite, lambda lib, src, dst, stream:
-                   lib.finish_launch(src, dst, n_chunks, chunk, size, SHARED_THREADS, stream))
+                   lib.finish_launch(src, dst, n_chunks, chunk, size, per_thread, stream))

@@ -3,7 +3,7 @@
 Replaces the JAX package's ``ops/minimizer_pallas.py::fast_scan_pallas``.
 The wrapper checks what the kernel does not take and raises; it launches
 on torch's current stream, does not synchronise, and allocates only the
-outputs.  ``launch_count`` goes up by one per kernel launch and nowhere
+outputs, all three of which the kernel writes (``valid`` too).  ``launch_count`` goes up by one per kernel launch and nowhere
 else, so a run can show that it went through the kernel.
 
 The library is built and loaded at the first launch, never at import.
@@ -31,7 +31,7 @@ def _library() -> ctypes.CDLL:
         lib = build.load("fast_scan")
         lib.fast_scan_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
         lib.fast_scan_launch.restype = ctypes.c_int
@@ -75,14 +75,13 @@ def fast_scan_cuda(
     with torch.cuda.device(codes.device):
         mmer = torch.empty((batch, n_win), dtype=torch.int32, device=codes.device)
         kmer = torch.empty((batch, n_win), dtype=torch.int64, device=codes.device)
+        valid = torch.empty((batch, n_win), dtype=torch.bool, device=codes.device)
         err = lib.fast_scan_launch(
             codes.data_ptr(), lengths.data_ptr(), mmer.data_ptr(), kmer.data_ptr(),
-            batch, max_len, k, m,
+            valid.data_ptr(), batch, max_len, k, m,
             torch.cuda.current_stream().cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"fast_scan kernel launch failed: cudaError {err}")
         launch_count += 1
-        starts = torch.arange(n_win, device=codes.device)
-        valid = starts[None, :] + k <= lengths[:, None]
     return WindowRecords(mmer=mmer, kmer=kmer, valid=valid)

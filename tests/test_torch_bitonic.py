@@ -266,6 +266,98 @@ def test_dispatcher_sends_cpu_keys_to_the_plain_version_for_any_list(monkeypatch
 
 
 # --------------------------------------------------------------------------
+# finish on the card: the stages of a level in register groups
+# (``finish_shape``); the layout the kernel computes, modelled here, is the
+# same compare-exchanges as finish_plain in another order
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,cr,w,size", [
+    (512, 2, 8, 16),       # size == chunk: the direction alternates chunk by chunk
+    (512, 4, 8, 64),       # size > chunk
+    (2048, 8, 16, 256),
+    (2048, 8, 16, 1 << 30),
+])
+def test_finish_plain_matches_pallas_on_keys_in_no_bitonic_order(n, cr, w, size):
+    key = _keys(16, n)
+    chunk = cr * w
+    halves = key.reshape(-1, chunk // 2)
+    assert not all((np.diff(h) >= 0).all() or (np.diff(h) <= 0).all() for h in halves)
+    jhi, jlo = bp._run_finish(*_lanes2d(key, w), size, chunk_rows=cr, width=w, interpret=True)
+    got = bs.finish_plain(torch.from_numpy(key), size, chunk=chunk).numpy()
+    assert np.array_equal(got, _flat_key(jhi, jlo))
+
+
+@pytest.mark.parametrize("per_thread", [16, 32])
+@pytest.mark.parametrize("log_chunk", range(1, 15))
+def test_finish_shape_runs_every_stage_once_in_order(monkeypatch, per_thread, log_chunk):
+    monkeypatch.setattr(bc, "FINISH_KEYS_PER_THREAD", per_thread)
+    chunk = 1 << log_chunk
+    threads, keys, groups, shared_bytes = bc.finish_shape(chunk)
+    assert threads * keys == chunk and keys == min(per_thread, chunk)
+    assert 1 <= threads <= 1024
+    assert [b for group in groups for b in group] == list(range(log_chunk - 1, -1, -1))
+    g = keys.bit_length() - 1
+    assert all(len(group) == g for group in groups[:-1]) and 1 <= len(groups[-1]) <= g
+    assert len(groups) - 1 == -(-log_chunk // g) - 1  # shared-memory exchanges
+    assert shared_bytes <= _SHARED_BYTES_A_BLOCK
+    assert shared_bytes == (0 if len(groups) == 1 else (chunk + chunk // 16 + 1) * 8)
+
+
+def _finish_in_register_groups(key, size, chunk):
+    """finish as the kernel runs it: per group of stage bits, thread t holds
+    the keys at (t's bits below lo) | j << lo | (t's other bits) << (lo + g)
+    and compare-exchanges them among themselves; a descending chunk is sorted
+    as the complement of its keys."""
+    threads, per_thread, groups, _ = bc.finish_shape(chunk)
+    g = per_thread.bit_length() - 1
+    out = key.copy()
+    for base in range(0, key.shape[0], chunk):
+        x = out[base:base + chunk] ^ (0 if base & size == 0 else -1)
+        for group in groups:
+            lo = max(0, group[0] - g + 1)
+            held = []
+            for t in range(threads):
+                at = (t & ((1 << lo) - 1)) | ((t >> lo) << (lo + g))
+                idx = [at | (j << lo) for j in range(per_thread)]
+                held += idx
+                r = x[idx]
+                for b in group:
+                    for j in range(per_thread):
+                        if not j >> (b - lo) & 1:
+                            p = j | 1 << (b - lo)
+                            r[j], r[p] = min(r[j], r[p]), max(r[j], r[p])
+                x[idx] = r
+            assert sorted(held) == list(range(chunk))  # every key held by one thread once
+        out[base:base + chunk] = x ^ (0 if base & size == 0 else -1)
+    return out
+
+
+@pytest.mark.parametrize("per_thread", [16, 32])
+@pytest.mark.parametrize("chunk,size", [(2, 2), (8, 16), (16, 16), (32, 32), (64, 256),
+                                        (128, 128), (512, 1 << 40), (1024, 2048)])
+def test_register_groups_equal_the_stage_by_stage_network(monkeypatch, per_thread, chunk, size):
+    monkeypatch.setattr(bc, "FINISH_KEYS_PER_THREAD", per_thread)
+    key = _keys(17 + chunk, 5 * chunk)
+    want = bs.finish_plain(torch.from_numpy(key), size, chunk=chunk).numpy()
+    assert np.array_equal(_finish_in_register_groups(key, size, chunk), want)
+
+
+@pytest.mark.parametrize("call,exc", [
+    (lambda: bc.finish_cuda(_K_CPU, 16, chunk=8, threads=1024), TypeError),
+    (lambda: bc.finish_cuda(_K_CPU, 16, chunk=8), ValueError),
+    (lambda: bc.finish_cuda(_K_CPU, 16, 8), TypeError),
+    (lambda: bc.finish_cuda(_K_CPU.int(), 16, chunk=8), ValueError),
+])
+def test_finish_cuda_takes_no_threads_and_refuses_the_cpu(call, exc):
+    with pytest.raises(exc):
+        call()
+    assert set(bc.launch_count.values()) == {0} and not hasattr(bc, "SHARED_THREADS")
+
+
+_K_CPU = torch.zeros(64, dtype=torch.int64)
+
+
+# --------------------------------------------------------------------------
 # (b) the composed sorts, at the parameters of tests/test_pallas.py
 # --------------------------------------------------------------------------
 

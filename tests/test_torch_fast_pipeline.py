@@ -235,3 +235,35 @@ def test_host_io_copies_match_jax(tmp_path):
     assert (tmp_path / "w.txt").read_text() == "AC\nGT\n"
     with pytest.raises(ValueError):
         treads.batch_reads(["A" * 50], 48)
+
+
+@pytest.mark.parametrize("name,batch_reads", [("strand_invariance_k13", 28),
+                                              ("long_sequence_k15", 16)])
+def test_scan_counts_windows_with_one_read_back(monkeypatch, name, batch_reads):
+    """Several batches, the last one ragged and padded: ``n_windows`` equals
+    the JAX pipeline's count and the sum of ``valid`` over the records, and
+    the scan phase turns a tensor into a host int once, after its last batch."""
+    import torch
+
+    from genome_assembly_tpu_torch.models.pipeline import PhaseStats
+
+    reads, kw = _case(name)
+    kw = dict(kw, batch_reads=batch_reads)
+    cfg = TConfig(**kw)
+    batches = treads.batch_reads(reads, cfg.max_read_len, cfg.batch_reads)
+    assert len(batches) > 2 and len(batches[-1].codes) < cfg.batch_reads
+    _, wstats = JFast(JConfig(**kw)).unitigs(reads)
+    to_int = []
+    real = torch.Tensor.__int__
+    monkeypatch.setattr(torch.Tensor, "__int__", lambda t: (to_int.append(1), real(t))[1])
+
+    class Clock:
+        def lap(self, name):
+            pass
+
+    stats = PhaseStats()
+    recs, _ = TFast(cfg, device="cpu")._flat_fast_records(reads, stats, Clock())
+    assert len(to_int) == 1
+    monkeypatch.setattr(torch.Tensor, "__int__", real)
+    assert stats.n_windows == wstats.n_windows == int(recs.valid.sum())
+    assert stats.n_windows > 0

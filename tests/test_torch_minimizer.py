@@ -19,6 +19,7 @@ from genome_assembly_tpu.ops import minimizer as jmin
 from genome_assembly_tpu.ops.minimizer_pallas import fast_scan_pallas
 from genome_assembly_tpu_torch import convert
 from genome_assembly_tpu_torch.common import MMER_SENTINEL, SENTINEL
+from genome_assembly_tpu_torch.ops import encode
 from genome_assembly_tpu_torch.ops import minimizer as tmin
 
 
@@ -89,3 +90,48 @@ def test_fast_scan_rejects_bad_sizes(k, m, max_len):
     with pytest.raises(ValueError):
         tmin.fast_scan(torch.zeros((2, max_len), dtype=torch.uint8),
                        torch.zeros(2, dtype=torch.int32), k=k, m=m)
+
+
+def _batch_of(kind, batch, max_len, seed):
+    """Reads of a kind: "random" (lengths 0 .. L), "acgt" (ACGT repeated to
+    full length: a window of even k at an even start equals its reverse
+    complement), "empty" (every length 0)."""
+    if kind == "acgt":
+        codes = np.tile(np.arange(max_len, dtype=np.uint8) % 4, (batch, 1))
+        return codes, np.full(batch, max_len, np.int32)
+    codes, lengths = _batch(seed, batch, max_len, 0)
+    if kind == "empty":
+        return np.zeros_like(codes), np.zeros_like(lengths)
+    return codes, lengths
+
+
+@pytest.mark.parametrize("batch,max_len,k,m,kind", [
+    (16, 31, 31, 7, "random"), (16, 7, 7, 3, "random"),          # L == k
+    (16, 129, 31, 7, "random"), (16, 130, 21, 5, "random"),      # L % 4 == 1, 2, 3
+    (16, 131, 31, 7, "random"),
+    (16, 128, 31, 1, "random"), (16, 64, 5, 1, "random"),        # m == 1
+    (16, 128, 15, 15, "random"), (16, 100, 7, 7, "random"),      # k == m
+    (8, 128, 16, 5, "acgt"), (8, 128, 20, 7, "acgt"), (8, 130, 30, 15, "acgt"),
+    (8, 128, 31, 7, "empty"),
+])
+def test_fast_scan_at_the_cards_check_shapes_matches_jax_and_pallas(batch, max_len, k, m, kind):
+    """The shapes chip_smoke.py holds the kernel at against this plain
+    version: so that check is a check against the JAX package too."""
+    codes, lengths = _batch_of(kind, batch, max_len, batch + max_len + k)
+    got = tmin.fast_scan(torch.from_numpy(codes), torch.from_numpy(lengths), k=k, m=m)
+    _assert_same(jmin.fast_scan(jnp.asarray(codes), jnp.asarray(lengths), k=k, m=m), got)
+    _assert_same(fast_scan_pallas(jnp.asarray(codes), jnp.asarray(lengths), k=k, m=m,
+                                  block_rows=batch, interpret=True), got)
+    if kind == "acgt":
+        fwd, rc = encode.pack_kmers_both(torch.from_numpy(codes), k)
+        assert bool((fwd == rc).any()) and bool((got.kmer == fwd)[fwd == rc].all())
+    if kind == "empty":
+        assert not bool(got.valid.any()) and bool((got.kmer == SENTINEL).all())
+
+
+def test_fast_scan_of_the_longest_rows_matches_jax():
+    """L = 8192, the kernel's limit, at a small batch."""
+    codes, lengths = _batch(81, 2, 8192, 8000)
+    got = tmin.fast_scan(torch.from_numpy(codes), torch.from_numpy(lengths), k=31, m=7)
+    _assert_same(jmin.fast_scan(jnp.asarray(codes), jnp.asarray(lengths), k=31, m=7), got)
+    assert int(got.valid.sum()) == int((lengths - 31 + 1).clip(0).sum())

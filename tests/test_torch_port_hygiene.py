@@ -175,6 +175,13 @@ def test_every_cuda_source_has_a_binding_and_no_library_sort():
     bitonic = (csrc / "bitonic.cu").read_text()
     assert re.findall(r"^(\w+_kernel)\(", bitonic, flags=re.M) == [
         "sort_rows_kernel", "chunk_sort_kernel", "finish_kernel", "big_ce_kernel"]
+    scan = (csrc / "fast_scan.cu").read_text()
+    assert re.findall(r"^(\w+_kernel)\(", scan, flags=re.M) == ["fast_scan_kernel"]
+    # the scan kernel writes `valid` itself; finish takes keys a thread, not threads
+    assert "valid_out" in scan.split('extern "C" int fast_scan_launch(', 1)[1].split(")", 1)[0]
+    finish = bitonic.split('extern "C" int finish_launch(', 1)[1].split(")", 1)[0]
+    assert "per_thread" in finish and "threads" not in finish.replace("per_thread", "")
+    assert "SHARED_THREADS" not in (ops / "bitonic_cuda.py").read_text()
     # the three block merge sorts are one device routine, from the header
     for text, kernels in ((bitonic, ("sort_rows", "chunk_sort")), (merge, ("local_merge",))):
         for kernel in kernels:
@@ -354,3 +361,60 @@ def test_cli_drives_the_fast_path_on_the_cpu(tmp_path):
     on_card = subprocess.run(base, cwd=str(tmp_path), env=env,
                              capture_output=True, text=True, timeout=300)
     assert on_card.returncode != 0 and on_card.stdout == ""
+
+
+_FAKE_NVCC = """#!/bin/sh
+# stands in for nvcc: writes the -o file, prints a ptxas-like line, counts its calls
+out=""
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; fi
+  shift
+done
+echo "ptxas info    : Used 12 registers, 0 bytes smem" 
+printf 'library' > "$out"
+echo call >> "$(dirname "$0")/calls"
+"""
+
+
+def test_build_reuses_a_library_and_still_fills_the_build_log(tmp_path, monkeypatch):
+    """A second build_all (a second chip_smoke.py run in one checkout) runs
+    no compiler and still gives every source what nvcc printed when it built
+    the library, read back from the log kept beside it."""
+    from genome_assembly_tpu_torch.csrc import build
+
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "build_log", {})
+    stems = sorted(s.stem for s in build.CSRC_DIR.glob("*.cu"))
+
+    first = build.build_all()
+    calls = (nvcc.parent / "calls").read_text().split()
+    assert sorted(first) == stems and len(calls) == len(stems)
+    assert all(p.exists() and p.with_suffix(".log").exists() for p in first.values())
+    assert all("Used 12 registers" in build.build_log[stem] for stem in stems)
+
+    build.build_log.clear()
+    second = build.build_all(verbose=True)
+    assert second == first
+    assert (nvcc.parent / "calls").read_text().split() == calls  # nothing compiled again
+    assert sorted(build.build_log) == stems
+    assert all("Used 12 registers" in build.build_log[stem] for stem in stems)
+
+
+def test_chip_smoke_alone_names_the_missing_package(tmp_path):
+    """In a directory that holds chip_smoke.py and nothing else of the repo
+    the script fails, and says on stderr what it could not import."""
+    import shutil
+
+    shutil.copy(REPO_ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=str(tmp_path), env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert r.stdout == ""
+    assert "genome_assembly_tpu_torch" in r.stderr and str(tmp_path) in r.stderr
