@@ -9,7 +9,14 @@
 
 Builds the port's CUDA kernels from genome_assembly_tpu_torch/csrc/, holds
 each kernel against its plain tensor version on the card (bit-exact: all
-results on this path are integers), runs fast-mode in-core assembly end to
+results on this path are integers), runs parity mode in core through
+``ParityAssembler`` (the C++ replay engine built with g++ beside the kernels;
+no kernel of csrc/ is on that path): the input of the ``input_k6m3`` goldens
+byte for byte (``parity_golden``), BASELINE.md's big run on the card, clean
+and with non-ACGT bytes, its groups held against the CPU's (``parity_e2e``,
+``parity_dirty``), and
+the count of the largest in-core parity read set (``parity_scale``), then runs
+fast-mode in-core assembly end to
 end through ``FastAssembler.unitigs`` at a small size (card vs CPU) and at
 the size of the repo's ``ecoli`` scale preset -- once with the default
 library sort (``full_e2e``) and once with ``hybrid_sort=True``, the count
@@ -33,6 +40,7 @@ nvidia-smi gives them, the ``kernels`` report, and the verdict.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import json
@@ -41,6 +49,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import warnings
@@ -49,13 +58,17 @@ import numpy as np
 import torch
 
 try:
+    from genome_assembly_tpu_torch import convert
     from genome_assembly_tpu_torch.common import SENTINEL
     from genome_assembly_tpu_torch.config import PipelineConfig
     from genome_assembly_tpu_torch.csrc import build as csrc_build
     from genome_assembly_tpu_torch.io import datagen
     from genome_assembly_tpu_torch.io import reads as reads_io
     from genome_assembly_tpu_torch.io import stream as stream_io
-    from genome_assembly_tpu_torch.models.pipeline import FastAssembler, PhaseStats
+    from genome_assembly_tpu_torch.models.pipeline import (
+        FastAssembler, ParityAssembler, PhaseStats)
+    from genome_assembly_tpu_torch.native import build as native_build
+    from genome_assembly_tpu_torch.native import replay_native
     from genome_assembly_tpu_torch.ops import bitonic_cuda
     from genome_assembly_tpu_torch.ops import bitonic_sort
     from genome_assembly_tpu_torch.ops import count as count_ops
@@ -64,6 +77,8 @@ try:
     from genome_assembly_tpu_torch.ops import mergepath_sort
     from genome_assembly_tpu_torch.ops import minimizer
     from genome_assembly_tpu_torch.ops import minimizer_cuda
+    from genome_assembly_tpu_torch.parity import nonacgt
+    from genome_assembly_tpu_torch.parity import table as parity_table
 except ImportError as missing:
     # the run fails all the same; it says why instead of failing in silence
     sys.exit(f"chip_smoke: cannot import {missing.name} (looked for the package "
@@ -79,6 +94,15 @@ PEAK_ALU_OPS_PER_S = 67e12
 # The repo's `ecoli` scale preset (tools/run_scale.py), M as in bench.py.
 ECOLI = dict(genome_len=4_600_000, coverage=50, read_len=100, k=31, m=7,
              batch_reads=65536, max_read_len=128, cutoff=1)
+
+# Parity mode at the shape the reference itself was measured at (a 100 kb
+# genome at 50x, 100-bp lines, K=31, M=4; BASELINE.md's big run, which
+# tools/run_parity_soak.py reproduces), and its largest in-core read set by
+# the 20-bytes-a-slot threshold the JAX package uses: a 1 Mb genome at 50x.
+PARITY_E2E = dict(genome_len=100_000, coverage=50, read_len=100, seed=7,
+                  k=31, m=4, cutoff=1, max_read_len=128, batch_reads=16384)
+PARITY_SCALE = dict(PARITY_E2E, genome_len=1_000_000, batch_reads=65536)
+GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
 
 KERNEL_SHAPE = (65536, 128)
 # shapes the row sort is timed at: 2^26 keys (where it is driven too), and
@@ -178,7 +202,12 @@ def ptxas_report(log: str, kernels) -> dict:
 
 def phase_build():
     t0 = time.perf_counter()
-    libs = csrc_build.build_all(verbose=True)
+    # the parity replay engine (g++) builds while nvcc builds the kernels
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        engine = pool.submit(native_build.build)
+        libs = csrc_build.build_all(verbose=True)
+        engine_lib = engine.result()
+    replay_native._load()
     minimizer_cuda._library()
     lib = bitonic_cuda._library()
     mergepath_cuda._library()
@@ -207,6 +236,7 @@ def phase_build():
             raise AssertionError(f"finish_shape({chunk}) and finish_launch disagree on shared memory")
     emit("build", seconds=time.perf_counter() - t0,
          libraries=sorted(str(p.name) for p in libs.values()), ptxas=report,
+         replay_engine=engine_lib.name,
          kernels_with_spills=sorted(spills),
          scan_dynamic_shared_bytes_per_base=4.25, finish_dynamic_shared_bytes_per_key=8.5,
          merge_dynamic_shared_bytes_per_key=8.5,
@@ -1252,6 +1282,276 @@ def phase_mergepath_entry_point(device, n_keys, real_keys):
     return runs["real"]["launches"]
 
 
+# --------------------------------------------------------------------------
+# parity mode: no kernel of csrc/ is on its path (the JAX package has no
+# Pallas kernel there either); the phases hold the card against the
+# goldens and against the port's own CPU path
+# --------------------------------------------------------------------------
+
+def parity_config(p, batch_reads=None):
+    return PipelineConfig(k=p["k"], m=p["m"], abundance_cutoff=p["cutoff"],
+                          max_read_len=p["max_read_len"],
+                          batch_reads=batch_reads or p["batch_reads"])
+
+
+def fgets_read_ids(lines):
+    """The read ids the reference's loop makes of these lines: written to
+    a file and read back through the fgets(101) emulation (a 100-bp line
+    is a 99-bp read and an empty one)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "reads.txt"
+        datagen.write_reads(lines, str(path))
+        return reads_io.load_reads_parity(str(path))
+
+
+def dirtify(reads, seed):
+    """tools/run_parity_soak.py's corruption, kept here: ~5% of lines become
+    200-bp joins of read pairs (fgets splits them); ~1% of the result gets
+    a non-ACGT byte (N, a lowercase base, a lowercase run or a stray 'X')."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    i = 0
+    while i < len(reads):
+        if rng.random() < 0.05 and i + 1 < len(reads):
+            lines.append(reads[i] + reads[i + 1])
+            i += 2
+        else:
+            lines.append(reads[i])
+            i += 1
+    n_dirty = 0
+    for j in range(len(lines)):
+        if rng.random() >= 0.01:
+            continue
+        ln, pos = lines[j], int(rng.integers(0, len(lines[j])))
+        kind = int(rng.integers(0, 4))
+        if kind == 0:
+            ln = ln[:pos] + "N" + ln[pos + 1:]
+        elif kind == 1:
+            ln = ln[:pos] + ln[pos].lower() + ln[pos + 1:]
+        elif kind == 2:
+            end = min(len(ln), pos + 10)
+            ln = ln[:pos] + ln[pos:end].lower() + ln[end:]
+        else:
+            ln = ln[:pos] + "X" + ln[pos + 1:]
+        lines[j] = ln
+        n_dirty += 1
+    return lines, n_dirty
+
+
+def no_kernel_launched(phase):
+    launches = read_launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: the parity path launched a kernel: {launches}")
+
+
+def timed_assemble(asm, reads, **kw):
+    """One assemble() call on the card with the peak memory and the launch
+    counts set to 0 just before it; (output, stats, wall seconds, peak)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out, stats = asm.assemble(reads, **kw)
+    torch.cuda.synchronize()
+    return out, stats, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def phase_parity_golden(device):
+    """The rebuilt input of the input_k6m3 goldens through the card, both
+    engines, one batch and several: byte-exact goldens, 97 / 89 / 61."""
+    reads = reads_io.load_reads_parity(str(GOLDEN / "input.txt"))
+    unitigs = (GOLDEN / "input_k6m3_unitigs.txt").read_text()
+    verbose = (GOLDEN / "input_k6m3_verbose.txt").read_text()
+    post = {}
+    for line in (GOLDEN / "input_k6m3_postprune.txt").read_text().splitlines():
+        if line:
+            mmer, kmer, ids = line.split("\t")
+            post[(mmer, kmer)] = [int(x) for x in ids.split(",")] if ids else []
+    reset_launch_counts()
+    runs = []
+    for batch_reads in (None, 7):
+        cfg = PipelineConfig(k=6, m=3) if batch_reads is None else PipelineConfig(
+            k=6, m=3, batch_reads=batch_reads)
+        asm = ParityAssembler(cfg, device=device)
+        for engine in ("python", "native"):
+            lines, stats = asm.assemble(reads, engine=engine)
+            text, _ = asm.assemble(reads, engine=engine, verbose=True)
+            got = ("\n".join(lines) + "\n" == unitigs, text == verbose,
+                   (stats.entries_pre_prune, stats.entries_post_prune,
+                    stats.entries_post_extension) == (97, 89, 61))
+            runs.append(dict(batch_reads=cfg.batch_reads, engine=engine,
+                             unitigs_exact=got[0], verbose_exact=got[1], counts_97_89_61=got[2]))
+            if not all(got):
+                raise AssertionError(f"parity_golden: {runs[-1]}")
+        table = asm.pruned_table_dict(reads)
+        if table != post:
+            raise AssertionError("parity_golden: pruned_table_dict differs from the golden")
+    no_kernel_launched("parity_golden")
+    emit("parity_golden", reads=len(reads), runs=runs, postprune_exact=True)
+
+
+def host_tables_equal(a, b):
+    """Two HostTables, lane for lane and group for group."""
+    return (all(np.array_equal(x, y) for x, y in zip(a[:4], b[:4]))
+            and len(a.read_ids) == len(b.read_ids)
+            and np.array_equal(np.concatenate(a.read_ids), np.concatenate(b.read_ids)))
+
+
+def unpruned_host_table(asm, ids):
+    counted, _ = asm.counter.count_reads(ids)
+    return parity_table.extract_groups(counted, pruned=False)
+
+
+def phase_parity_e2e_and_dirty(device):
+    """BASELINE.md's big run (``parity_e2e``) and the same reads with
+    tools/run_parity_soak.py --dirty's corruption, in core (``parity_dirty``:
+    the non-ACGT exception path regroups the card's streams).  The card's
+    part of the path -- scan, count, merge and the read-back of the groups
+    -- is held against the port's CPU path array for array: the unpruned
+    host table of the clean reads, the regrouped string groups of the dirty
+    ones.  The replay after it is host C++ and a function of those groups
+    alone, so each read set is replayed once, through
+    ``assemble(engine="native")`` on the card: as unitig lines, and the
+    clean reads also as verbose text.  The clean line run is timed alone;
+    the other runs go side by side (the replay, a C++ call, lets go of the
+    GIL)."""
+    p = PARITY_E2E
+    t0 = time.perf_counter()
+    _, reads, _ = datagen.generate_coverage_reads(
+        genome_len=p["genome_len"], read_len=p["read_len"], coverage=p["coverage"],
+        seed=p["seed"])
+    ids = fgets_read_ids(reads)
+    dirty_lines, n_dirty = dirtify(reads, p["seed"])
+    dirty_ids = fgets_read_ids(dirty_lines)
+    t_reads = time.perf_counter() - t0
+    cfg = parity_config(p)
+    card, cpu = ParityAssembler(cfg, device=device), ParityAssembler(cfg, device="cpu")
+    if card._needs_outofcore(dirty_ids):
+        raise AssertionError("parity_dirty: the read set would go out of core")
+    lines, stats, wall, peak = timed_assemble(card, ids, engine="native")
+    no_kernel_launched("parity_e2e")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+        runs = {
+            "verbose": pool.submit(card.assemble, ids, engine="native", verbose=True),
+            "dirty_lines": pool.submit(card.assemble, dirty_ids, engine="native"),
+            "card_table": pool.submit(unpruned_host_table, card, ids),
+            "cpu_table": pool.submit(unpruned_host_table, cpu, ids),
+            "card_groups": pool.submit(card._nonacgt_groups, dirty_ids),
+            "cpu_groups": pool.submit(cpu._nonacgt_groups, dirty_ids),
+        }
+        runs = {name: run.result() for name, run in runs.items()}
+    t_side = time.perf_counter() - t0
+    side_peak = torch.cuda.max_memory_allocated()
+    no_kernel_launched("parity_dirty")
+    text, _ = runs["verbose"]
+    card_table, cpu_table = runs["card_table"], runs["cpu_table"]
+    same = (host_tables_equal(card_table, cpu_table),
+            len(card_table.mmer) == stats.entries_pre_prune)
+    emit("parity_e2e", genome_len=p["genome_len"], coverage=p["coverage"], lines=len(reads),
+         read_ids=len(ids), k=cfg.k, m=cfg.m, batch_reads=cfg.batch_reads,
+         n_batches=-(-len(ids) // cfg.batch_reads), read_generation_host_seconds=t_reads,
+         host_table_equal_cpu=same[0], groups_equal_entries_pre_prune=same[1],
+         unitig_lines=len(lines), verbose_bytes=len(text), side_by_side_runs_seconds=t_side,
+         phase_seconds=dict(stats.wall_s), assemble_wall_seconds=wall,
+         max_memory_allocated=peak,
+         records_per_s_scan_count=stats.n_windows
+         / (stats.wall_s["scan"] + stats.wall_s["count"]), **counters(stats))
+    if not all(same) or not lines or not text:
+        raise AssertionError(f"parity_e2e: card and CPU differ {same}")
+    # a corrupted window occurs once and is pruned, so raw bytes rarely
+    # reach a unitig; what the exception path needs is dirty reads
+    d_lines, d_stats = runs["dirty_lines"]
+    (card_groups, card_stats, _), (cpu_groups, cpu_stats, _) = (
+        runs["card_groups"], runs["cpu_groups"])
+    n_dirty_ids = len(nonacgt.dirty_read_ids(dirty_ids))
+    same = (card_groups == cpu_groups, counters(card_stats) == counters(cpu_stats),
+            counters(d_stats) == dict(counters(card_stats), entries_post_extension=len(d_lines)))
+    emit("parity_dirty", lines=len(dirty_lines), dirty_lines=n_dirty, read_ids=len(dirty_ids),
+         dirty_read_ids=n_dirty_ids, longest_read=max(map(len, dirty_ids)),
+         string_groups=len(card_groups), groups_equal_cpu=same[0],
+         counters_equal_cpu=same[1], unitig_lines=len(d_lines),
+         unitigs_with_raw_bytes=sum(not frozenset("ACGT").issuperset(u) for u in d_lines),
+         ran_side_by_side=True, phase_seconds=dict(d_stats.wall_s),
+         max_memory_allocated_side_by_side=side_peak, **counters(d_stats))
+    if not all(same) or not n_dirty_ids or not d_lines:
+        raise AssertionError(f"parity_dirty: card and CPU differ {same}, "
+                             f"{n_dirty_ids} dirty reads")
+
+
+def phase_parity_scale(device):
+    """The largest in-core parity read set: count and extract on the card,
+    the count's invariants held, the first batch's scan equal to the CPU's.
+    The replay of this many entries is left out: it takes longer than this
+    script's whole time limit (parity_replay_scaling.py times it)."""
+    p = PARITY_SCALE
+    t0 = time.perf_counter()
+    _, reads, _ = datagen.generate_coverage_reads(
+        genome_len=p["genome_len"], read_len=p["read_len"], coverage=p["coverage"],
+        seed=p["seed"])
+    ids = fgets_read_ids(reads)
+    t_reads = time.perf_counter() - t0
+    cfg = parity_config(p)
+    asm = ParityAssembler(cfg, device=device)
+    n_batches = -(-len(ids) // cfg.batch_reads)
+    slots = n_batches * cfg.batch_reads * cfg.windows_per_read
+    if asm._needs_outofcore(ids):
+        raise AssertionError(f"parity_scale: {slots} slots would go out of core")
+    host_windows = sum(max(0, len(r) - cfg.k + 1) for r in ids)
+    # the first batch's scan on the card and on the CPU
+    first = reads_io.batch_reads(ids[: cfg.batch_reads], cfg.max_read_len, parity_chars=True)[0]
+    codes, lengths, _ = convert.read_batch_to_torch(first)
+    on_card = minimizer.parity_scan(codes.to(device), lengths.to(device), k=cfg.k, m=cfg.m)
+    on_cpu = minimizer.parity_scan(codes, lengths, k=cfg.k, m=cfg.m)
+    scan_equal = all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu))
+    del on_card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    counted, stats = asm.counter.count_reads(ids)
+    clock_t = time.perf_counter()
+    valid = counted.valid
+    starts = counted.group_start & valid
+    occurrences = int(counted.count[starts].sum())
+    mm, km, stream = counted.mmer[valid], counted.kmer[valid], counted.stream_idx[valid]
+    gs = counted.group_start[valid]
+    same_key = (mm[1:] == mm[:-1]) & (km[1:] == km[:-1])
+    ascending = (mm[1:] > mm[:-1]) | ((mm[1:] == mm[:-1]) & (km[1:] >= km[:-1]))
+    head_mm, head_km = mm[gs], km[gs]
+    strictly = (head_mm[1:] > head_mm[:-1]) | (
+        (head_mm[1:] == head_mm[:-1]) & (head_km[1:] > head_km[:-1]))
+    invariants = dict(
+        ascending=bool(ascending.all()), group_heads_strictly_ascending=bool(strictly.all()),
+        heads_where_keys_change=bool(torch.equal(gs[1:], ~same_key)),
+        streams_ascending_in_groups=bool((stream[1:][same_key] > stream[:-1][same_key]).all()))
+    del mm, km, stream, gs, same_key, ascending, head_mm, head_km, strictly
+    t_check = time.perf_counter() - clock_t
+    clock_t = time.perf_counter()
+    host = parity_table.extract_groups(counted, pruned=False)
+    del counted, valid, starts
+    t_extract = time.perf_counter() - clock_t
+    peak = torch.cuda.max_memory_allocated()
+    no_kernel_launched("parity_scale")
+    stats.wall_s["extract"] = t_extract
+    ok = dict(scan_first_batch_equal_cpu=scan_equal,
+              occurrences_equal_host_windows=occurrences == host_windows == stats.n_windows,
+              groups_extracted=len(host.mmer) == stats.entries_pre_prune, **invariants)
+    emit("parity_scale", genome_len=p["genome_len"], coverage=p["coverage"], lines=len(reads),
+         read_ids=len(ids), k=cfg.k, m=cfg.m, batch_reads=cfg.batch_reads, n_batches=n_batches,
+         window_slots=slots, record_bytes_at_20_per_slot=slots * 20,
+         outofcore_bytes=cfg.outofcore_bytes, read_generation_host_seconds=t_reads,
+         host_windows=host_windows, occurrences=occurrences, replay="not run: see parity_replay_scaling.py",
+         check_seconds=t_check, checks=ok,
+         phase_seconds=dict(stats.wall_s), max_memory_allocated=peak,
+         records_per_s_scan_count=stats.n_windows
+         / (stats.wall_s["scan"] + stats.wall_s["count"]), **counters(stats))
+    if not all(ok.values()):
+        raise AssertionError(f"parity_scale: {ok}")
+    torch.cuda.empty_cache()
+
+
 def timed_ms(fn, reps=9, warm=2, calls=1):
     """Median ms of one fn() over `reps` event pairs.  With `calls` > 1 each
     pair spans that many calls back to back, so that a kernel shorter than
@@ -2044,6 +2344,9 @@ def main() -> int:
     phase_build()
     scan_tally = phase_kernel_check(device)
     phase_small_e2e(device)
+    phase_parity_golden(device)
+    phase_parity_e2e_and_dirty(device)
+    phase_parity_scale(device)
     full = phase_full_e2e(device, args.coverage)
     tallies = phase_sort_check(device)
     tallies.update(phase_merge_check(device))

@@ -1,12 +1,16 @@
-"""Command line of the port: ``assemble --mode fast`` and ``generate``.
+"""Command line of the port: ``assemble`` (parity and fast mode) and
+``generate``.
 
+  python -m genome_assembly_tpu_torch assemble reads.txt --k 6 --m 3 \\
+      [--verbose-output] [--cpu]                    # parity mode (default)
   python -m genome_assembly_tpu_torch generate --genome-len 3000 --coverage 8 \\
       --read-len 64 --seed 5 --with-reverse --out r.txt
   python -m genome_assembly_tpu_torch assemble r.txt --mode fast --k 21 --m 7 \\
       [--cpu] [--hybrid-sort]
 
 ``assemble`` runs on the card unless ``--cpu`` is given.  The other
-subcommands and options of the JAX package's CLI are not ported yet.
+subcommands and options of the JAX package's CLI (``count``, ``plot``,
+``bench-scaling``, ``--metrics``, ``--trace``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,9 +27,10 @@ def _add_pipeline_args(ap: argparse.ArgumentParser) -> None:
         "--mode",
         choices=["parity", "fast"],
         default="parity",
-        help="parity: bit-exact reference replication (not ported yet); "
-        "fast: canonical path",
+        help="parity: bit-exact reference replication; fast: canonical path",
     )
+    ap.add_argument("--read-length", type=int, default=101,
+                    help="parity-mode fgets buffer size (reference READ_LENGTH)")
     ap.add_argument("--max-read-len", type=int, default=128)
     ap.add_argument("--batch-reads", type=int, default=16384)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
@@ -40,8 +45,8 @@ def _add_pipeline_args(ap: argparse.ArgumentParser) -> None:
         "--outofcore-gb",
         type=float,
         default=3.0,
-        help="fast mode: record gigabytes above which counting would go "
-        "out of core (that path is not ported yet and raises)",
+        help="record gigabytes above which counting would go out of core "
+        "(that path is not ported yet and raises)",
     )
 
 
@@ -52,6 +57,7 @@ def _make_config(args):
         k=args.k,
         m=args.m,
         abundance_cutoff=args.cutoff,
+        read_length=args.read_length,
         parity=args.mode == "parity",
         batch_reads=args.batch_reads,
         max_read_len=args.max_read_len,
@@ -62,14 +68,21 @@ def _make_config(args):
 
 def cmd_assemble(args) -> int:
     from genome_assembly_tpu_torch.io import reads as reads_io
-    from genome_assembly_tpu_torch.models.pipeline import FastAssembler
+    from genome_assembly_tpu_torch.models.pipeline import FastAssembler, ParityAssembler
 
     cfg = _make_config(args)
+    device = "cpu" if args.cpu else "cuda"
     if cfg.parity:
-        raise NotImplementedError(
-            "parity mode is not ported yet; pass --mode fast"
-        )
-    asm = FastAssembler(cfg, device="cpu" if args.cpu else "cuda")
+        asm = ParityAssembler(cfg, device=device)
+        reads = asm.load(args.reads_file)
+        if args.verbose_output:
+            text, _ = asm.assemble(reads, verbose=True)
+            sys.stdout.write(text)
+        else:
+            lines, _ = asm.assemble(reads)
+            sys.stdout.write("\n".join(lines) + ("\n" if lines else ""))
+        return 0
+    asm = FastAssembler(cfg, device=device)
     if args.fasta:
         seqs = reads_io.load_fasta(args.reads_file)
         if args.coverage:
@@ -127,11 +140,13 @@ def main(argv=None) -> int:
 
     a = sub.add_parser("assemble", help="full pipeline -> unitigs on stdout")
     a.add_argument("reads_file")
+    a.add_argument("--verbose-output", action="store_true",
+                   help="parity mode: print_kmer_read_ids format")
     a.add_argument("--fasta", action="store_true",
-                   help="treat input as FASTA (multi-line records, long "
-                        "sequences chunked with k-1 overlap)")
+                   help="fast mode: treat input as FASTA (multi-line records, "
+                        "long sequences chunked with k-1 overlap)")
     a.add_argument("--coverage", action="store_true",
-                   help="emit TSV unitig<TAB>n_kmers<TAB>mean_cov "
+                   help="fast mode: emit TSV unitig<TAB>n_kmers<TAB>mean_cov "
                         "(per-unitig mean k-mer occurrence count)")
     _add_pipeline_args(a)
     a.set_defaults(fn=cmd_assemble)

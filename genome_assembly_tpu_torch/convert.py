@@ -1,7 +1,9 @@
 """Carry data between the JAX package's conventions and this package's.
 
 There are no weights in this system; what crosses between the two
-packages is read batches, window records, key tables and graphs.  The JAX
+packages is read batches, window records, key tables (fast mode's
+``KeyCounts``, parity mode's ``CountedTable`` and ``HostTable``) and
+graphs.  The JAX
 package holds a k-mer as two uint32 lanes ``(hi, lo)`` with the all-ones
 pair as padding sentinel, m-mers as uint32, counts and state ids as
 32-bit; this package holds one int64 key ``(hi << 32) | lo`` with int64
@@ -22,9 +24,10 @@ import torch
 
 from genome_assembly_tpu_torch.common import MMER_SENTINEL, SENTINEL
 from genome_assembly_tpu_torch.io.reads import ReadBatch
-from genome_assembly_tpu_torch.ops.count import KeyCounts
+from genome_assembly_tpu_torch.ops.count import CountedTable, KeyCounts
 from genome_assembly_tpu_torch.ops.dbg import CompactedGraph
 from genome_assembly_tpu_torch.ops.minimizer import WindowRecords
+from genome_assembly_tpu_torch.parity.table import HostTable
 
 LANE_SENTINEL = np.uint32(0xFFFFFFFF)
 
@@ -135,4 +138,66 @@ def graph_to_int32(graph: CompactedGraph):
         _np(graph.head).astype(np.int32),
         _np(graph.rank).astype(np.int32),
         _np(graph.is_cycle).astype(bool),
+    )
+
+
+def counted_table_from_lanes(
+    mmer, kmer_hi, kmer_lo, read_id, stream_idx, valid, group_start, count, keep
+) -> CountedTable:
+    """JAX ``CountedTable`` fields (numpy) -> this package's.  Rows that
+    are not valid get MMER_SENTINEL / SENTINEL (the JAX table leaves the
+    k-mer lanes of its invalid tail as the padding packs them)."""
+    valid = _np(valid).astype(bool)
+    mm = np.where(valid, _np(mmer).astype(np.int64), MMER_SENTINEL).astype(np.int32)
+    key = np.where(valid, lanes_to_key(kmer_hi, kmer_lo), np.int64(SENTINEL))
+    return CountedTable(
+        mmer=torch.from_numpy(mm),
+        kmer=torch.from_numpy(key),
+        read_id=torch.from_numpy(_np(read_id).astype(np.int64)),
+        stream_idx=torch.from_numpy(_np(stream_idx).astype(np.int64)),
+        valid=torch.from_numpy(valid),
+        group_start=torch.from_numpy(_np(group_start).astype(bool)),
+        count=torch.from_numpy(_np(count).astype(np.int64)),
+        keep=torch.from_numpy(_np(keep).astype(bool)),
+    )
+
+
+def counted_table_to_lanes(ct: CountedTable):
+    """``CountedTable`` -> (mmer, kmer_hi, kmer_lo, read_id, stream_idx,
+    valid, group_start, count, keep) numpy arrays in the JAX package's
+    types (uint32 lanes, int32 count); sentinels mapped to all-ones."""
+    mm = _np(ct.mmer).astype(np.int64)
+    mmer = np.where(mm == MMER_SENTINEL, np.int64(LANE_SENTINEL), mm).astype(np.uint32)
+    hi, lo = key_to_lanes(ct.kmer)
+    return (
+        mmer, hi, lo,
+        _np(ct.read_id).astype(np.uint32),
+        _np(ct.stream_idx).astype(np.uint32),
+        _np(ct.valid).astype(bool),
+        _np(ct.group_start).astype(bool),
+        _np(ct.count).astype(np.int32),
+        _np(ct.keep).astype(bool),
+    )
+
+
+def host_table_from_lanes(mmer, kmer_hi, kmer_lo, count, first_seen, read_ids) -> HostTable:
+    """JAX ``HostTable`` fields -> this package's (one int64 k-mer key)."""
+    return HostTable(
+        mmer=_np(mmer).astype(np.uint32),
+        kmer=lanes_to_key(kmer_hi, kmer_lo),
+        count=_np(count).astype(np.int32),
+        first_seen=_np(first_seen).astype(np.uint32),
+        read_ids=[_np(r).astype(np.uint32) for r in read_ids],
+    )
+
+
+def host_table_to_lanes(host: HostTable):
+    """``HostTable`` -> (mmer, kmer_hi, kmer_lo, count, first_seen,
+    read_ids), the fields of the JAX package's ``HostTable`` in order."""
+    hi, lo = key_to_lanes(host.kmer)
+    return (
+        _np(host.mmer).astype(np.uint32), hi, lo,
+        _np(host.count).astype(np.int32),
+        _np(host.first_seen).astype(np.uint32),
+        [_np(r).astype(np.uint32) for r in host.read_ids],
     )

@@ -1,17 +1,50 @@
 """Read loading and batching (host only, numpy).
 
-The fast-mode half of the JAX package's ``io/reads.py``.  The parity-mode
-loaders (``fgets`` emulation, ACGT validation) come with the parity slice.
+Parity mode reproduces the reference driver's input handling exactly:
+``fgets(read, READ_LENGTH=101, file)`` reads at most 100 characters per
+call, and the driver then chops the final character of whatever it got
+(assuming it was the newline).  So a 100-bp line becomes a 99-bp read
+(its last base chopped) and an empty read (the newline left unread), each
+consuming a read id of its own.  Fast mode reads one sequence per line.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import Iterator, List, Sequence
 
 import numpy as np
 
 from genome_assembly_tpu_torch.ops import encode
+
+_ACGT = frozenset("ACGT")
+
+
+def fgets_chunks(data: bytes, buffer_size: int) -> Iterator[str]:
+    """Yield the successive strings fgets(buf, buffer_size) would return.
+
+    Each chunk is at most ``buffer_size - 1`` characters and ends either at a
+    newline (inclusive) or at the character limit.
+    """
+    limit = buffer_size - 1
+    pos = 0
+    n = len(data)
+    while pos < n:
+        nl = data.find(b"\n", pos, pos + limit)
+        end = nl + 1 if nl != -1 else min(pos + limit, n)
+        yield data[pos:end].decode("latin-1")
+        pos = end
+
+
+def load_reads_parity(path: str, read_length: int = 101) -> List[str]:
+    """Load reads the way the reference ``main`` does.
+
+    Returns one string per consumed read id, including empty reads from
+    leftover newlines; each chunk has its final character chopped.
+    """
+    with open(path, "rb") as f:
+        data = f.read()
+    return [chunk[:-1] for chunk in fgets_chunks(data, read_length)]
 
 
 def load_reads_fast(path: str) -> List[str]:
@@ -47,6 +80,24 @@ def load_fasta(path: str) -> List[str]:
     if cur:
         out.append("".join(cur))
     return out
+
+
+def validate_acgt(reads: Sequence[str]) -> None:
+    """Raise unless every read is pure uppercase ACGT.
+
+    The reference scores a non-ACGT character as 'A' but prints it
+    verbatim where the k-mer is not complemented, which the 2-bit packed
+    tables cannot carry; paths that cannot take the exception route
+    (``parity/nonacgt.py``) reject such reads instead of mismatching.
+    """
+    for i, r in enumerate(reads):
+        if not _ACGT.issuperset(r):
+            bad = sorted(set(r) - _ACGT)
+            raise ValueError(
+                f"parity mode requires ACGT-only reads; read {i} contains "
+                f"{bad} (the reference would score these as 'A' but print "
+                "them verbatim, which 2-bit packing cannot represent)"
+            )
 
 
 @dataclasses.dataclass

@@ -1,10 +1,18 @@
-"""End-to-end assembly pipeline, fast mode, in core, one device.
+"""End-to-end assembly pipelines, in core, one device.
 
-ingest (host) -> scan -> count -> prune -> links -> pointer jump ->
-materialize (host).  Every entry point takes ``device`` and defaults to
-``"cuda"``: asked for a card on a machine without one it raises, it does
-not carry on on the CPU.  The out-of-core and multi-device branches of
-the JAX package are not ported yet and raise ``NotImplementedError``.
+Fast mode (``FastAssembler``): ingest (host) -> canonical scan -> count ->
+prune -> links -> pointer jump -> materialize (host).
+
+Parity mode (``ParityAssembler``): ingest with the reference's ``fgets``
+quirks (host) -> signature scan -> count with read-id and stream payloads
+(device) -> host table -> order-faithful replay of prune, expand and
+extension (host: the Python spec or the C++ engine) -> the reference's
+exact output.
+
+Every entry point takes ``device`` and defaults to ``"cuda"``: asked for a
+card on a machine without one it raises, it does not carry on on the CPU.
+The out-of-core and multi-device branches of the JAX package are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,9 +27,14 @@ import torch
 from genome_assembly_tpu_torch.config import PipelineConfig
 from genome_assembly_tpu_torch.io import reads as reads_io
 from genome_assembly_tpu_torch.io import stream as stream_io
+from genome_assembly_tpu_torch.native import replay_native
 from genome_assembly_tpu_torch.ops import count as count_ops
 from genome_assembly_tpu_torch.ops import dbg
 from genome_assembly_tpu_torch.ops import minimizer
+from genome_assembly_tpu_torch.parity import nonacgt
+from genome_assembly_tpu_torch.parity import replay as replay_mod
+from genome_assembly_tpu_torch.parity import table as table_ops
+from genome_assembly_tpu_torch.utils.plots import parse_verbose_table
 
 
 @dataclasses.dataclass
@@ -56,19 +69,85 @@ class _PhaseClock:
         self.t = now
 
 
-class CountPipeline:
-    """Device-side scan shared by the count paths (fast branch only)."""
+def _check_device(device, who: str) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} was asked for a CUDA device and this machine "
+            "has none; pass device='cpu' to run on the CPU"
+        )
+    return device
 
-    def __init__(self, config: PipelineConfig):
+
+class CountPipeline:
+    """Device-side scan and count shared by both modes.
+
+    In parity mode the scan replicates the reference's per-read scan
+    exactly, and the count keys groups by (signature, k-mer): the table
+    is a multiset keyed by the pair, so a k-mer binned under two
+    signatures is two entries, as in the reference.
+    """
+
+    def __init__(self, config: PipelineConfig, device="cuda"):
         self.config = config
+        self.device = torch.device(device)
 
     def scan(self, codes: torch.Tensor, lengths: torch.Tensor) -> minimizer.WindowRecords:
         cfg = self.config
         if cfg.parity:
-            raise NotImplementedError(
-                "parity_scan is not ported yet (parity-mode slice)"
-            )
+            return minimizer.parity_scan(codes, lengths, k=cfg.k, m=cfg.m)
         return minimizer.fast_scan(codes, lengths, k=cfg.k, m=cfg.m)
+
+    def count_reads(
+        self, reads: Sequence[str], start_id: int = 0
+    ) -> Tuple[count_ops.CountedTable, PhaseStats]:
+        """Count a full read set in parity mode (batching and merge here).
+
+        One batch is pruned directly; several are counted with cutoff -1,
+        merged, then pruned (a group's occurrences may span batches).
+        Every batch is scanned first, then counted, so ``wall_s`` holds
+        ``batch``, ``scan`` and ``count`` (the merge included) apart.  The
+        valid windows are summed on the device and read back once.
+        """
+        cfg = self.config
+        stats = PhaseStats(n_reads=len(reads))
+        clock = _PhaseClock(stats, self.device)
+        batches = reads_io.batch_reads(
+            reads, cfg.max_read_len, cfg.batch_reads, start_id=start_id,
+            parity_chars=cfg.parity,
+        )
+        if not batches:
+            raise ValueError("no reads")
+        # every batch but a lone one has the same number of rows, so the
+        # stream index of a slot is its row in the whole set times n_win
+        if len(batches) > 1:
+            batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
+        clock.lap("batch")
+        n_windows = torch.zeros((), dtype=torch.int64, device=self.device)
+        scanned = []
+        for codes, lengths, rids in stream_io.feed_read_batches(batches, self.device):
+            recs = self.scan(codes, lengths)
+            n_windows += recs.valid.sum()
+            scanned.append((recs, rids))
+        clock.lap("scan")
+        cutoff = cfg.abundance_cutoff if len(scanned) == 1 else -1
+        rows_x_win = cfg.batch_reads * cfg.windows_per_read
+        per_batch = [
+            count_ops.count_and_prune(recs, rids, cutoff=cutoff,
+                                      stream_offset=bi * rows_x_win)
+            for bi, (recs, rids) in enumerate(scanned)
+        ]
+        del scanned
+        if len(per_batch) == 1:
+            counted = per_batch[0]
+        else:
+            counted = count_ops.merge_sorted_tables(per_batch, cutoff=cfg.abundance_cutoff)
+        del per_batch
+        stats.n_windows = int(n_windows)
+        stats.entries_pre_prune = int(counted.n_entries)
+        stats.entries_post_prune = int(counted.n_kept)
+        clock.lap("count")
+        return counted, stats
 
 
 class FastAssembler:
@@ -84,13 +163,8 @@ class FastAssembler:
                 "fast-mode assembly requires odd k (reverse-complement "
                 f"palindromes break dBG strand pairing); got k={self.config.k}"
             )
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "FastAssembler was asked for a CUDA device and this machine "
-                "has none; pass device='cpu' to run on the CPU"
-            )
-        self.counter = CountPipeline(self.config)
+        self.device = _check_device(device, "FastAssembler")
+        self.counter = CountPipeline(self.config, self.device)
 
     def load(self, path: str) -> List[str]:
         return reads_io.load_reads_fast(path)
@@ -312,3 +386,198 @@ class FastAssembler:
         clock.lap("materialize")
         stats.entries_post_extension = len(out)
         return out, per_unitig, stats
+
+
+ENGINES = ("auto", "python", "native")
+
+
+class ParityAssembler:
+    """Bit-parity pipeline: device counting + host replay of the extension.
+
+    The output equals the reference binary's byte for byte, line order
+    included.
+    """
+
+    def __init__(self, config: Optional[PipelineConfig] = None, device="cuda"):
+        self.config = config or PipelineConfig()
+        if not self.config.parity:
+            raise ValueError("ParityAssembler requires a parity config")
+        self.device = _check_device(device, "ParityAssembler")
+        self.counter = CountPipeline(self.config, self.device)
+
+    def load(self, path: str) -> List[str]:
+        # Any byte is accepted, as the reference accepts any byte (it
+        # scores unknown characters as 'A'); reads containing non-ACGT
+        # take the exact exception path (parity/nonacgt.py).
+        return reads_io.load_reads_parity(path, self.config.read_length)
+
+    def pruned_table(
+        self, reads: Sequence[str]
+    ) -> Tuple[table_ops.HostTable, PhaseStats]:
+        self._reject_dirty(reads, "pruned_table (packed HostTable cannot "
+                           "carry raw bytes; use pruned_table_dict)")
+        if self._needs_outofcore(reads):
+            self._groups_outofcore()  # raises
+        counted, stats = self.counter.count_reads(reads)
+        clock = _PhaseClock(stats, self.device)
+        host = table_ops.extract_groups(counted, pruned=True)
+        clock.lap("extract")
+        return host, stats
+
+    def _reject_dirty(self, reads: Sequence[str], where: str) -> None:
+        if nonacgt.has_non_acgt(reads):
+            raise NotImplementedError(
+                f"reads contain non-ACGT bytes, unsupported by {where}; "
+                "the in-core assemble()/pruned_table_dict() paths handle "
+                "them exactly (parity/nonacgt.py)"
+            )
+
+    def _needs_outofcore(self, reads: Sequence[str]) -> bool:
+        """True when the parity record set exceeds ``outofcore_bytes`` at
+        20 bytes a window slot (the JAX package's five uint32 lanes, kept so
+        both packages decide alike for one config)."""
+        cfg = self.config
+        n_batches = max(1, -(-len(reads) // cfg.batch_reads))
+        total_slots = n_batches * cfg.batch_reads * cfg.windows_per_read
+        return total_slots * 20 > cfg.outofcore_bytes
+
+    def _groups_outofcore(self):
+        raise NotImplementedError(
+            "the parity record set exceeds outofcore_bytes; hash-partitioned "
+            "out-of-core parity counting is not ported yet (ROADMAP.md "
+            "queue 1 item 3)"
+        )
+
+    def _assemble_sharded(self):
+        raise NotImplementedError(
+            "mesh= (multi-device parity counting) is not ported yet "
+            "(ROADMAP.md queue 1 item 4)"
+        )
+
+    def pruned_table_dict(self, reads: Sequence[str]) -> Dict:
+        if nonacgt.has_non_acgt(reads):
+            # raw-byte keys cannot ride the packed HostTable; the string
+            # groups carry them
+            return {
+                (sig, km): list(map(int, reversed(ids)))
+                for sig, km, ids in self.pruned_table_groups(reads)
+            }
+        host, _ = self.pruned_table(reads)
+        return table_ops.decode_table(host, self.config.k, self.config.m)
+
+    @staticmethod
+    def _engine(engine: str) -> str:
+        """'auto' -> 'native' if the C++ engine builds and loads, else
+        'python'; the output is the same either way."""
+        if engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}; got {engine!r}")
+        if engine == "auto":
+            return "native" if replay_native.available() else "python"
+        return engine
+
+    @staticmethod
+    def _replay(stats: PhaseStats, clock: _PhaseClock, run):
+        """Run the replay ``run()`` and time it.  Unitig lines set
+        ``entries_post_extension`` (their number); verbose text leaves it
+        0, as the JAX package leaves it on every parity run."""
+        out = run()
+        clock.lap("replay")
+        if isinstance(out, list):
+            stats.entries_post_extension = len(out)
+        return out, stats
+
+    def assemble(
+        self, reads: Sequence[str], engine: str = "auto", verbose: bool = False,
+        mesh=None,
+    ):
+        """Full parity pipeline -> unitig lines in the reference's exact
+        print order.
+
+        engine: 'python' (executable spec), 'native' (C++ engine), or
+        'auto' (native if it builds, else python).
+        verbose: return the print_kmer_read_ids text instead of unitig lines.
+        mesh: the distributed count; not ported yet (raises).
+        Returns (lines or text, PhaseStats).
+        """
+        cfg = self.config
+        engine = self._engine(engine)
+        if mesh is not None:
+            self._assemble_sharded()
+        if nonacgt.has_non_acgt(reads):
+            return self._assemble_nonacgt(reads, engine, verbose)
+        if self._needs_outofcore(reads):
+            # raises; when ported, it keeps every group (cutoff -1): the
+            # replay prunes, as the reference does
+            self._groups_outofcore()
+        counted, stats = self.counter.count_reads(reads)
+        clock = _PhaseClock(stats, self.device)
+        host_all = table_ops.extract_groups(counted, pruned=False)
+        del counted
+        clock.lap("extract")
+        if engine == "native":
+            # the packed lanes go to the engine as they are
+            def run():
+                return replay_native.assemble(
+                    host_all, cfg.k, cfg.m, cfg.abundance_cutoff, verbose=verbose)
+        else:
+            def run():
+                groups = replay_mod.groups_from_host_table(host_all, cfg.k, cfg.m)
+                return self._replay_string_groups(groups, engine, verbose)
+        return self._replay(stats, clock, run)
+
+    def _nonacgt_groups(self, reads: Sequence[str]):
+        """Device count + exact raw-byte regrouping (parity/nonacgt.py),
+        unpruned, in insertion order."""
+        cfg = self.config
+        if self._needs_outofcore(reads):
+            self._groups_outofcore()  # raises; when ported, with streams
+        counted, stats = self.counter.count_reads(reads)
+        clock = _PhaseClock(stats, self.device)
+        host_all, streams = table_ops.extract_groups_with_streams(
+            counted, pruned=False
+        )
+        del counted
+        groups = nonacgt.regroup_with_exceptions(
+            host_all, streams, reads, k=cfg.k, m=cfg.m, n_win=cfg.windows_per_read,
+        )
+        clock.lap("extract")
+        return groups, stats, clock
+
+    def _assemble_nonacgt(self, reads: Sequence[str], engine: str, verbose: bool):
+        """Exact parity for read sets containing non-ACGT bytes: the
+        regrouped string groups (raw bytes preserved) feed either replay
+        engine; pruning happens inside the replay as always."""
+        groups, stats, clock = self._nonacgt_groups(reads)
+        return self._replay(
+            stats, clock, lambda: self._replay_string_groups(groups, engine, verbose)
+        )
+
+    def _replay_string_groups(self, groups, engine: str, verbose: bool):
+        """Insertion-ordered string groups -> replay engine -> output."""
+        cfg = self.config
+        engine = self._engine(engine)
+        if engine == "native":
+            return replay_native.assemble_groups(
+                groups, cfg.k, cfg.m, cfg.abundance_cutoff, verbose=verbose
+            )
+        rep = replay_mod.ReferenceReplay(cfg.k, cfg.m, cfg.abundance_cutoff)
+        rep.build(groups)
+        rep.prune()
+        rep.expand()
+        rep.extend_all(True)
+        rep.extend_all(False)
+        return rep.print_kmer_read_ids() if verbose else rep.print_kmers()
+
+    def pruned_table_groups(self, reads: Sequence[str]):
+        """Pruned table as STRING groups [(mmer, kmer, ids)] -- the form
+        that can carry raw non-ACGT key bytes (the reference stores raw
+        bytes in uncomplemented keys)."""
+        groups, _, _ = self._nonacgt_groups(reads)
+        return nonacgt.prune_groups(groups, self.config.abundance_cutoff)
+
+    def expanded_table(self, reads: Sequence[str], engine: str = "auto"):
+        """Post-extension expanded per-base-pair read-id table, queryable:
+        {(mmer, unitig_key): [per-bp descending read-id list, one per base
+        pair]} -- the state the reference only ever prints."""
+        text, _ = self.assemble(reads, engine=engine, verbose=True)
+        return parse_verbose_table(text)

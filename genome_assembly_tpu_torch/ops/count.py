@@ -1,12 +1,19 @@
-"""Sort-based k-mer counting and abundance pruning (fast mode).
+"""Sort-based k-mer counting and abundance pruning.
 
-Flatten all window records, sort the int64 keys, and read groups off runs
-of equal keys.  Pruning is a mask: keep a group iff its occurrence count
-is greater than the cutoff.  Invalid records hold ``SENTINEL``, which
-sorts past every real key and is masked out of everything.
+Flatten all window records, sort, and read groups off runs of equal keys.
+Pruning is a mask: keep a group iff its occurrence count is greater than
+the cutoff.  Invalid records hold ``SENTINEL`` (and, in parity mode,
+``MMER_SENTINEL``), which sort past every real key and are masked out of
+everything.
 
-The sorts are ``torch.sort`` on one int64 key -- the library sort, as the
-JAX package leaves the same sorts to ``lax.sort`` outside any kernel.
+Fast mode counts one int64 key per window (``count_keys``).  Parity mode
+counts (signature m-mer, k-mer) pairs and carries each occurrence's read
+id and stream position through a stable sort (``count_and_prune``,
+``merge_sorted_tables``): the replay needs each group's occurrences in
+stream order.
+
+The sorts are ``torch.sort`` -- the library sort, as the JAX package
+leaves the same sorts to ``lax.sort`` outside any kernel.
 ``count_keys(hybrid_sort=True)`` takes the second route: library sorts of
 chunks merged by the hand-written bitonic kernels
 (``ops/bitonic_sort.sort_keys_hybrid``), the counterpart of the JAX
@@ -21,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from genome_assembly_tpu_torch.common import SENTINEL
+from genome_assembly_tpu_torch.common import MMER_SENTINEL, SENTINEL
 from genome_assembly_tpu_torch.ops import bitonic_sort
 from genome_assembly_tpu_torch.ops.minimizer import WindowRecords
 
@@ -170,3 +177,116 @@ def count_keys_rids(
     count = group_counts(group_start)
     keep = group_start & valid & (count > cutoff)
     return KeyRidCounts(key_s, rid_s, valid, group_start, count, keep)
+
+
+class CountedTable(NamedTuple):
+    """Sorted, counted, pruned (signature, k-mer) table of parity mode,
+    still padded to N records (N = window slots counted).
+
+    Records are sorted by (mmer, kmer); invalid slots hold MMER_SENTINEL /
+    SENTINEL at the end.
+
+    mmer: int32 stored signature m-mer; kmer: int64 stored k-mer key.
+    read_id: int64 per-occurrence read ids, stream-ordered within a group.
+    stream_idx: int64 flat (read, window) stream position of each
+      occurrence; the value at a group's first record is the entry's
+      insertion time, which the replay uses to rebuild the reference's
+      exact hash table layout.
+    valid: real (non-sentinel) rows.
+    group_start: True at the first record of each distinct (mmer, kmer).
+    count: int64 occurrence count of the record's group, on every member.
+    keep: group_start & valid & count > cutoff -- one True per surviving
+      table entry.
+    """
+
+    mmer: torch.Tensor
+    kmer: torch.Tensor
+    read_id: torch.Tensor
+    stream_idx: torch.Tensor
+    valid: torch.Tensor
+    group_start: torch.Tensor
+    count: torch.Tensor
+    keep: torch.Tensor
+
+    @property
+    def n_entries(self) -> torch.Tensor:
+        """Distinct (mmer, kmer) entries before pruning."""
+        return (self.group_start & self.valid).sum()
+
+    @property
+    def n_kept(self) -> torch.Tensor:
+        """Entries surviving the abundance cutoff."""
+        return self.keep.sum()
+
+
+def _mmer_kmer_order(mmer, kmer, minor=None) -> torch.Tensor:
+    """The permutation that sorts rows stably by (mmer, kmer[, minor]).
+
+    Least significant lane first: one stable ``torch.sort`` a lane, each
+    sorting the lane gathered through the order so far.
+    """
+    order = None if minor is None else torch.sort(minor, stable=True).indices
+    for lane in (kmer, mmer):
+        key = lane if order is None else lane[order]
+        step = torch.sort(key, stable=True).indices
+        order = step if order is None else order[step]
+    return order
+
+
+def _parity_groups(mmer_s, kmer_s, read_id, stream, cutoff: int) -> CountedTable:
+    valid = kmer_s != SENTINEL
+    n = kmer_s.shape[0]
+    group_start = torch.ones(n, dtype=torch.bool, device=kmer_s.device)
+    group_start[1:] = (mmer_s[1:] != mmer_s[:-1]) | (kmer_s[1:] != kmer_s[:-1])
+    count = group_counts(group_start)
+    keep = group_start & valid & (count > cutoff)
+    return CountedTable(mmer_s, kmer_s, read_id, stream, valid, group_start, count, keep)
+
+
+def count_and_prune(
+    records: WindowRecords,
+    read_ids: torch.Tensor,
+    *,
+    cutoff: int,
+    stream_offset: int = 0,
+) -> CountedTable:
+    """Count occurrences of each (mmer, kmer) and apply the abundance mask.
+
+    records: parity WindowRecords, [batch, n_windows] tensors.
+    read_ids: [batch] int64 read ids (broadcast across windows).
+    stream_offset: global stream index of this batch's first window slot
+      (batch_index * batch_rows * n_windows when batching uniformly).
+
+    A stable sort by (mmer, kmer) keeps stream order inside each group:
+    ascending (read id, window).
+    """
+    batch, n_win = records.mmer.shape
+    valid = records.valid.reshape(-1)
+    mmer = torch.where(valid, records.mmer.reshape(-1), MMER_SENTINEL)
+    kmer = torch.where(valid, records.kmer.reshape(-1), SENTINEL)
+    order = _mmer_kmer_order(mmer, kmer)
+    return _parity_groups(
+        mmer[order], kmer[order], read_ids[order // n_win], order + stream_offset, cutoff
+    )
+
+
+def merge_sorted_tables(
+    tables: list[CountedTable], *, cutoff: int
+) -> CountedTable:
+    """Merge per-batch counted tables into one, on the device.
+
+    Groups split across batches are re-merged by a stable sort over the
+    concatenated records by (mmer, kmer, stream): the global stream index
+    is a key, so each group's occurrences come out in stream order
+    whatever order the inputs were in.  Per-batch tables should be built
+    with cutoff=-1 (keep everything): pruning applies after the merge.
+    """
+    mmer = torch.cat([t.mmer for t in tables])
+    kmer = torch.cat([t.kmer for t in tables])
+    valid = torch.cat([t.valid for t in tables])
+    mmer = torch.where(valid, mmer, MMER_SENTINEL)
+    kmer = torch.where(valid, kmer, SENTINEL)
+    stream = torch.cat([t.stream_idx for t in tables])
+    order = _mmer_kmer_order(mmer, kmer, minor=stream)
+    rid = torch.cat([t.read_id for t in tables])
+    return _parity_groups(mmer[order], kmer[order], rid[order], stream[order], cutoff)

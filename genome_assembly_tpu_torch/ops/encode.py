@@ -2,7 +2,9 @@
 
 Encoding convention (same as the JAX package): codes are T=0, G=1, C=2,
 A=3; the base-4 MSB-first "score" of a string equals its 2-bit packed
-integer.  The complement of a code c is ``3 - c``.
+integer.  The complement of a code c is ``3 - c``; parity mode uses the
+reference's per-position complement WITHOUT reversal (``complement``,
+``complement_packed``), fast mode the true reverse complement.
 
 A k-mer with k <= 31 packs into at most 62 bits and is carried as ONE
 int64 key, the plain MSB-first packed value.  The JAX package splits the
@@ -40,6 +42,37 @@ def encode_bytes(ascii_u8: torch.Tensor) -> torch.Tensor:
     """Map ASCII bytes to 2-bit codes (uint8), on the tensor's device."""
     table = torch.from_numpy(_ASCII_TO_CODE).to(ascii_u8.device)
     return table[ascii_u8.long()]
+
+
+def decode_codes(codes: torch.Tensor) -> torch.Tensor:
+    """Map 2-bit codes back to ASCII bytes (uint8), on the tensor's device."""
+    table = torch.from_numpy(_CODE_TO_ASCII).to(codes.device)
+    return table[codes.long()]
+
+
+def complement(codes: torch.Tensor) -> torch.Tensor:
+    """Per-position complement, no reversal: code -> 3 - code."""
+    return (3 - codes.long()).to(codes.dtype)
+
+
+def windowed_scores(codes: torch.Tensor, n: int) -> torch.Tensor:
+    """Packed base-4 MSB-first scores of every length-``n`` window (int32).
+
+    The reference's score of each substring.  ``codes`` has shape
+    [..., L]; the result has shape [..., L - n + 1].  Requires n <= 15, so
+    a score fits 30 bits.
+    """
+    if not 1 <= n <= 15:
+        raise ValueError(f"windowed_scores supports 1 <= n <= 15, got {n}")
+    length = codes.shape[-1]
+    nwin = length - n + 1
+    if nwin <= 0:
+        raise ValueError(f"window {n} longer than sequence {length}")
+    wide = codes.int()
+    acc = wide[..., :nwin]
+    for j in range(1, n):
+        acc = (acc << 2) | wide[..., j : j + nwin]
+    return acc
 
 
 def _doubling_packs(codes: torch.Tensor, max_span: int) -> dict:
@@ -135,6 +168,22 @@ def pack_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:
     """
     nwin = _check_k(codes, k)
     return _windowed_pack(_doubling_packs(codes, k), k, nwin)
+
+
+def complement_packed(key: torch.Tensor, k: int) -> torch.Tensor:
+    """Complement of packed k-mers without reversal: each 2-bit group
+    c -> 3 - c, i.e. XOR with the all-ones 2k-bit mask; any shape."""
+    return key ^ ((1 << (2 * k)) - 1)
+
+
+def reverse_complement_u32(v: torch.Tensor, n: int) -> torch.Tensor:
+    """True reverse complement of packed n-mers (n <= 15) held in any
+    integer dtype; elementwise, same dtype out."""
+    comp = ((1 << (2 * n)) - 1) - v
+    out = torch.zeros_like(v)
+    for j in range(n):
+        out = out | (((comp >> (2 * j)) & 3) << (2 * (n - 1 - j)))
+    return out
 
 
 def reverse_complement_packed(key: torch.Tensor, k: int) -> torch.Tensor:
