@@ -26,8 +26,15 @@ the sort entry points no pipeline calls
 (``sort_rows``, ``sort_keys``, and ``sort_keys_mergepath`` on random keys and
 on the ecoli reads' own scanned keys) at the main path's key count, times every kernel beside its plain
 version, its bound and the library call, measures the grids behind the sorts'
-defaults (``chunk_choice``, ``tile_choice``, ``rows_choice``), and prints one
-JSON object per phase.  Exits non-zero if there is no CUDA device, if the
+defaults (``chunk_choice``, ``tile_choice``, ``rows_choice``), and runs both
+assemblers out of core: fast mode at the default limits on a 10 Mb genome at
+50x with errors (``ooc_e2e``) and with every switch thrown on the ecoli reads
+(``ooc_extension``: partitioned count, out-of-core links, bulk jump, device
+materializer; also with ``hybrid_sort``), parity mode on the goldens' input
+(``parity_ooc_golden``) and at the default limits on a 2 Mb genome plus
+BASELINE.md's big run forced out of core (``parity_ooc_scale``), each held
+against an in-core run of the same reads; and prints one JSON object per
+phase.  Exits non-zero if there is no CUDA device, if the
 package cannot be imported (run it from the root of a checkout) or if any
 phase fails.  Imports nothing of JAX and nothing of the JAX package.  A
 second run in the same checkout reuses the built libraries and their
@@ -43,6 +50,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import ctypes
+import dataclasses
 import json
 import pathlib
 import re
@@ -65,6 +73,7 @@ try:
     from genome_assembly_tpu_torch.io import datagen
     from genome_assembly_tpu_torch.io import reads as reads_io
     from genome_assembly_tpu_torch.io import stream as stream_io
+    from genome_assembly_tpu_torch.models import pipeline
     from genome_assembly_tpu_torch.models.pipeline import (
         FastAssembler, ParityAssembler, PhaseStats)
     from genome_assembly_tpu_torch.native import build as native_build
@@ -77,6 +86,7 @@ try:
     from genome_assembly_tpu_torch.ops import mergepath_sort
     from genome_assembly_tpu_torch.ops import minimizer
     from genome_assembly_tpu_torch.ops import minimizer_cuda
+    from genome_assembly_tpu_torch.ops import outofcore
     from genome_assembly_tpu_torch.parity import nonacgt
     from genome_assembly_tpu_torch.parity import table as parity_table
 except ImportError as missing:
@@ -102,6 +112,24 @@ ECOLI = dict(genome_len=4_600_000, coverage=50, read_len=100, k=31, m=7,
 PARITY_E2E = dict(genome_len=100_000, coverage=50, read_len=100, seed=7,
                   k=31, m=4, cutoff=1, max_read_len=128, batch_reads=16384)
 PARITY_SCALE = dict(PARITY_E2E, genome_len=1_000_000, batch_reads=65536)
+
+# Out of core at the DEFAULT limits (3 GiB of records): a 10 Mb genome at
+# 50x with 0.1 % substitution errors in fast mode (77 batches of 65536 x 128,
+# 494,534,656 window slots = 3.96 GB of keys: 4 partitions), and a 2 Mb
+# genome at 50x in parity mode (2,000,000 read ids through fgets(101), 31
+# batches of 65536, 199,098,368 slots = 3.98 GB at the JAX package's 20 B a
+# slot: 4 partitions).  The in-core runs they are held against raise
+# outofcore_bytes to 8 GiB.
+OOC_E2E = dict(ECOLI, genome_len=10_000_000, error_rate=0.001, seed=1)
+PARITY_OOC_SCALE = dict(PARITY_E2E, genome_len=2_000_000, batch_reads=65536)
+INCORE_BYTES = 8 << 30
+# every out-of-core switch of fast mode thrown on the ecoli preset: 11 count
+# partitions, 7 link partitions, the bulk jump
+OOC_EXTENSION_LIMITS = dict(outofcore_bytes=512 << 20, link_budget_bytes=32 << 20,
+                            bulk_jump_states=1 << 20)
+# BASELINE.md's big run forced out of core: 224.8 MB at 20 B a slot clean,
+# 192.7 MB with the --dirty corruption (its joined lines make fewer read ids)
+BIG_RUN_OOC_BYTES = 150_000_000
 GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
 
 KERNEL_SHAPE = (65536, 128)
@@ -138,9 +166,11 @@ def random_batch(rng, batch, max_len, device):
             torch.from_numpy(lengths).to(device))
 
 
-def coverage_reads(genome_len, read_len, coverage, seed):
-    """Uniform-coverage error-free reads, half of them reverse-complemented,
-    made with vectorised numpy.  Returns (genome, reads)."""
+def coverage_reads(genome_len, read_len, coverage, seed, error_rate=0.0):
+    """Uniform-coverage reads, half of them reverse-complemented, with a
+    share ``error_rate`` of their bases substituted by another base, made
+    with vectorised numpy (the gather in slices of a million reads).
+    Returns (genome, reads)."""
     rng = np.random.default_rng(seed)
     letters = np.frombuffer(b"ACGT", dtype=np.uint8)
     comp = np.zeros(256, dtype=np.uint8)
@@ -148,9 +178,18 @@ def coverage_reads(genome_len, read_len, coverage, seed):
     genome = letters[rng.integers(0, 4, size=genome_len)]
     n_reads = int(genome_len * coverage / read_len)
     starts = rng.integers(0, genome_len - read_len + 1, size=n_reads)
-    chars = genome[starts[:, None] + np.arange(read_len)[None, :]]
+    chars = np.empty((n_reads, read_len), dtype=np.uint8)
+    for lo in range(0, n_reads, 1 << 20):
+        hi = min(n_reads, lo + (1 << 20))
+        chars[lo:hi] = genome[starts[lo:hi, None] + np.arange(read_len)[None, :]]
     flip = rng.random(n_reads) < 0.5
     chars[flip] = comp[chars[flip]][:, ::-1]
+    if error_rate:
+        code = np.zeros(256, dtype=np.int64)
+        code[letters] = np.arange(4)
+        flat = chars.reshape(-1)
+        pos = rng.integers(0, flat.size, size=rng.binomial(flat.size, error_rate))
+        flat[pos] = letters[(code[flat[pos]] + rng.integers(1, 4, size=pos.size)) % 4]
     flat = chars.tobytes().decode()
     reads = [flat[i * read_len:(i + 1) * read_len] for i in range(n_reads)]
     return genome.tobytes().decode(), reads
@@ -1193,6 +1232,408 @@ def phase_hybrid_e2e(device, full):
          full_e2e_max_memory_allocated=full["fields"]["max_memory_allocated"],
          full_e2e_kmers_counted_per_s=full["fields"]["kmers_counted_per_s"], **fields)
     return launches
+
+
+# --------------------------------------------------------------------------
+# out of core
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def reextractions():
+    """Yields a list that gets one entry for each partition re-extracted
+    alone (the self-heal, ``outofcore._reextract``) while the block runs:
+    what re-extracted it ("count" or "link"), the partition, the units its
+    sweeps made again (a count's unit is a batch, each one K1 launch; the
+    units of a sweep that stopped on an overflow included) and the records
+    it returned."""
+    real = outofcore._reextract
+    log = []
+
+    def counted(records, n_units, p, **kw):
+        made = [0]
+
+        def unit(u):
+            made[0] += 1
+            return records(u)
+        lanes = real(unit, n_units, p, **kw)
+        log.append(dict(what=kw["what"], partition=p, units_made=made[0],
+                        records=int(lanes[0].shape[0])))
+        return lanes
+    outofcore._reextract = counted
+    try:
+        yield log
+    finally:
+        outofcore._reextract = real
+
+
+def count_plan(cfg, n_batches, batch_slots, total_slots):
+    """(partitions, cap_bp, group size, passes) that FastAssembler's
+    out-of-core branch gives partitioned_count for this read set."""
+    partitions = max(1, int(np.ceil(total_slots * 8 / (cfg.outofcore_bytes / 3))))
+    cap_bp, G = outofcore.range_group_plan(n_batches, batch_slots, partitions=partitions,
+                                           bytes_per_record=8,
+                                           budget_bytes=outofcore.GROUP_BUDGET_BYTES)
+    return partitions, cap_bp, G, -(-partitions // G)
+
+
+def healed_scans(healed):
+    """The K1 launches of the count's re-extractions."""
+    return sum(h["units_made"] for h in healed if h["what"] == "count")
+
+
+def timed_unitigs(asm, reads):
+    """One FastAssembler.unitigs call with the launch counts and the peak
+    memory set to 0 just before it: (unitigs, stats, wall, peak, launches)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out, stats = asm.unitigs(reads)
+    torch.cuda.synchronize()
+    return (out, stats, time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+            read_launch_counts())
+
+
+def timed_call(fn):
+    """(fn(), seconds, peak) with the peak memory set to 0 just before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def sort_kernel_launches(launches):
+    return {name: launches[name] for name in (*bitonic_cuda.launch_count,
+                                              *mergepath_cuda.launch_count)}
+
+
+def group_pass_read_backs(device, cfg, reads, n_batches, cap_bp, partitions):
+    """The synchronising CUDA calls of ONE group pass of the count
+    (outofcore.stage_group) over the first n_batches batches: the scans,
+    the extraction and the staging read back nothing, the pass once."""
+    batches = reads_io.batch_reads(reads[: n_batches * cfg.batch_reads], cfg.max_read_len,
+                                   cfg.batch_reads)
+    asm = FastAssembler(cfg, device=device)
+    records = pipeline._batch_source(
+        batches, device, lambda b, codes, lengths, rids: (
+            asm.counter.scan(codes, lengths).kmer.reshape(-1),))
+    (parts, ovf), calls, where = synchronising_calls(lambda: outofcore.stage_group(
+        records, n_batches, outofcore.extract_partition_range, 0, partitions=partitions,
+        group_size=partitions, cap_bp=cap_bp, dtypes=(torch.int64,)))
+    staged = sum(int((lanes[0] != SENTINEL).sum()) for lanes in parts)
+    valid = sum(int(asm.counter.scan(codes, lengths).valid.sum())
+                for codes, lengths, _ in stream_io.feed_read_batches(batches, device))
+    return calls, where, ovf, staged, valid
+
+
+def phase_ooc_e2e(device):
+    """Fast mode out of core at the default limits: a 10 Mb genome at 50x
+    with 0.1 % substitution errors, 77 batches, 4 partitions in one group
+    pass; held against an in-core run of the same reads (outofcore_bytes
+    8 GiB): the same unitig multiset and counters, exactly-once coverage of
+    the kept table; K1 launches = 1 (the probe) + passes x batches."""
+    p = OOC_E2E
+    t0 = time.perf_counter()
+    genome, reads = coverage_reads(p["genome_len"], p["read_len"], p["coverage"],
+                                   seed=p["seed"], error_rate=p["error_rate"])
+    t_reads = time.perf_counter() - t0
+    cfg = ecoli_config()
+    n_batches = -(-len(reads) // cfg.batch_reads)
+    batch_slots = cfg.batch_reads * cfg.windows_per_read
+    slots = n_batches * batch_slots
+    if slots * 8 <= cfg.outofcore_bytes:
+        raise AssertionError(f"ooc_e2e: {slots} slots stay in core at the default limit")
+    partitions, cap_bp, G, passes = count_plan(cfg, n_batches, batch_slots, slots)
+    with reextractions() as healed:
+        out, stats, wall, peak, launches = timed_unitigs(FastAssembler(cfg, device=device), reads)
+    want_k1 = 1 + passes * n_batches + healed_scans(healed)
+    if launches["fast_scan"] != want_k1:
+        raise AssertionError(f"ooc_e2e: {launches['fast_scan']} K1 launches, want {want_k1}")
+    if any(sort_kernel_launches(launches).values()):
+        raise AssertionError(f"ooc_e2e: the default path launched a sort kernel: {launches}")
+    torch.cuda.empty_cache()
+    incore_cfg = dataclasses.replace(cfg, outofcore_bytes=INCORE_BYTES)
+    in_out, in_stats, in_wall, in_peak, _ = timed_unitigs(
+        FastAssembler(incore_cfg, device=device), reads)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    same = dict(
+        unitig_multiset=sorted(out) == sorted(in_out),
+        counters={f: getattr(stats, f) == getattr(in_stats, f) for f in (
+            "n_reads", "entries_pre_prune", "entries_post_prune", "entries_post_extension")},
+        window_slots=stats.n_windows == slots)
+    kept = kept_table(reads, cfg, device)
+    torch.cuda.empty_cache()
+    check_exactly_once(out, kept, cfg.k)
+    same["kept_table_size"] = kept.size == stats.entries_post_prune
+    t_check = time.perf_counter() - t0
+    calls, where, ovf, staged, valid = group_pass_read_backs(
+        device, cfg, reads, 5, outofcore.range_group_plan(
+            5, batch_slots, partitions=partitions, bytes_per_record=8)[0], partitions)
+    torch.cuda.empty_cache()
+    emit("ooc_e2e", genome_len=p["genome_len"], coverage=p["coverage"], read_len=p["read_len"],
+         error_rate=p["error_rate"], reads=len(reads), k=cfg.k, m=cfg.m,
+         batch_reads=cfg.batch_reads, n_batches=n_batches, window_slots=slots,
+         key_bytes=slots * 8, outofcore_bytes=cfg.outofcore_bytes, partitions=partitions,
+         group_size=G, cap_bp=cap_bp, passes=passes, reextracted=healed,
+         k1_launches=launches["fast_scan"], k1_launches_expected=want_k1,
+         read_generation_host_seconds=t_reads, check_seconds=t_check,
+         phase_seconds=dict(stats.wall_s), assemble_wall_seconds=wall,
+         max_memory_allocated=peak, incore_phase_seconds=dict(in_stats.wall_s),
+         incore_assemble_wall_seconds=in_wall, incore_max_memory_allocated=in_peak,
+         peak_bytes_per_window_slot=peak / slots, incore_peak_bytes_per_window_slot=in_peak / slots,
+         group_pass_synchronising_calls={"batches": 5, "calls": calls, "from": where,
+                                         "staged_equal_valid": staged == valid},
+         n_unitigs=len(out), longest_unitig=max(map(len, out)), exactly_once=True,
+         equal_to_incore=same, **counters(stats))
+    if not (same["unitig_multiset"] and all(same["counters"].values())
+            and same["window_slots"] and same["kept_table_size"]):
+        raise AssertionError(f"ooc_e2e: out of core and in core differ: {same}")
+    if calls != 1 or staged != valid or any(ovf):
+        raise AssertionError(f"ooc_e2e: one group pass made {calls} synchronising calls "
+                             f"({where}), staged {staged} of {valid} records, overflows {ovf}")
+
+
+def phase_ooc_extension(device, full, coverage):
+    """Every out-of-core switch at once on the ecoli preset's reads
+    (full_e2e's): outofcore_bytes 512 MiB (11 partitions), link_budget_bytes
+    32 MiB (out-of-core links, 7 partitions), bulk_jump_states 2^20 (bulk
+    jump); once by default and once with hybrid_sort (K3b and K3c launched
+    by the partition counts).  Unitigs and counters equal full_e2e's.  Then
+    pointer_jump_bulk with 8 chunked rounds against pointer_jump on the
+    preset's links, and the order of an out-of-core list: card == CPU.
+    ``outofcore_bytes`` shrinks with ``--coverage`` (the read set does), so
+    the count still goes out of core in 11 partitions."""
+    limits = dict(OOC_EXTENSION_LIMITS, outofcore_bytes=OOC_EXTENSION_LIMITS[
+        "outofcore_bytes"] * coverage // ECOLI["coverage"])
+    reads = full["reads"]
+    runs = {}
+    for hybrid in (False, True):
+        cfg = dataclasses.replace(ecoli_config(hybrid), **limits)
+        n_batches = -(-len(reads) // cfg.batch_reads)
+        batch_slots = cfg.batch_reads * cfg.windows_per_read
+        partitions, cap_bp, G, passes = count_plan(cfg, n_batches, batch_slots,
+                                                   n_batches * batch_slots)
+        n_nodes = full["counters"]["entries_post_prune"]
+        link_parts = int(np.ceil(4 * n_nodes * 12 / cfg.link_budget_bytes))
+        if (n_batches * batch_slots * 8 <= cfg.outofcore_bytes or link_parts <= 3
+                or 2 * n_nodes <= cfg.bulk_jump_states):
+            raise AssertionError("ooc_extension: a limit does not switch its branch")
+        with reextractions() as healed:
+            out, stats, wall, peak, launches = timed_unitigs(
+                FastAssembler(cfg, device=device), reads)
+        torch.cuda.empty_cache()
+        want = {"fast_scan": 1 + passes * n_batches + healed_scans(healed)}
+        if hybrid:
+            # a staged partition sorts n_batches * cap_bp keys; a healed
+            # one (counted from its re-extraction alone) its true size
+            sizes = [n_batches * cap_bp] * partitions
+            for h in healed:
+                if h["what"] == "count":
+                    sizes[h["partition"]] = h["records"]
+            passes_of = [hybrid_pass_counts(n, bitonic_sort.DEFAULT_LIB_CHUNK,
+                                            bitonic_sort.DEFAULT_CHUNK) for n in sizes]
+            want.update(big_ce=sum(b for b, _ in passes_of), finish=sum(f for _, f in passes_of))
+        got = {name: launches[name] for name in want}
+        others = {n: c for n, c in sort_kernel_launches(launches).items() if n not in want}
+        same = (sorted(out) == sorted(full["unitigs"]),
+                {f: c for f, c in counters(stats).items() if f != "n_windows"}
+                == {f: c for f, c in full["counters"].items() if f != "n_windows"})
+        runs["hybrid" if hybrid else "default"] = dict(
+            partitions=partitions, group_size=G, cap_bp=cap_bp, passes=passes,
+            link_partitions=link_parts, reextracted=healed, launches=got,
+            launches_expected=want, phase_seconds=dict(stats.wall_s),
+            assemble_wall_seconds=wall, max_memory_allocated=peak,
+            equal_to_full_e2e=all(same))
+        if not all(same) or any(others.values()) or got != want:
+            raise AssertionError(f"ooc_extension (hybrid_sort={hybrid}): equal {same}, "
+                                 f"launches {got} want {want}, off the path {others}")
+        if hybrid and not (got["big_ce"] and got["finish"]):
+            raise AssertionError("ooc_extension: the partition counts never reached the network")
+    # the bulk jump with chunked rounds against the fused jump, on the
+    # preset's own links
+    # (and the peak device bytes of each in-core extension step, a node or
+    # a state, beside what it was given: what sizes link_budget_bytes and
+    # bulk_jump_states for the card)
+    kmer = torch.from_numpy(full["kept"]).to(device)
+    base = torch.cuda.memory_allocated()
+    links, _, join_peak = timed_call(
+        lambda: dbg.build_unitig_links_join(kmer, kmer != SENTINEL, k=ECOLI["k"]))
+    base_jump = torch.cuda.memory_allocated()
+    bulk, t_bulk, bulk_peak = timed_call(lambda: dbg.pointer_jump_bulk(links, lowmem_chunks=8))
+    del bulk
+    bulk2, _, bulk2_peak = timed_call(lambda: dbg.pointer_jump_bulk(links))
+    fused, _, fused_peak = timed_call(lambda: dbg.pointer_jump(links))
+    bulk, _, _ = timed_call(lambda: dbg.pointer_jump_bulk(links, lowmem_chunks=8))
+    jump_equal = all(torch.equal(a, b) and torch.equal(b, c)
+                     for a, b, c in zip(bulk, fused, bulk2))
+    n_nodes = int(kmer.shape[0])
+    extension_peaks = dict(
+        nodes=n_nodes, join_bytes_per_node=(join_peak - base) / n_nodes,
+        pointer_jump_bytes_per_state=(fused_peak - base_jump) / (2 * n_nodes),
+        bulk_jump_bytes_per_state=(bulk2_peak - base_jump) / (2 * n_nodes),
+        bulk_jump_lowmem_8_bytes_per_state=(bulk_peak - base_jump) / (2 * n_nodes))
+    del kmer, links, bulk, bulk2, fused
+    torch.cuda.empty_cache()
+    # the order of an out-of-core list: the card's equals the CPU's, element
+    # for element (small_e2e's reads, every switch thrown)
+    _, small, _ = datagen.generate_coverage_reads(
+        genome_len=3000, read_len=64, coverage=8, seed=5, with_reverse=True)
+    small_cfg = PipelineConfig(k=21, m=7, parity=False, max_read_len=128, batch_reads=128,
+                               outofcore_bytes=1 << 16, link_budget_bytes=1 << 12,
+                               bulk_jump_states=64)
+    on_card, s_card = FastAssembler(small_cfg, device=device).unitigs(small)
+    on_cpu, s_cpu = FastAssembler(small_cfg, device="cpu").unitigs(small)
+    order_equal = on_card == on_cpu and counters(s_card) == counters(s_cpu)
+    emit("ooc_extension", preset="ecoli", same_reads_as="full_e2e", limits=limits, runs=runs,
+         bulk_jump_lowmem_chunks_8_equal_pointer_jump=jump_equal,
+         bulk_jump_seconds=t_bulk, extension_peaks=extension_peaks,
+         small_ooc_list_card_equal_cpu=order_equal,
+         small_ooc_unitigs=len(on_card))
+    if not jump_equal or not order_equal or not on_card:
+        raise AssertionError(f"ooc_extension: bulk jump equal {jump_equal}, "
+                             f"small list card == CPU {order_equal}")
+
+
+def phase_parity_ooc_golden(device):
+    """The goldens' input out of core on the card (the JAX tests' 20,000 and
+    50,000 bytes, and 20,000 over three batches of 7): both engines, lines
+    and verbose, byte for byte; the pruned table equal to its golden."""
+    reads = reads_io.load_reads_parity(str(GOLDEN / "input.txt"))
+    unitigs = (GOLDEN / "input_k6m3_unitigs.txt").read_text()
+    verbose = (GOLDEN / "input_k6m3_verbose.txt").read_text()
+    post = {}
+    for line in (GOLDEN / "input_k6m3_postprune.txt").read_text().splitlines():
+        if line:
+            mmer, kmer, ids = line.split("\t")
+            post[(mmer, kmer)] = [int(x) for x in ids.split(",")] if ids else []
+    reset_launch_counts()
+    runs = []
+    for batch_reads, limit in ((64, 20_000), (64, 50_000), (7, 20_000)):
+        asm = ParityAssembler(PipelineConfig(k=6, m=3, batch_reads=batch_reads,
+                                             outofcore_bytes=limit), device=device)
+        if not asm._needs_outofcore(reads):
+            raise AssertionError(f"parity_ooc_golden: {batch_reads}, {limit} stays in core")
+        for engine in ("python", "native"):
+            lines, stats = asm.assemble(reads, engine=engine)
+            text, _ = asm.assemble(reads, engine=engine, verbose=True)
+            got = ("\n".join(lines) + "\n" == unitigs, text == verbose,
+                   (stats.entries_pre_prune, stats.entries_post_extension) == (97, 61))
+            runs.append(dict(batch_reads=batch_reads, outofcore_bytes=limit, engine=engine,
+                             unitigs_exact=got[0], verbose_exact=got[1],
+                             counts_97_61=got[2], phase_seconds=dict(stats.wall_s)))
+            if not all(got):
+                raise AssertionError(f"parity_ooc_golden: {runs[-1]}")
+        if asm.pruned_table_dict(reads) != post:
+            raise AssertionError("parity_ooc_golden: pruned_table_dict differs from the golden")
+    no_kernel_launched("parity_ooc_golden")
+    emit("parity_ooc_golden", reads=len(reads), runs=runs, postprune_exact=True)
+
+
+def by_first_seen(host, streams=None):
+    """A HostTable (and its streams) with the groups in first-seen order,
+    the order the replay sorts them into: the out-of-core table comes in
+    it, the in-core one in (mmer, kmer) order."""
+    order = np.argsort(host.first_seen, kind="stable")
+    table = parity_table.HostTable(
+        *(lane[order] for lane in host[:4]), read_ids=[host.read_ids[i] for i in order])
+    return table if streams is None else (table, [streams[i] for i in order])
+
+
+def phase_parity_ooc_scale(device):
+    """Parity mode out of core at the default limits: a 2 Mb genome at 50x
+    (2,000,000 read ids, 31 batches, 4 partitions); the unpruned host table
+    equal to the in-core table of the same reads (outofcore_bytes 8 GiB),
+    array for array.  Then BASELINE.md's big run forced out of core at
+    150 MB (below the dirty form's 192.7 MB at 20 B a slot: at 200 MB it
+    would stay in core), clean and with run_parity_soak.py --dirty's
+    corruption: host
+    tables, streams and string groups equal to in-core.  No replay (its cost
+    grows as the square of the entries; its input is what is held equal
+    here), no kernel launch."""
+    p = PARITY_OOC_SCALE
+    t0 = time.perf_counter()
+    _, lines, _ = datagen.generate_coverage_reads(
+        genome_len=p["genome_len"], read_len=p["read_len"], coverage=p["coverage"],
+        seed=p["seed"])
+    ids = fgets_read_ids(lines)
+    t_reads = time.perf_counter() - t0
+    cfg = parity_config(p)
+    asm = ParityAssembler(cfg, device=device)
+    n_batches = -(-len(ids) // cfg.batch_reads)
+    slots = n_batches * cfg.batch_reads * cfg.windows_per_read
+    if not asm._needs_outofcore(ids):
+        raise AssertionError(f"parity_ooc_scale: {slots} slots stay in core")
+    partitions = int(np.ceil(slots * 20 / (cfg.outofcore_bytes / 3)))
+    reset_launch_counts()
+    (host, stats), t_ooc, peak = timed_call(lambda: asm._groups_outofcore(ids, -1))
+    torch.cuda.empty_cache()
+    incore = ParityAssembler(dataclasses.replace(cfg, outofcore_bytes=INCORE_BYTES),
+                             device=device)
+
+    def incore_table():
+        counted, in_stats = incore.counter.count_reads(ids)
+        return parity_table.extract_groups(counted, pruned=False), in_stats
+
+    (in_table, in_stats), t_in, in_peak = timed_call(incore_table)
+    torch.cuda.empty_cache()
+    same = dict(host_table=host_tables_equal(host, by_first_seen(in_table)),
+                n_windows=stats.n_windows == in_stats.n_windows,
+                entries=stats.entries_pre_prune == in_stats.entries_pre_prune == len(host.mmer))
+    del in_table
+    # BASELINE.md's big run, clean and dirty, forced out of core at 150 MB
+    # (BIG_RUN_OOC_BYTES: the dirty form holds 192.7 MB at 20 B a slot)
+    b = PARITY_E2E
+    _, big_lines, _ = datagen.generate_coverage_reads(
+        genome_len=b["genome_len"], read_len=b["read_len"], coverage=b["coverage"],
+        seed=b["seed"])
+    big_ids = fgets_read_ids(big_lines)
+    dirty_ids = fgets_read_ids(dirtify(big_lines, b["seed"])[0])
+    big_cfg = parity_config(b)
+    forced = ParityAssembler(dataclasses.replace(big_cfg, outofcore_bytes=BIG_RUN_OOC_BYTES),
+                             device=device)
+    big_in = ParityAssembler(big_cfg, device=device)
+    if not (forced._needs_outofcore(big_ids) and forced._needs_outofcore(dirty_ids)) \
+            or big_in._needs_outofcore(big_ids):
+        raise AssertionError("parity_ooc_scale: the forced limit does not split the big run")
+    (ooc_clean, _), t_clean, clean_peak = timed_call(lambda: forced._groups_outofcore(big_ids, -1))
+    same["big_clean_host_table"] = host_tables_equal(
+        ooc_clean, by_first_seen(unpruned_host_table(big_in, big_ids)))
+    ooc_host, ooc_streams, _ = forced._groups_outofcore(dirty_ids, -1, with_streams=True)
+    counted, _ = big_in.counter.count_reads(dirty_ids)
+    in_host, in_streams = by_first_seen(
+        *parity_table.extract_groups_with_streams(counted, pruned=False))
+    del counted
+    same["big_dirty_host_table"] = host_tables_equal(ooc_host, in_host)
+    same["big_dirty_streams"] = len(ooc_streams) == len(in_streams) and np.array_equal(
+        np.concatenate(ooc_streams), np.concatenate(in_streams))
+    (ooc_groups, ooc_gstats, _), t_dirty, dirty_peak = timed_call(
+        lambda: forced._nonacgt_groups(dirty_ids))
+    in_groups, in_gstats, _ = big_in._nonacgt_groups(dirty_ids)
+    same["big_dirty_string_groups"] = ooc_groups == in_groups
+    no_kernel_launched("parity_ooc_scale")
+    torch.cuda.empty_cache()
+    emit("parity_ooc_scale", genome_len=p["genome_len"], coverage=p["coverage"],
+         lines=len(lines), read_ids=len(ids), k=cfg.k, m=cfg.m, batch_reads=cfg.batch_reads,
+         n_batches=n_batches, window_slots=slots, record_bytes_at_20_per_slot=slots * 20,
+         outofcore_bytes=cfg.outofcore_bytes, partitions=partitions,
+         read_generation_host_seconds=t_reads, phase_seconds=dict(stats.wall_s),
+         outofcore_seconds=t_ooc, max_memory_allocated=peak,
+         incore_phase_seconds=dict(in_stats.wall_s), incore_count_extract_seconds=t_in,
+         incore_max_memory_allocated=in_peak, groups=len(host.mmer),
+         peak_bytes_per_window_slot=peak / slots, incore_peak_bytes_per_window_slot=in_peak / slots,
+         big_run=dict(read_ids=len(big_ids), dirty_read_ids=len(dirty_ids),
+                      outofcore_bytes=BIG_RUN_OOC_BYTES, clean_seconds=t_clean,
+                      clean_max_memory_allocated=clean_peak, dirty_groups_seconds=t_dirty,
+                      dirty_max_memory_allocated=dirty_peak, string_groups=len(ooc_groups),
+                      dirty_phase_seconds=dict(ooc_gstats.wall_s),
+                      incore_dirty_phase_seconds=dict(in_gstats.wall_s)),
+         replay="not run: the input it would replay is held equal to in core",
+         equal_to_incore=same, **counters(stats))
+    if not all(same.values()):
+        raise AssertionError(f"parity_ooc_scale: out of core and in core differ: {same}")
 
 
 def phase_sort_entry_points(device, n_keys):
@@ -2351,6 +2792,11 @@ def main() -> int:
     tallies = phase_sort_check(device)
     tallies.update(phase_merge_check(device))
     hybrid_launches = phase_hybrid_e2e(device, full)
+    torch.cuda.empty_cache()
+    phase_ooc_extension(device, full, args.coverage)
+    phase_ooc_e2e(device)
+    phase_parity_ooc_golden(device)
+    phase_parity_ooc_scale(device)
     n_keys = full["fields"]["window_slots"]
     first_batch, scan_launches = full["first_batch"], full["launches"]["fast_scan"]
     real_keys = scanned_keys(full["reads"], ecoli_config(), device)

@@ -45,8 +45,9 @@ def _add_pipeline_args(ap: argparse.ArgumentParser) -> None:
         "--outofcore-gb",
         type=float,
         default=3.0,
-        help="record gigabytes above which counting would go out of core "
-        "(that path is not ported yet and raises)",
+        help="record gigabytes above which counting goes out of core "
+        "(hash-partitioned multi-pass passes; fast mode at 8 bytes a window "
+        "slot, parity mode at 20)",
     )
 
 

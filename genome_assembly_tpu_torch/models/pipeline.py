@@ -9,10 +9,18 @@ quirks (host) -> signature scan -> count with read-id and stream payloads
 extension (host: the Python spec or the C++ engine) -> the reference's
 exact output.
 
+Past ``outofcore_bytes`` of window records both modes count out of core
+(ops/outofcore.py): each pass re-scans every batch and counts a group of
+hash partitions; fast mode then builds its links out of core past
+``link_budget_bytes`` and jumps with the low-memory bulk form past
+``bulk_jump_states``, and materializes on the device.  The limits and the
+switch formulas are the JAX package's, so both packages take the same
+branch for one config.
+
 Every entry point takes ``device`` and defaults to ``"cuda"``: asked for a
 card on a machine without one it raises, it does not carry on on the CPU.
-The out-of-core and multi-device branches of the JAX package are not
-ported yet and raise ``NotImplementedError``.
+The multi-device branches of the JAX package are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from genome_assembly_tpu_torch.native import replay_native
 from genome_assembly_tpu_torch.ops import count as count_ops
 from genome_assembly_tpu_torch.ops import dbg
 from genome_assembly_tpu_torch.ops import minimizer
+from genome_assembly_tpu_torch.ops import outofcore
 from genome_assembly_tpu_torch.parity import nonacgt
 from genome_assembly_tpu_torch.parity import replay as replay_mod
 from genome_assembly_tpu_torch.parity import table as table_ops
@@ -77,6 +86,45 @@ def _check_device(device, who: str) -> torch.device:
             "has none; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def _extension_graph(kmer, valid, *, k: int, clock: _PhaseClock,
+                     link_budget: Optional[int] = None,
+                     bulk_jump_states: Optional[int] = None):
+    """Links + jump, lapping ``links`` and ``jump`` on the clock.
+
+    In core (no limits given) the join and the fused jump.  Past device
+    memory, with the JAX package's switches: when the 4N link records
+    would exceed ~3x ``link_budget`` (at the JAX package's 12 bytes a
+    record) the links are built out of core, and above
+    ``bulk_jump_states`` states the jump takes its low-memory bulk form."""
+    n_nodes = int(kmer.shape[0])
+    rec_bytes = 4 * n_nodes * 12
+    if link_budget is None or rec_bytes <= 3 * link_budget:
+        links = dbg.build_unitig_links_join(kmer, valid, k=k)
+    else:
+        # build_unitig_links_ooc pads the keys to a chunk multiple: cap the chunk near
+        # the input size
+        chunk_nodes = min(1 << 24, 1 << int(np.ceil(np.log2(max(n_nodes, 2)))))
+        links = dbg.build_unitig_links_ooc(
+            kmer, valid, k=k, partitions=int(np.ceil(rec_bytes / link_budget)),
+            chunk_nodes=chunk_nodes)
+    clock.lap("links")
+    if bulk_jump_states is not None and 2 * n_nodes > bulk_jump_states:
+        graph = dbg.pointer_jump_bulk(links)
+    else:
+        graph = dbg.pointer_jump(links)
+    clock.lap("jump")
+    return graph
+
+
+def _batch_source(batches, device, fn):
+    """b -> fn(b, codes, lengths, read_ids) of host batch b, copied to the
+    device anew on every call (each out-of-core pass re-scans)."""
+    def records(b):
+        codes, lengths, rids = next(iter(stream_io.feed_read_batches([batches[b]], device)))
+        return fn(b, codes, lengths, rids)
+    return records
 
 
 class CountPipeline:
@@ -195,13 +243,6 @@ class FastAssembler:
                 "(multi-device slice)"
             )
 
-    def _graph(self, kmer: torch.Tensor, valid: torch.Tensor, clock: _PhaseClock):
-        links = dbg.build_unitig_links_join(kmer, valid, k=self.config.k)
-        clock.lap("links")
-        graph = dbg.pointer_jump(links)
-        clock.lap("jump")
-        return graph
-
     def unitigs(
         self, reads: Sequence[str], mesh=None
     ) -> Tuple[List[str], PhaseStats]:
@@ -210,11 +251,7 @@ class FastAssembler:
         n_batches = -(-len(reads) // cfg.batch_reads)
         total_slots = n_batches * cfg.batch_reads * cfg.windows_per_read
         if total_slots * 8 > cfg.outofcore_bytes:
-            raise NotImplementedError(
-                f"{total_slots} window slots exceed outofcore_bytes="
-                f"{cfg.outofcore_bytes}; hash-partitioned out-of-core "
-                "counting is not ported yet (out-of-core slice)"
-            )
+            return self._unitigs_outofcore(reads, total_slots)
         stats = PhaseStats(n_reads=len(reads))
         clock = _PhaseClock(stats, self.device)
         combined, _ = self._flat_fast_records(reads, stats, clock)
@@ -230,8 +267,43 @@ class FastAssembler:
         n_nodes = stats.entries_post_prune
         kmer, valid = kmer[:n_nodes], valid[:n_nodes]
         clock.lap("count")
-        graph = self._graph(kmer, valid, clock)
+        graph = _extension_graph(kmer, valid, k=cfg.k, clock=clock)
         out = dbg.materialize_unitigs(kmer, valid, graph, cfg.k)
+        clock.lap("materialize")
+        stats.entries_post_extension = len(out)
+        return out, stats
+
+    def _unitigs_outofcore(self, reads: Sequence[str], total_slots: int):
+        """The record set exceeds ``outofcore_bytes``: hash-partitioned
+        multi-pass counting (ops/outofcore.py), re-scanning every batch a
+        pass; then links and jump with their own switches, and the device
+        materializer.  ``wall_s``: batch, count (every pass: scans,
+        extraction, partition counts), links, jump, materialize.
+        ``n_windows`` is the window slots, as in the JAX package's branch."""
+        cfg = self.config
+        stats = PhaseStats(n_reads=len(reads))
+        clock = _PhaseClock(stats, self.device)
+        batches = reads_io.batch_reads(reads, cfg.max_read_len, cfg.batch_reads)
+        if len(batches) > 1:
+            batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
+        clock.lap("batch")
+        batch_keys = _batch_source(
+            batches, self.device,
+            lambda b, codes, lengths, rids: self.counter.scan(codes, lengths).kmer.reshape(-1))
+        partitions = max(1, int(np.ceil(total_slots * 8 / (cfg.outofcore_bytes / 3))))
+        pc = outofcore.partitioned_count(
+            batch_keys, len(batches), partitions=partitions,
+            cutoff=cfg.abundance_cutoff, hybrid_sort=cfg.hybrid_sort)
+        stats.n_windows = total_slots
+        stats.entries_pre_prune = pc.n_distinct
+        stats.entries_post_prune = pc.n_kept
+        kmer, valid = pc.kmer, pc.valid
+        del pc
+        clock.lap("count")
+        graph = _extension_graph(
+            kmer, valid, k=cfg.k, clock=clock, link_budget=cfg.link_budget_bytes,
+            bulk_jump_states=cfg.bulk_jump_states)
+        out, _, _ = dbg.materialize_unitigs_device(kmer, valid, graph, cfg.k)
         clock.lap("materialize")
         stats.entries_post_extension = len(out)
         return out, stats
@@ -297,7 +369,7 @@ class FastAssembler:
         n_nodes = stats.entries_post_prune
         kmer, valid, counts = kmer[:n_nodes], valid[:n_nodes], counts[:n_nodes]
         clock.lap("count")
-        graph = self._graph(kmer, valid, clock)
+        graph = _extension_graph(kmer, valid, k=cfg.k, clock=clock)
         out, occ_sum, n_kmers = dbg.materialize_unitigs_cov(
             kmer, valid, graph, cfg.k, counts
         )
@@ -352,7 +424,7 @@ class FastAssembler:
         cfg = self.config
         kmer_dev = torch.from_numpy(kmer).to(self.device)
         valid = torch.ones(len(kmer), dtype=torch.bool, device=self.device)
-        graph = self._graph(kmer_dev, valid, clock)
+        graph = _extension_graph(kmer_dev, valid, k=cfg.k, clock=clock)
         out = dbg.materialize_unitigs(kmer, np.ones(len(kmer), bool), graph, cfg.k)
         u_off, u_rows = dbg.unitig_member_nodes(kmer, out, cfg.k)
         # one vectorized gather + dedup for ALL unitigs: flatten every
@@ -417,7 +489,7 @@ class ParityAssembler:
         self._reject_dirty(reads, "pruned_table (packed HostTable cannot "
                            "carry raw bytes; use pruned_table_dict)")
         if self._needs_outofcore(reads):
-            self._groups_outofcore()  # raises
+            return self._groups_outofcore(reads, self.config.abundance_cutoff)
         counted, stats = self.counter.count_reads(reads)
         clock = _PhaseClock(stats, self.device)
         host = table_ops.extract_groups(counted, pruned=True)
@@ -441,12 +513,57 @@ class ParityAssembler:
         total_slots = n_batches * cfg.batch_reads * cfg.windows_per_read
         return total_slots * 20 > cfg.outofcore_bytes
 
-    def _groups_outofcore(self):
-        raise NotImplementedError(
-            "the parity record set exceeds outofcore_bytes; hash-partitioned "
-            "out-of-core parity counting is not ported yet (ROADMAP.md "
-            "queue 1 item 3)"
-        )
+    def _groups_outofcore(self, reads: Sequence[str], cutoff: int, with_streams: bool = False):
+        """Hash-partitioned multi-pass parity counting (ops/outofcore.py).
+
+        Bit parity holds: partitions cover complete (mmer, kmer) groups and
+        every group carries its global first-seen stream index, so the
+        merged table is in the reference's insertion order.  Returns (host
+        table, stats) or, with ``with_streams``, (host table, streams,
+        stats).  ``wall_s``: batch, count (every pass and the host merge).
+        """
+        cfg = self.config
+        stats = PhaseStats(n_reads=len(reads))
+        clock = _PhaseClock(stats, self.device)
+        batches = reads_io.batch_reads(
+            reads, cfg.max_read_len, cfg.batch_reads, parity_chars=True)
+        if not batches:
+            raise ValueError("no reads")
+        if len(batches) > 1:
+            batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
+        n_win = cfg.windows_per_read
+        total_slots = len(batches) * cfg.batch_reads * n_win
+        clock.lap("batch")
+
+        def records(b, codes, lengths, rids):
+            recs = self.counter.scan(codes, lengths)
+            rows, nw = recs.kmer.shape
+            n = rows * nw
+            stream = torch.arange(n, dtype=torch.int64, device=codes.device) + (
+                b * cfg.batch_reads * n_win)
+            return (recs.mmer.reshape(n), recs.kmer.reshape(n),
+                    rids[:, None].expand(rows, nw).reshape(n), stream)
+
+        partitions = max(1, int(np.ceil(total_slots * 20 / (cfg.outofcore_bytes / 3))))
+        out = outofcore.partitioned_count_parity(
+            _batch_source(batches, self.device, records), len(batches),
+            partitions=partitions, cutoff=cutoff,
+            with_streams=with_streams)
+        host, streams = out[0], (out[1] if with_streams else None)
+        n_windows, overflows = out[-2:]
+        if overflows:
+            raise RuntimeError(
+                f"out-of-core parity counting: {overflows} records of a batch "
+                "exceeded their partition's staging cap (a heavily repeated "
+                "k-mer); raise outofcore_bytes (fewer, wider partitions, or "
+                "none past the limit)")
+        stats.n_windows = n_windows
+        stats.entries_pre_prune = len(host.mmer) if cutoff < 0 else 0
+        stats.entries_post_prune = len(host.mmer) if cutoff >= 0 else 0
+        clock.lap("count")
+        if with_streams:
+            return host, streams, stats
+        return host, stats
 
     def _assemble_sharded(self):
         raise NotImplementedError(
@@ -506,14 +623,15 @@ class ParityAssembler:
         if nonacgt.has_non_acgt(reads):
             return self._assemble_nonacgt(reads, engine, verbose)
         if self._needs_outofcore(reads):
-            # raises; when ported, it keeps every group (cutoff -1): the
-            # replay prunes, as the reference does
-            self._groups_outofcore()
-        counted, stats = self.counter.count_reads(reads)
-        clock = _PhaseClock(stats, self.device)
-        host_all = table_ops.extract_groups(counted, pruned=False)
-        del counted
-        clock.lap("extract")
+            # every group (cutoff -1): the replay prunes, as the reference does
+            host_all, stats = self._groups_outofcore(reads, -1)
+            clock = _PhaseClock(stats, self.device)
+        else:
+            counted, stats = self.counter.count_reads(reads)
+            clock = _PhaseClock(stats, self.device)
+            host_all = table_ops.extract_groups(counted, pruned=False)
+            del counted
+            clock.lap("extract")
         if engine == "native":
             # the packed lanes go to the engine as they are
             def run():
@@ -530,13 +648,15 @@ class ParityAssembler:
         unpruned, in insertion order."""
         cfg = self.config
         if self._needs_outofcore(reads):
-            self._groups_outofcore()  # raises; when ported, with streams
-        counted, stats = self.counter.count_reads(reads)
-        clock = _PhaseClock(stats, self.device)
-        host_all, streams = table_ops.extract_groups_with_streams(
-            counted, pruned=False
-        )
-        del counted
+            host_all, streams, stats = self._groups_outofcore(reads, -1, with_streams=True)
+            clock = _PhaseClock(stats, self.device)
+        else:
+            counted, stats = self.counter.count_reads(reads)
+            clock = _PhaseClock(stats, self.device)
+            host_all, streams = table_ops.extract_groups_with_streams(
+                counted, pruned=False
+            )
+            del counted
         groups = nonacgt.regroup_with_exceptions(
             host_all, streams, reads, k=cfg.k, m=cfg.m, n_win=cfg.windows_per_read,
         )

@@ -163,6 +163,265 @@ def pointer_jump(next_state: torch.Tensor) -> CompactedGraph:
 
 
 # ---------------------------------------------------------------------------
+# Past device memory: the out-of-core link join and the bulk jump.
+# ---------------------------------------------------------------------------
+
+# Link records: a (k-1)-mer key and a payload ``side << 62 | state``
+# (side 0 = OUT, keyed by the state's suffix; 1 = IN, keyed by its prefix).
+# The JAX package packs ``side << 31 | state`` into uint32; bit 62 leaves
+# the state id all of int64's range below it.
+_SIDE_SHIFT = 62
+_STATE_MASK = (1 << _SIDE_SHIFT) - 1
+
+# staging budget of one link pass, the JAX package's default
+LINK_GROUP_BUDGET_BYTES = 5 << 30
+
+
+def _chunk_boundary_records(kmer_c: torch.Tensor, valid_c: torch.Tensor,
+                            base_node: int, *, k: int):
+    """OUT/IN boundary records of one chunk of nodes, both strands.
+
+    Returns (key, payload), each 4 * chunk long: OUT forward, OUT reverse,
+    IN forward, IN reverse; payload = side << 62 | global state id.  Rows
+    of invalid nodes are SENTINEL in both lanes.  Record order is free:
+    the records are hash-partitioned and sorted downstream.
+    """
+    chunk = kmer_c.shape[0]
+    g0 = 2 * (base_node + torch.arange(chunk, dtype=torch.int64, device=kmer_c.device))
+    gid = torch.cat([g0, g0 + 1])
+    oriented = torch.cat([kmer_c, encode.reverse_complement_packed(kmer_c, k)])
+    state_valid = torch.cat([valid_c, valid_c])
+    suffix = oriented & ((1 << (2 * k - 2)) - 1)
+    prefix = oriented >> 2
+    key = torch.cat([torch.where(state_valid, suffix, SENTINEL),
+                     torch.where(state_valid, prefix, SENTINEL)])
+    payload = torch.cat([torch.where(state_valid, gid, SENTINEL),
+                         torch.where(state_valid, gid | (1 << _SIDE_SHIFT), SENTINEL)])
+    return key, payload
+
+
+def _partition_edges(key: torch.Tensor, payload: torch.Tensor):
+    """Sort one partition's records and pair-test: (src or -1, dst).
+
+    The exactly-two-rows OUT-then-IN group test of
+    ``build_unitig_links_join``, over records whose key groups are
+    complete (all of a (k-1)-mer's records share its hash partition).  A
+    (k-1)-mer is below 2^60, so (key, side) sorts as ONE int64
+    ``key << 1 | side``: a group of one OUT and one IN row comes out OUT
+    first, and no other group can pass the test whatever its order.
+    """
+    valid = key != SENTINEL
+    side = payload >> _SIDE_SHIFT
+    order = torch.sort(torch.where(valid, (key << 1) | side, SENTINEL), stable=True).indices
+    key_s, pay_s = key[order], payload[order]
+    side_s = pay_s >> _SIDE_SHIFT
+    state_s = pay_s & _STATE_MASK
+    edge_fill = SENTINEL ^ 1
+    same_next = _shift_next(key_s, edge_fill) == key_s
+    same_prev = _shift_prev(key_s, edge_fill) == key_s
+    pair = (
+        ~same_prev
+        & same_next
+        & ~_shift_next(same_next, True)
+        & (side_s == 0)
+        & (_shift_next(side_s, 1) == 1)
+        & (key_s != SENTINEL)
+    )
+    target = _shift_next(state_s, -1)
+    edge = pair & (target != (state_s ^ 1))
+    return torch.where(edge, state_s, -1), target
+
+
+def _scatter_edges(next_state: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> None:
+    """next_state[src] = dst where src >= 0, in place; rows without an edge
+    write into the last slot, which the caller keeps spare (no read-back)."""
+    spare = next_state.shape[0] - 1
+    next_state.scatter_(0, torch.where(src >= 0, src, spare), dst)
+
+
+def build_unitig_links_ooc(
+    kmer: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    k: int,
+    partitions: int,
+    chunk_nodes: int = 1 << 24,
+) -> torch.Tensor:
+    """next_state[2N] for key sets whose 4N-record join sort exceeds
+    device memory.
+
+    The same result as ``build_unitig_links_join``, in ceil(P / G)
+    passes: each pass makes every chunk's boundary records again
+    (arithmetic over the resident keys), extracts a group of G range
+    partitions (``outofcore.extract_partition_range3``, G from a staging
+    budget), then sorts and pair-tests each partition alone and scatters
+    its edges into the link array.  A partition whose statistical staging
+    cap overflowed is re-extracted alone after the group's clean ones, so
+    no edge is ever lost.
+
+    Returns next_state [2N] int64.  (The JAX package's builder also
+    returns an overflow count; here it could only be 0.)
+    """
+    from genome_assembly_tpu_torch.ops import outofcore
+
+    if k % 2 == 0:
+        raise ValueError("fast-mode dBG requires odd k")
+    n = kmer.shape[0]
+    if n % chunk_nodes:
+        pad = chunk_nodes - (n % chunk_nodes)
+        kmer = torch.cat([kmer, kmer.new_full((pad,), SENTINEL)])
+        valid = torch.cat([valid, valid.new_zeros((pad,))])
+    n_chunks = kmer.shape[0] // chunk_nodes
+    rec_per_chunk = 4 * chunk_nodes
+    cap_bp, G = outofcore.range_group_plan(
+        n_chunks, rec_per_chunk, partitions=partitions,
+        bytes_per_record=12, budget_bytes=LINK_GROUP_BUDGET_BYTES,
+        sigma_scale=2.9,  # boundary keys join in groups of <= 8 per
+        # (k-1)-mer: sqrt(8) deviation inflation
+    )
+
+    def chunk_records(c):
+        s = c * chunk_nodes
+        return _chunk_boundary_records(
+            kmer[s: s + chunk_nodes], valid[s: s + chunk_nodes], s, k=k)
+
+    # one spare slot past the 2N states takes the writes of non-edges
+    next_state = kmer.new_full((2 * kmer.shape[0] + 1,), -1)
+
+    def emit(key, pay):
+        src, dst = _partition_edges(key, pay)
+        _scatter_edges(next_state, src, dst)
+
+    for g in range(-(-partitions // G)):
+        parts, group_overflows = outofcore.stage_group(
+            chunk_records, n_chunks, outofcore.extract_partition_range3, g,
+            partitions=partitions, group_size=G, cap_bp=cap_bp,
+            dtypes=(torch.int64, torch.int64))
+        overflowed = []
+        for r in range(G):
+            p = g * G + r
+            lanes, parts[r] = parts[r], None
+            if p >= partitions:
+                continue
+            if group_overflows[r]:
+                # incomplete staging: no edge of it is scattered; it is
+                # re-extracted alone once the group's staging is freed
+                overflowed.append(p)
+                continue
+            emit(*lanes)
+            del lanes
+        del parts
+        for p in overflowed:
+            emit(*outofcore._reextract(
+                chunk_records, n_chunks, p, extract=outofcore.extract_partition_range3,
+                partitions=partitions, cap0=cap_bp, unit_records=rec_per_chunk,
+                what="link"))
+    return next_state[: 2 * n]
+
+
+def _jump_init(next_state: torch.Tensor, lanes: int = 2):
+    """The round-0 table [2N, lanes] (parent, rank[, min id]) and pred."""
+    n2 = next_state.shape[0]
+    ids = torch.arange(n2, dtype=torch.int64, device=next_state.device)
+    pred = torch.full((n2 + 1,), -1, dtype=torch.int64, device=next_state.device)
+    pred.scatter_(0, torch.where(next_state >= 0, next_state, n2), ids)
+    pred = pred[:n2]
+    parent = torch.where(pred >= 0, pred, ids)
+    cols = [parent, (pred >= 0).long()]
+    if lanes == 3:
+        cols.append(torch.minimum(ids, parent))
+    return torch.stack(cols, dim=1), pred
+
+
+def _jump_rows(tbl: torch.Tensor, rows: torch.Tensor):
+    """One doubling step for ``rows`` of the table (a slice of it): the
+    rows' new values and whether a parent moved (on the device)."""
+    parent = rows[:, 0]
+    g = tbl[parent]  # one row gather for every lane
+    cols = [g[:, 0], rows[:, 1] + g[:, 1]]
+    if tbl.shape[1] == 3:
+        cols.append(torch.minimum(rows[:, 2], g[:, 2]))
+    new = torch.stack(cols, dim=1)
+    return new, (new[:, 0] != parent).any()
+
+
+def _jump_round_lowmem(tbl: torch.Tensor, out: torch.Tensor, *, n_chunks: int):
+    """One doubling round at minimum live memory: the OLD table + the NEW.
+
+    Doubling cannot run in place (late chunks gather rows early chunks
+    would have overwritten), so the floor is two tables; the gather
+    temporaries are chunk-sized.  Writes ``out`` and returns (out,
+    changed); callers ping-pong the two buffers across rounds.
+    """
+    rows = tbl.shape[0] // n_chunks
+    changed = torch.zeros((), dtype=torch.bool, device=tbl.device)
+    for c in range(n_chunks):
+        new, moved = _jump_rows(tbl, tbl[c * rows: (c + 1) * rows])
+        out[c * rows: (c + 1) * rows] = new
+        changed |= moved
+    return out, changed
+
+
+def _jump_finish(tbl: torch.Tensor, pred: torch.Tensor, next_state: torch.Tensor):
+    parent = tbl[:, 0]
+    is_cycle = pred[parent] >= 0
+    min_lane = tbl[:, 2] if tbl.shape[1] == 3 else parent
+    head = torch.where(is_cycle, min_lane, parent)
+    rank = torch.where(is_cycle, 0, tbl[:, 1])
+    return CompactedGraph(next_state=next_state, head=head, rank=rank, is_cycle=is_cycle)
+
+
+def pointer_jump_bulk(next_state: torch.Tensor, lowmem_chunks: int | None = None) -> CompactedGraph:
+    """pointer_jump for HUGE graphs: the same result, lower peak memory.
+
+    Each doubling round is its own step over a [2N, lanes] table (one
+    row gather), and early exit reads one bool a round.  The common
+    acyclic case carries TWO lanes (parent, rank); when cycles are found
+    the doubling reruns once with a third lane, the cycle's minimum state
+    id.
+
+    lowmem_chunks > 0 (automatic above 2^27 states) runs the rounds in
+    that many slices over two ping-ponged tables
+    (``_jump_round_lowmem``); the states are padded to a multiple of it
+    with self-absorbed isolates, invisible to results and to early exit.
+    """
+    n2 = next_state.shape[0]
+    steps = max(1, math.ceil(math.log2(max(n2, 2))) + 1)
+    if lowmem_chunks is None:
+        lowmem_chunks = 8 if n2 > (1 << 27) else 0
+    n2p = n2
+    ns_run = next_state
+    if lowmem_chunks:
+        n2p = -(-n2 // lowmem_chunks) * lowmem_chunks
+        if n2p != n2:
+            ns_run = torch.cat([next_state, next_state.new_full((n2p - n2,), -1)])
+
+    def run(lanes):
+        tbl, pred = _jump_init(ns_run, lanes)
+        out = torch.empty_like(tbl) if lowmem_chunks else None
+        for _ in range(steps):
+            if lowmem_chunks:
+                new, changed = _jump_round_lowmem(tbl, out, n_chunks=lowmem_chunks)
+                tbl, out = new, tbl
+            else:
+                tbl, changed = _jump_rows(tbl, tbl)
+            if not bool(changed):  # one read-back a round
+                break
+        del out
+        graph = _jump_finish(tbl, pred, next_state)
+        if n2p != n2:
+            graph = CompactedGraph(next_state=next_state, head=graph.head[:n2],
+                                   rank=graph.rank[:n2], is_cycle=graph.is_cycle[:n2])
+        return graph
+
+    graph = run(2)
+    if bool(graph.is_cycle.any()):
+        del graph  # free before the wider rerun
+        graph = run(3)
+    return graph
+
+
+# ---------------------------------------------------------------------------
 # Host side (numpy): ragged string assembly from the fixed-shape chain
 # assignment.  Takes numpy arrays or tensors.
 # ---------------------------------------------------------------------------
@@ -417,6 +676,152 @@ def _materialize(
             node_counts[s_sorted >> 1].astype(np.int64), starts
         )
 
+    return _canonical_chain_strings(
+        buf.tobytes(), out_off, chain_lens, chain_sums,
+        cycle_strings, cycle_sums, cycle_lens,
+    )
+
+
+_ASCII_TGCA = torch.tensor(list(b"TGCA"), dtype=torch.uint8)
+_NO_WALK = torch.iinfo(torch.int64).max
+# the walk sort packs a state id and a rank into one int64 (31 bits each)
+MAX_WALK_STATES = 1 << 31
+
+
+def _count_cycle_nodes(valid: torch.Tensor, is_cycle: torch.Tensor) -> torch.Tensor:
+    """Valid cycle states (a device scalar)."""
+    return (is_cycle & valid.repeat_interleave(2)).sum()
+
+
+def _materialize_prep_sort(valid, head, rank, is_cycle):
+    """Device walk sort for ``materialize_unitigs_device``.
+
+    Sorts the linear valid states into (head, rank) walk order with ONE
+    int64 sort on ``head << 32 | rank`` (the caller holds state ids and
+    ranks below 2^31: ``MAX_WALK_STATES``); invalid and cycle rows sort
+    to a tail.  Returns (sid_s,
+    chain_start, n_lin) -- n_lin a device scalar.  (head, rank) is unique
+    among linear states, so the order is fully determined.
+    """
+    lin = valid.repeat_interleave(2) & ~is_cycle
+    key_s, sid_s = torch.sort(torch.where(lin, (head << 32) | rank, _NO_WALK))
+    h_s = key_s >> 32
+    chain_start = torch.ones_like(lin)
+    chain_start[1:] = h_s[1:] != h_s[:-1]
+    walk = key_s != _NO_WALK
+    return sid_s, chain_start & walk, walk.sum()
+
+
+def _materialize_prep_bytes(kmer: torch.Tensor, sid_s: torch.Tensor, *, k: int) -> torch.Tensor:
+    """Each state's output byte in walk order: its value's last base as
+    ASCII.  A forward state ends in ``kmer & 3``; a reverse state in the
+    complement of the forward k-mer's FIRST base (complement == 3 - code
+    in the T=0 G=1 C=2 A=3 encoding)."""
+    kv = kmer[sid_s >> 1]
+    first_code = (kv >> (2 * k - 2)) & 3
+    code = torch.where((sid_s & 1) == 0, kv & 3, 3 - first_code)
+    return _ASCII_TGCA.to(kmer.device)[code]
+
+
+def _host_state_vals(kmer, k: int, sids: np.ndarray) -> np.ndarray:
+    """uint64 packed 2k-bit values of the given STATE ids (node = sid >> 1,
+    odd sid = reverse complement), for just those states: the nodes' keys
+    are gathered where ``kmer`` lies and only they come to the host."""
+    node = torch.from_numpy(np.asarray(sids, dtype=np.int64) >> 1)
+    if isinstance(kmer, torch.Tensor):
+        v = kmer[node.to(kmer.device)].cpu().numpy().astype(np.uint64)
+    else:
+        v = np.asarray(kmer)[node.numpy()].astype(np.uint64)
+    odd = (np.asarray(sids) & 1).astype(bool)
+    if odd.any():
+        kmask = (np.uint64(1) << np.uint64(2 * k)) - np.uint64(1)
+        comp = kmask - v[odd]  # complement per 2-bit group == mask - v
+        out = np.zeros_like(comp)
+        for j in range(k):
+            out = (out << np.uint64(2)) | ((comp >> np.uint64(2 * j)) & np.uint64(3))
+        v[odd] = out
+    return v
+
+
+def materialize_unitigs_device(
+    kmer, valid, graph: CompactedGraph, k: int, node_counts=None
+) -> Tuple[List[str], np.ndarray, np.ndarray]:
+    """materialize_unitigs(_cov) with the heavy steps on the device.
+
+    The host materializer reads the whole graph back, runs a k-step
+    reverse complement over all 2N values and lexsorts 2N states.  Here
+    the walk sort and each state's output byte run on the device; the
+    host reads back one byte a linear state, the chain starts and their
+    head states' keys (the k-step reverse complement runs for chain heads
+    only), then places the bytes in one vectorized pass.  Cycles take the
+    shared host cycle path.  Same output as ``materialize_unitigs`` /
+    ``materialize_unitigs_cov``, same order.
+
+    Returns (unitigs, occ_sums, n_kmers); the count arrays are empty when
+    node_counts is None.
+    """
+    device = graph.head.device
+    if graph.head.shape[0] > MAX_WALK_STATES:
+        raise ValueError(
+            f"{graph.head.shape[0]} states: the device walk sort packs state ids "
+            f"and ranks into one int64 and takes at most {MAX_WALK_STATES}")
+    kmer = torch.as_tensor(kmer).to(device)
+    valid = torch.as_tensor(valid).to(device)
+    n_cyc = int(_count_cycle_nodes(valid, graph.is_cycle))
+    cycle_strings: List[str] = []
+    cycle_sums: List[int] = []
+    cycle_lens: List[int] = []
+    if n_cyc:
+        cyc_states = torch.nonzero(
+            graph.is_cycle & valid.repeat_interleave(2)).reshape(-1).cpu().numpy()
+        cycle_strings, cycle_sums, cycle_lens = _materialize_cycles(
+            _host(graph.next_state), _host(graph.head), cyc_states,
+            _host_state_vals(kmer, k, cyc_states), k,
+            None if node_counts is None else _host(node_counts),
+        )
+
+    sid_s, chain_start, n_lin = _materialize_prep_sort(
+        valid, graph.head, graph.rank, graph.is_cycle)
+    n_lin = int(n_lin)
+    if n_lin == 0:
+        return (cycle_strings, np.asarray(cycle_sums, dtype=np.int64),
+                np.asarray(cycle_lens, dtype=np.int64))
+    sid_s, chain_start = sid_s[:n_lin], chain_start[:n_lin]
+    byte_np = _materialize_prep_bytes(kmer, sid_s, k=k).cpu().numpy()
+    if node_counts is None:
+        # thin read-back: the byte lane, and the chain starts with their
+        # head states (O(chains) ints); chain geometry from starts alone
+        starts_dev = torch.nonzero(chain_start).reshape(-1)
+        starts = starts_dev.cpu().numpy()
+        head_sids = sid_s[starts_dev].cpu().numpy()
+        sid_np = None
+    else:
+        # coverage needs every state's node count: the state lane comes back
+        sid_np = sid_s.cpu().numpy()
+        starts = np.flatnonzero(chain_start.cpu().numpy())
+        head_sids = sid_np[starts]
+
+    n_chains = len(starts)
+    chain_lens = np.diff(np.append(starts, n_lin))
+    out_off = np.zeros(n_chains + 1, dtype=np.int64)
+    np.cumsum(chain_lens + (k - 1), out=out_off[1:])
+    buf = np.empty(out_off[-1], dtype=np.uint8)
+    # a head state gives the chain its first k-1 bases; its LAST base comes
+    # through the byte lane like every other state's
+    first_vals = _host_state_vals(kmer, k, head_sids)
+    for j in range(k - 1):
+        shift = np.uint64(2 * (k - 1 - j))
+        buf[out_off[:-1] + j] = _CODE_CHARS[
+            ((first_vals >> shift) & np.uint64(3)).astype(np.int64)
+        ]
+    chain_id = np.repeat(np.arange(n_chains, dtype=np.int64), chain_lens)
+    local_i = np.arange(n_lin, dtype=np.int64) - starts[chain_id]
+    buf[out_off[chain_id] + (k - 1) + local_i] = byte_np
+
+    chain_sums = None
+    if node_counts is not None:
+        chain_sums = np.add.reduceat(
+            _host(node_counts)[sid_np >> 1].astype(np.int64), starts)
     return _canonical_chain_strings(
         buf.tobytes(), out_off, chain_lens, chain_sums,
         cycle_strings, cycle_sums, cycle_lens,

@@ -158,11 +158,89 @@ def test_everything_pruned_gives_no_unitigs():
     assert _counters(gstats) == _counters(wstats)
 
 
-def test_outofcore_branch_waits():
-    reads, kw = _case("brute_force_k11")
-    tiny = TConfig(**dict(kw, outofcore_bytes=1 << 12))
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        TFast(tiny, device="cpu").unitigs(reads)
+# tests/test_fast_pipeline.py's two out-of-core configurations: a tiny
+# outofcore_bytes alone (partitioned count, in-core join and jump), then with
+# the link budget and jump limit too (out-of-core links, bulk jump)
+OOC_LIMITS = {
+    "count": dict(outofcore_bytes=1 << 12),
+    "count_links_jump": dict(outofcore_bytes=1 << 12, link_budget_bytes=1 << 10,
+                             bulk_jump_states=8),
+}
+
+
+def _ooc_reads(seed):
+    _, reads, _ = jdatagen.generate_coverage_reads(
+        genome_len=900, read_len=48, coverage=8, seed=seed, with_reverse=True)
+    return reads, dict(k=11, m=5, parity=False, max_read_len=64, batch_reads=128)
+
+
+@pytest.mark.parametrize("limits,seed", [("count", 29), ("count_links_jump", 31)])
+def test_outofcore_unitigs_match_jax_in_order(limits, seed):
+    """Past outofcore_bytes the port returns the JAX package's out-of-core
+    list -- same strings, same ORDER (partition, then key, then the
+    self-heal order) -- with the same counters; the in-core run gives the
+    same unitig set."""
+    reads, kw = _ooc_reads(seed)
+    ooc = dict(kw, **OOC_LIMITS[limits])
+    want, wstats = JFast(JConfig(**ooc)).unitigs(reads)
+    got, gstats = TFast(TConfig(**ooc), device="cpu").unitigs(reads)
+    assert got == want and got
+    assert _counters(gstats) == _counters(wstats)
+    assert set(gstats.wall_s) == {"batch", "count", "links", "jump", "materialize"}
+    incore, istats = TFast(TConfig(**kw), device="cpu").unitigs(reads)
+    assert sorted(incore) == sorted(got)
+    assert (istats.entries_pre_prune, istats.entries_post_prune) == (
+        gstats.entries_pre_prune, gstats.entries_post_prune)
+
+
+def test_outofcore_switches_reach_every_branch(monkeypatch):
+    """The second configuration really builds its links out of core and
+    jumps with the bulk form; the first keeps the in-core join and jump."""
+    from genome_assembly_tpu_torch.ops import dbg as tdbg
+
+    calls = []
+    for name in ("build_unitig_links_join", "build_unitig_links_ooc", "pointer_jump",
+                 "pointer_jump_bulk", "materialize_unitigs_device"):
+        real = getattr(tdbg, name)
+        monkeypatch.setattr(tdbg, name, lambda *a, _r=real, _n=name, **k: (
+            calls.append(_n), _r(*a, **k))[1])
+    for limits, seed in (("count", 29), ("count_links_jump", 31)):
+        reads, kw = _ooc_reads(seed)
+        calls.clear()
+        TFast(TConfig(**dict(kw, **OOC_LIMITS[limits])), device="cpu").unitigs(reads)
+        if limits == "count":
+            assert calls == ["build_unitig_links_join", "pointer_jump",
+                             "materialize_unitigs_device"]
+        else:
+            assert calls == ["build_unitig_links_ooc", "pointer_jump_bulk",
+                             "materialize_unitigs_device"]
+
+
+def test_outofcore_hybrid_sort_matches_jax(monkeypatch):
+    """hybrid_sort past outofcore_bytes: the partition counts drive the
+    network (chunk defaults shrunk), the list equals the JAX package's."""
+    monkeypatch.setattr(bitonic_sort, "DEFAULT_LIB_CHUNK", 256)
+    monkeypatch.setattr(bitonic_sort, "DEFAULT_CHUNK", 32)
+    passes = []
+    real = bitonic_sort.finish_plain
+    monkeypatch.setattr(bitonic_sort, "finish_plain",
+                        lambda *a, **kw: (passes.append(1), real(*a, **kw))[1])
+    reads, kw = _ooc_reads(29)
+    ooc = dict(kw, outofcore_bytes=1 << 14)
+    want, wstats = JFast(JConfig(**ooc, pallas_sort=True)).unitigs(reads)
+    got, gstats = TFast(TConfig(**ooc, hybrid_sort=True), device="cpu").unitigs(reads)
+    assert passes, "the partition counts took the library route"
+    assert got == want and _counters(gstats) == _counters(wstats)
+
+
+def test_outofcore_everything_pruned_matches_jax():
+    reads, kw = _ooc_reads(29)
+    ooc = dict(kw, abundance_cutoff=100, **OOC_LIMITS["count_links_jump"])
+    want, wstats = JFast(JConfig(**ooc)).unitigs(reads)
+    got, gstats = TFast(TConfig(**ooc), device="cpu").unitigs(reads)
+    assert got == want == []
+    assert _counters(gstats) == _counters(wstats)
+    assert gstats.entries_pre_prune > 0 and gstats.entries_post_prune == 0
 
 
 @pytest.mark.parametrize(

@@ -281,20 +281,82 @@ def test_clean_reads_through_the_exception_path_are_unchanged():
     assert replay_native.assemble_groups(groups, 6, 3, 1) == clean
 
 
+# -- out of core ------------------------------------------------------------
+
+# (batch_reads, outofcore_bytes) that send the 20-read fixture out of core:
+# one batch (6 partitions, 2 passes: the JAX package's own out-of-core
+# golden test), and three batches of 7, the last one padded (7 partitions)
+OOC_CONFIGS = [(64, 20_000), (7, 5_000)]
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("batch_reads,limit", OOC_CONFIGS)
+def test_outofcore_reproduces_the_goldens(engine, batch_reads, limit):
+    asm = TParity(TConfig(k=6, m=3, max_read_len=32, batch_reads=batch_reads,
+                          outofcore_bytes=limit), device="cpu")
+    reads = asm.load(str(FIXTURE))
+    assert asm._needs_outofcore(reads)
+    lines, stats = asm.assemble(reads, engine=engine)
+    assert lines == (GOLDEN / "input_k6m3_unitigs.txt").read_text().splitlines()
+    # the JAX package's out-of-core counters: every group, none pruned yet
+    assert (stats.n_windows, stats.entries_pre_prune, stats.entries_post_prune,
+            stats.entries_post_extension) == (199, 97, 0, 61)
+    assert set(stats.wall_s) == {"batch", "count", "replay"}
+    text, _ = asm.assemble(reads, engine=engine, verbose=True)
+    assert text == (GOLDEN / "input_k6m3_verbose.txt").read_text()
+    assert asm.pruned_table_dict(reads) == _golden_table("input_k6m3_postprune.txt")
+
+
+@pytest.mark.parametrize("batch_reads,limit", OOC_CONFIGS)
+def test_outofcore_tables_match_jax(batch_reads, limit):
+    """The five calls the out-of-core branch serves -- assemble,
+    pruned_table, pruned_table_dict on clean reads (the fixture four times
+    over), assemble and pruned_table_groups on the non-ACGT reads -- return
+    the JAX package's results, counters included."""
+    jasm, tasm = _pair(batch_reads=batch_reads, outofcore_bytes=limit)
+    reads = tasm.load(str(FIXTURE)) * 4
+    dirty = _dirty_reads()
+    for r in (reads, dirty):
+        assert tasm._needs_outofcore(r) and jasm._needs_outofcore(r)
+    for engine in ENGINES:
+        got, tstats = tasm.assemble(reads, engine=engine)
+        want, jstats = jasm.assemble(reads, engine=engine)
+        assert got == want and _counters(tstats) == _counters(jstats)
+    thost, tstats = tasm.pruned_table(reads)
+    jhost, jstats = jasm.pruned_table(reads)
+    assert _counters(tstats) == _counters(jstats)
+    ours = convert.host_table_to_lanes(thost)
+    for a, b in zip(ours[:5], jhost[:5]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert [list(r) for r in ours[5]] == [list(r) for r in jhost.read_ids]
+    assert tasm.pruned_table_dict(reads) == jasm.pruned_table_dict(reads)
+    got, tstats = tasm.assemble(dirty, engine="native")
+    want, jstats = jasm.assemble(dirty, engine="native")
+    assert got == want and _counters(tstats) == _counters(jstats)
+    assert any(not frozenset("ACGT").issuperset(line) for line in got)
+    assert [(s, k, list(i)) for s, k, i in tasm.pruned_table_groups(dirty)] == [
+        (s, k, list(i)) for s, k, i in jasm.pruned_table_groups(dirty)]
+    assert tasm.pruned_table_dict(dirty) == jasm.pruned_table_dict(dirty)
+
+
+def test_outofcore_nonacgt_equals_in_core():
+    reads = _dirty_reads()
+    _, ooc = _pair(outofcore_bytes=20_000)
+    _, incore = _pair()
+    assert ooc._needs_outofcore(reads) and not incore._needs_outofcore(reads)
+    for verbose in (False, True):
+        assert ooc.assemble(reads, engine="python", verbose=verbose)[0] == \
+            incore.assemble(reads, engine="python", verbose=verbose)[0]
+    groups, stats, _ = ooc._nonacgt_groups(reads)
+    assert groups == incore._nonacgt_groups(reads)[0]
+    assert set(stats.wall_s) == {"batch", "count", "extract"}
+
+
 # -- what is not ported raises ---------------------------------------------
 
-def test_outofcore_and_mesh_raise_not_implemented():
-    _, tasm = _pair(outofcore_bytes=20_000)
-    reads = tasm.load(str(FIXTURE)) * 4
-    jasm = JParity(JConfig(k=6, m=3, max_read_len=32, batch_reads=64, outofcore_bytes=20_000))
-    assert tasm._needs_outofcore(reads) and jasm._needs_outofcore(reads)
-    for call in (lambda: tasm.assemble(reads), lambda: tasm.pruned_table(reads),
-                 lambda: tasm.pruned_table_dict(reads),
-                 lambda: tasm.assemble(_dirty_reads()),
-                 lambda: tasm.pruned_table_groups(_dirty_reads())):
-        with pytest.raises(NotImplementedError, match="out-of-core"):
-            call()
+def test_mesh_raises_not_implemented():
     _, incore = _pair()
+    reads = incore.load(str(FIXTURE)) * 4
     assert not incore._needs_outofcore(reads)
     with pytest.raises(NotImplementedError, match="multi-device"):
         incore.assemble(reads, mesh=object())
@@ -336,3 +398,34 @@ def test_cli_assembles_the_fixture_byte_for_byte(tmp_path, capsys):
     with pytest.raises(RuntimeError, match="CUDA"):
         run()
     assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_cli_outofcore_matches_the_jax_cli(tmp_path, capsys, mode):
+    """A small --outofcore-gb sends both CLIs out of core: the same bytes."""
+    from genome_assembly_tpu import cli as jcli
+    from genome_assembly_tpu_torch import cli
+
+    if mode == "parity":
+        path = FIXTURE
+        args = ["--k", "6", "--m", "3", "--batch-reads", "64", "--outofcore-gb", "0.00002"]
+    else:
+        _, reads, _ = jdatagen.generate_coverage_reads(
+            genome_len=900, read_len=48, coverage=8, seed=29, with_reverse=True)
+        path = tmp_path / "r.txt"
+        tdatagen.write_reads(reads, str(path))
+        args = ["--mode", "fast", "--k", "11", "--m", "5", "--max-read-len", "64",
+                "--batch-reads", "128", "--outofcore-gb", "0.00001"]
+    outs = []
+    for main in (jcli.main, cli.main):
+        capsys.readouterr()
+        assert main(["assemble", str(path), "--cpu"] + args) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and outs[1]
+    if mode == "parity":
+        assert outs[1] == (GOLDEN / "input_k6m3_unitigs.txt").read_text()
+    capsys.readouterr()
+    assert cli.main(["assemble", str(path), "--cpu"] + args[:-2]) == 0
+    incore = capsys.readouterr().out
+    # in core: the same unitigs (the same lines, in parity mode)
+    assert sorted(incore.split()) == sorted(outs[1].split())
