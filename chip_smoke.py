@@ -33,7 +33,13 @@ assemblers out of core: fast mode at the default limits on a 10 Mb genome at
 materializer; also with ``hybrid_sort``), parity mode on the goldens' input
 (``parity_ooc_golden``) and at the default limits on a 2 Mb genome plus
 BASELINE.md's big run forced out of core (``parity_ooc_scale``), each held
-against an in-core run of the same reads; and prints one JSON object per
+against an in-core run of the same reads; drives the genome-scale runner
+(``genome_assembly_tpu_torch/tools/run_scale.py``, reads made on the card):
+its functions on the ecoli preset (``scale_checks``: super-k-mer and plain
+out-of-core counts, card == CPU, forced subrange counts, worker ranges merged
+from one checkpoint directory, a killed jump resumed, parked links, the
+bucketed materializer) and its chr1 rehearsal at full size, 250 Mb x 30x,
+7,360,217,088 window slots (``scale_chr1``); and prints one JSON object per
 phase.  Exits non-zero if there is no CUDA device, if the
 package cannot be imported (run it from the root of a checkout) or if any
 phase fails.  Imports nothing of JAX and nothing of the JAX package.  A
@@ -52,12 +58,14 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import os
 import pathlib
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import warnings
@@ -87,8 +95,11 @@ try:
     from genome_assembly_tpu_torch.ops import minimizer
     from genome_assembly_tpu_torch.ops import minimizer_cuda
     from genome_assembly_tpu_torch.ops import outofcore
+    from genome_assembly_tpu_torch.ops import superkmer
     from genome_assembly_tpu_torch.parity import nonacgt
     from genome_assembly_tpu_torch.parity import table as parity_table
+    from genome_assembly_tpu_torch.tools import run_scale
+    from genome_assembly_tpu_torch.utils import checkpoint as jump_checkpoint
 except ImportError as missing:
     # the run fails all the same; it says why instead of failing in silence
     sys.exit(f"chip_smoke: cannot import {missing.name} (looked for the package "
@@ -133,6 +144,20 @@ BIG_RUN_OOC_BYTES = 150_000_000
 GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
 
 KERNEL_SHAPE = (65536, 128)
+# rows of one expansion chunk of the super-k-mer count (its default
+# expand_chunk), each S_CAP + k - 1 = 55 bases at k = 31
+EXPAND_ROWS = 1 << 20
+# the genome-scale runner's phases: its functions on the ecoli preset, and
+# its chr1 rehearsal at full size (250 Mb x 30x, 573 batches of 131072 x 128)
+SCALE_CHECK_PRESET = "ecoli"
+SCALE_CHR1_ARGS = ["--preset", "chr1", "--super", "--park-keys", "--park-links",
+                   "--materialize"]
+CHR1_SLOTS = 7_360_217_088
+CHR1_BATCH = 131072
+# the SUB_COUNT_SLOTS that forces the ecoli super partitions into more
+# subranges than the default's (4 partitions of about 4.6 M records: 8
+# chunks of 2^20, 209.7 M expanded slots; 2 subranges at 192 << 20, 5 here)
+FORCED_SUB_COUNT_SLOTS = 40 << 20
 # shapes the row sort is timed at: 2^26 keys (where it is driven too), and
 # what the chunk sorts do on 2^28 keys, as rows
 ROWS_SHAPE = (16384, 4096)
@@ -326,7 +351,8 @@ def scan_batch(rng, batch, max_len, device, kind, offset=0):
 
 def phase_kernel_check(device):
     rng = np.random.default_rng(1234)
-    cases = [(KERNEL_SHAPE[0], KERNEL_SHAPE[1], 31, 7, "random", 0)]
+    cases = [(KERNEL_SHAPE[0], KERNEL_SHAPE[1], 31, 7, "random", 0),
+             (CHR1_BATCH, 128, 31, 7, "random", 0)]  # a chr1 batch's shape
     for k, m in [(31, 7), (21, 7), (17, 5), (16, 5), (15, 5), (31, 4)]:
         cases.append((1000, 128, k, m, "random", 0))
         cases.append((1000, 100, k, m, "random", 0))
@@ -344,6 +370,10 @@ def phase_kernel_check(device):
         (100, 128, 16, 5, "acgt", 0), (100, 128, 20, 7, "acgt", 0),  # k-mer == its rc
         (100, 130, 30, 15, "acgt", 2),
         (500, 128, 31, 7, "empty", 0), (5, 8192, 31, 7, "empty", 0),
+        # the super-k-mer expansion's rows: [n, S_CAP + k - 1], lengths <= L
+        (EXPAND_ROWS, 55, 31, 7, "random", 0), (4097, 55, 31, 7, "random", 0),
+        (1, 55, 31, 7, "random", 0), (777, 55, 31, 15, "random", 0),
+        (3001, 45, 21, 7, "random", 0), (1000, 55, 31, 7, "random", 1),
     ]
     report, total, worst = [], 0, 0.0
     for batch, max_len, k, m, kind, offset in cases:
@@ -353,6 +383,19 @@ def phase_kernel_check(device):
                        "byte_offset": offset, "mismatches": mism})
         total += mism
         worst = max(worst, err)
+    # real rows: the records of an ecoli batch made on the card (an
+    # expansion chunk), and two chr1 batches (what scale_chr1 scans)
+    chr1 = scale_dataset(device, "chr1")
+    for what, (codes, lengths) in (("super-k-mer records", expansion_rows(device, EXPAND_ROWS)),
+                                   ("chr1 batch 0", chr1.codes(0)),
+                                   (f"chr1 batch {chr1.n_batches - 1}",
+                                    chr1.codes(chr1.n_batches - 1))):
+        mism, err = compare_scan(codes, lengths, ECOLI["k"], ECOLI["m"])
+        report.append({"B": int(codes.shape[0]), "L": int(codes.shape[1]), "k": ECOLI["k"],
+                       "m": ECOLI["m"], "reads": what, "byte_offset": 0, "mismatches": mism})
+        total += mism
+        worst = max(worst, err)
+    del chr1
     # what the wrapper must refuse
     codes, lengths = random_batch(rng, 8, 64, device)
     refused = 0
@@ -1244,8 +1287,8 @@ def reextractions():
     alone (the self-heal, ``outofcore._reextract``) while the block runs:
     what re-extracted it ("count" or "link"), the partition, the units its
     sweeps made again (a count's unit is a batch, each one K1 launch; the
-    units of a sweep that stopped on an overflow included) and the records
-    it returned."""
+    units of a sweep that stopped on an overflow included), the records it
+    returned and its seconds."""
     real = outofcore._reextract
     log = []
 
@@ -1255,9 +1298,11 @@ def reextractions():
         def unit(u):
             made[0] += 1
             return records(u)
+        t0 = time.perf_counter()
         lanes = real(unit, n_units, p, **kw)
+        torch.cuda.synchronize()
         log.append(dict(what=kw["what"], partition=p, units_made=made[0],
-                        records=int(lanes[0].shape[0])))
+                        records=int(lanes[0].shape[0]), seconds=time.perf_counter() - t0))
         return lanes
     outofcore._reextract = counted
     try:
@@ -1277,8 +1322,8 @@ def count_plan(cfg, n_batches, batch_slots, total_slots):
 
 
 def healed_scans(healed):
-    """The K1 launches of the count's re-extractions."""
-    return sum(h["units_made"] for h in healed if h["what"] == "count")
+    """The K1 launches of the counts' re-extractions (plain and super)."""
+    return sum(h["units_made"] for h in healed if h["what"] in ("count", "super count"))
 
 
 def timed_unitigs(asm, reads):
@@ -1495,6 +1540,300 @@ def phase_ooc_extension(device, full, coverage):
     if not jump_equal or not order_equal or not on_card:
         raise AssertionError(f"ooc_extension: bulk jump equal {jump_equal}, "
                              f"small list card == CPU {order_equal}")
+
+
+def scale_dataset(device, preset=SCALE_CHECK_PRESET):
+    """The genome-scale runner's read batches of a preset (k=31, m=7, seed 0,
+    virtual genome), made on ``device``."""
+    return run_scale.Dataset(preset, k=ECOLI["k"], m=ECOLI["m"], seed=0, virtual=True,
+                             device=device)
+
+
+def expansion_rows(device, n_rows):
+    """The first n_rows rebuilt base rows of the runner's ecoli records
+    (batches made until there are enough): what K1 scans in one expansion
+    chunk of the super-k-mer count."""
+    ds = scale_dataset(device)
+    lanes, have, b = [], 0, 0
+    while have < n_rows:
+        recs = ds.super_records(b)
+        real = recs[0] != superkmer.FILLS[0]
+        lanes.append([x[real] for x in recs])
+        have += int(real.sum())
+        b += 1
+    rows = [torch.cat(x)[:n_rows] for x in zip(*lanes)]
+    return superkmer.record_rows(*rows, k=ECOLI["k"])
+
+
+def counted(fn):
+    """(fn(), K1 launches, re-extractions, seconds) with the launch counts
+    set to 0 just before fn and read just after."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with reextractions() as healed:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, minimizer_cuda.launch_count, healed, wall
+
+
+def super_k1(pc, n_batches, healed):
+    """K1 launches a super count makes: the probe, every batch a pass, the
+    batches a self-heal made again, one an expansion chunk."""
+    return 1 + pc.passes * n_batches + healed_scans(healed) + pc.expand_chunks
+
+
+class _Killed(Exception):
+    pass
+
+
+def phase_scale_checks(device):
+    """The runner's functions on the ecoli preset (36 batches of 65536 x 128,
+    231 M slots, reads made on the card): plain and super-k-mer counts, both
+    out of core, keep the same keys; the card's super count equals the
+    CPU's, in order, on the first batches; a subrange count forced by a
+    smaller SUB_COUNT_SLOTS keeps the same keys; two worker ranges into one
+    checkpoint directory merge, with no re-scan, into the fresh list; a jump
+    killed after 5 rounds resumes from its frontier to the same graph; the
+    parked links equal the out-of-core ones; the bucketed materializer's
+    strings equal the device materializer's as a set."""
+    k, m = ECOLI["k"], ECOLI["m"]
+    ds = scale_dataset(device)
+    nb = ds.n_batches
+    out = dict(preset=SCALE_CHECK_PRESET, n_batches=nb, window_slots=ds.total_slots)
+    plain, k1, healed, t = counted(lambda: outofcore.partitioned_count(
+        ds.keys, nb, partitions=4, cutoff=1))
+    out["plain"] = dict(seconds=t, passes=plain.passes, k1=k1, reextracted=healed,
+                        k1_expected=1 + plain.passes * nb + healed_scans(healed),
+                        n_kept=plain.n_kept, n_distinct=plain.n_distinct)
+    sup, k1, healed, t = counted(lambda: outofcore.partitioned_count_super(
+        ds.super_records, nb, k=k, m=m, cutoff=1))
+    out["super"] = dict(seconds=t, partitions=sup.partitions, group_size=sup.group_size,
+                        passes=sup.passes, expand_chunks=sup.expand_chunks, k1=k1,
+                        k1_expected=super_k1(sup, nb, healed), reextracted=healed)
+    plain_sorted = torch.sort(plain.kmer).values
+    checks = dict(
+        super_equals_plain=bool(torch.equal(torch.sort(sup.kmer).values, plain_sorted))
+        and (sup.n_kept, sup.n_distinct) == (plain.n_kept, plain.n_distinct),
+        launches_as_planned=out["plain"]["k1"] == out["plain"]["k1_expected"]
+        and out["super"]["k1"] == out["super"]["k1_expected"],
+        out_of_core=plain.passes >= 1 and sup.partitions > 1)
+    # the card's super count equals the CPU's on the first batches, in order
+    cpu_ds = scale_dataset("cpu")
+    kw = dict(k=k, m=m, partitions=3, cutoff=1)
+    first = 2
+    card = outofcore.partitioned_count_super(ds.super_records, first, **kw)
+    t0 = time.perf_counter()
+    cpu = outofcore.partitioned_count_super(cpu_ds.super_records, first, **kw)
+    out["card_vs_cpu"] = dict(batches=first, n_kept=card.n_kept, cpu_seconds=time.perf_counter() - t0)
+    checks["card_equals_cpu"] = bool(torch.equal(card.kmer.cpu(), cpu.kmer)) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(ds.super_records(0), cpu_ds.super_records(0)))
+    del card, cpu, cpu_ds
+    # a subrange count forced by a smaller SUB_COUNT_SLOTS
+    real_slots = outofcore.SUB_COUNT_SLOTS
+    outofcore.SUB_COUNT_SLOTS = FORCED_SUB_COUNT_SLOTS
+    try:
+        forced, k1, healed, t = counted(lambda: outofcore.partitioned_count_super(
+            ds.super_records, nb, k=k, m=m, cutoff=1))
+    finally:
+        outofcore.SUB_COUNT_SLOTS = real_slots
+    out["forced_subranges"] = dict(sub_count_slots=FORCED_SUB_COUNT_SLOTS, seconds=t,
+                                   expand_chunks=forced.expand_chunks, k1=k1,
+                                   k1_expected=super_k1(forced, nb, healed))
+    checks["forced_subranges_equal"] = bool(torch.equal(torch.sort(forced.kmer).values,
+                                                        plain_sorted)) and \
+        (forced.n_kept, forced.n_distinct) == (sup.n_kept, sup.n_distinct) and \
+        forced.expand_chunks > sup.expand_chunks and k1 == out["forced_subranges"]["k1_expected"]
+    del forced, sup
+    # two worker ranges, then a merge with no re-scan
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ck_") as ck:
+        for rng_ in ((0, 2), (2, 4)):
+            outofcore.partitioned_count(ds.keys, nb, partitions=4, cutoff=1, checkpoint_dir=ck,
+                                        only_partitions=rng_, dataset_tag=ds.tag)
+        merged, k1, _, t = counted(lambda: outofcore.partitioned_count(
+            ds.keys, nb, partitions=4, cutoff=1, checkpoint_dir=ck, dataset_tag=ds.tag))
+    out["worker_merge"] = dict(k1=k1, passes=merged.passes, seconds=t)
+    checks["worker_merge_equals_fresh"] = bool(torch.equal(merged.kmer, plain.kmer)) and \
+        k1 == 1 and merged.passes == 0
+    del merged
+    # a jump killed after 5 rounds, resumed from its frontier
+    kmer, valid = plain.kmer, plain.valid
+    links = dbg.build_unitig_links_join(kmer, valid, k=k)
+    whole_rounds = []
+    whole, t_whole, _ = timed_call(lambda: dbg.pointer_jump_bulk(
+        links, on_round=lambda r, dt: whole_rounds.append(r)))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_jump_") as jd:
+        seen = []
+
+        def kill(r, dt):
+            seen.append(r)
+            if len(seen) == 5:
+                raise _Killed
+        try:
+            dbg.pointer_jump_bulk(links, checkpoint_dir=jd, checkpoint_every=2, on_round=kill)
+        except _Killed:
+            pass
+        saved = jump_checkpoint.load_jump_frontier(jd, 2, jump_checkpoint.jump_fingerprint(links))
+        rounds = []
+        resumed = dbg.pointer_jump_bulk(links, checkpoint_dir=jd, checkpoint_every=2,
+                                        on_round=lambda r, dt: rounds.append(r))
+    out["jump_resume"] = dict(states=int(links.shape[0]), killed_after_rounds=len(seen),
+                              saved_round=None if saved is None else saved[2],
+                              resumed_at=rounds[0] if rounds else None,
+                              rounds_whole=len(whole_rounds), seconds_whole=t_whole)
+    checks["jump_resume_equal"] = saved is not None and rounds[0] == saved[2] == 4 and all(
+        torch.equal(a, b) for a, b in zip(whole, resumed))
+    del resumed
+    # the parked links (keys and links on the host) against the out-of-core ones
+    parked, t_parked, parked_peak = timed_call(lambda: dbg.build_unitig_links_parked(
+        kmer.cpu().numpy(), valid.cpu().numpy(), k=k, partitions=4, chunk_nodes=1 << 20,
+        park_links=True, device=device))
+    ooc, t_ooc, ooc_peak = timed_call(lambda: dbg.build_unitig_links_ooc(
+        kmer, valid, k=k, partitions=4, chunk_nodes=1 << 20))
+    out["links"] = dict(parked_seconds=t_parked, parked_peak=parked_peak, ooc_seconds=t_ooc,
+                        ooc_peak=ooc_peak)
+    checks["parked_links_equal"] = bool(torch.equal(torch.from_numpy(parked), ooc.cpu())) and \
+        bool(torch.equal(ooc, links))
+    del parked, ooc
+    # the bucketed host materializer against the device one, as sets
+    t0 = time.perf_counter()
+    bucketed = dbg.materialize_unitigs_partitioned(kmer, valid, whole, k)
+    t_bucketed = time.perf_counter() - t0
+    on_card, t_card, _ = timed_call(lambda: dbg.materialize_unitigs_device(kmer, valid, whole, k)[0])
+    out["materialize"] = dict(unitigs=len(bucketed), bucketed_host_seconds=t_bucketed,
+                              device_seconds=t_card)
+    checks["materialize_partitioned_equal"] = sorted(bucketed) == sorted(on_card) and \
+        len(bucketed) > 0
+    del links, whole, kmer, valid, plain
+    torch.cuda.empty_cache()
+    emit("scale_checks", **out, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"scale_checks failed: {checks}")
+
+
+@contextlib.contextmanager
+def timed_calls(module, name):
+    """Yields a list that gets the seconds of each call of module.name made
+    while the block runs (the card synchronised at both ends of a call)."""
+    real = getattr(module, name)
+    seconds = []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    setattr(module, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, real)
+
+
+def chr1_batch_steps(device):
+    """Milliseconds of each step of one chr1 batch (131072 x 128), CUDA
+    events: making the reads, K1 alone, the super-k-mer records (K1
+    included), the extraction of a 16-partition group at the run's cap."""
+    ds = scale_dataset(device, "chr1")
+    codes, lengths = ds.codes(3)
+    recs = ds.super_records(3)
+    pids = torch.arange(16, device=device) * 6
+    k, m = ECOLI["k"], ECOLI["m"]
+    return dict(
+        reads_ms=timed_ms(lambda: ds.codes(3)),
+        fast_scan_ms=timed_ms(lambda: minimizer.fast_scan(codes, lengths, k=k, m=m)),
+        super_records_ms=timed_ms(lambda: superkmer.super_records(codes, lengths, k=k, m=m)),
+        extract_16_ms=timed_ms(lambda: outofcore.extract_partition_range_super(
+            *recs, pids, partitions=105, cap_bp=12288)))
+
+
+class HostPeak:
+    """The largest resident set of this process while the block runs,
+    sampled from /proc/self/statm every 0.2 s."""
+
+    def __enter__(self):
+        self.peak, self._stop = 0, threading.Event()
+        page = os.sysconf("SC_PAGE_SIZE")
+
+        def sample():
+            while True:
+                with open("/proc/self/statm") as f:
+                    self.peak = max(self.peak, int(f.read().split()[1]) * page)
+                if self._stop.wait(0.2):
+                    return
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def phase_scale_chr1(device):
+    """The runner's chr1 rehearsal at full size, in process: 250 Mb x 30x,
+    573 batches of 131072 x 128 = 7,360,217,088 window slots, super-k-mer
+    staging, keys and links parked on the host, checkpoints in a temporary
+    directory, the strings materialized.  Checks the invariants
+    tests/test_scale_runner.py pins (no cycles, one string a linear unitig,
+    total_bp = kept + unitigs x (k - 1), longest_bp = longest_chain + (k - 1),
+    distinct <= G - k + 1) and that K1 launched 1 (the probe) + passes x 573
+    + the batches a self-heal made again + the expansion chunks."""
+    steps = chr1_batch_steps(device)
+    torch.cuda.empty_cache()
+    events = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chr1_") as ck, HostPeak() as host, \
+            timed_calls(outofcore._PartStore, "save") as part_saves:
+        rc, k1, healed, wall = counted(lambda: run_scale.main(
+            SCALE_CHR1_ARGS + ["--checkpoint-dir", ck], emit_event=events.append))
+        disk = sum(p.stat().st_size for p in pathlib.Path(ck).rglob("*") if p.is_file())
+    launches = read_launch_counts()
+    torch.cuda.empty_cache()
+    ev = {e["event"]: e for e in events}
+    cfg, sc, ext, mat = ev["config"], ev["scan_and_count"], ev["extension"], ev["materialize"]
+    k = cfg["k"]
+    want_k1 = 1 + sc["passes"] * cfg["n_batches"] + healed_scans(healed) + sc["expand_chunks"]
+    checks = dict(
+        exit_code=rc == 0, full_size=cfg["total_window_slots"] == CHR1_SLOTS,
+        cyclic_states=ext["cyclic_states"] == 0,
+        unitigs=mat["unitigs"] == ext["linear_unitigs"] > 0,
+        total_bp=mat["total_bp"] == sc["kept"] + mat["unitigs"] * (k - 1),
+        longest_bp=mat["longest_bp"] == ext["longest_chain"] + (k - 1),
+        distinct=sc["kept"] <= sc["distinct"] <= cfg["genome_len"] - k + 1,
+        k1_launches=k1 == want_k1,
+        no_sort_kernel=not any(sort_kernel_launches(launches).values()))
+    jump_rounds = [e for e in events if e["event"] == "jump_round"]
+    link_passes = [e for e in events if e["event"] == "link_pass"]
+    # the link staging cap and the (chunk, partition) shares that passed it
+    link_over = [c for e in link_passes for c in e["overflowed_chunks"]]
+    healed_links = [e["p"] for e in events if e["event"] == "link_reextract"]
+    link_staging = dict(cap_bp=link_passes[0]["cap_bp"], chunks=link_passes[0]["chunks"],
+                        overflowed_chunk_partitions=sum(link_over),
+                        partitions_overflowed=sum(c > 0 for c in link_over),
+                        reextracted=healed_links)
+    emit("scale_chr1", args=SCALE_CHR1_ARGS, wall_seconds=wall,
+         phase_seconds={name: ev[name]["wall_s"] for name in (
+             "scan_and_count", "links", "links_upload", "extension", "materialize")},
+         peak_device_bytes={name: ev[name].get("peak_device_bytes") for name in (
+             "scan_and_count", "links", "extension", "materialize")},
+         peak_host_bytes=host.peak, checkpoint_bytes=disk,
+         count={f: sc[f] for f in ("distinct", "kept", "partitions", "group_size", "passes",
+                                   "expand_chunks")},
+         reextracted=healed, k1_launches=k1, k1_expected=want_k1,
+         batch_steps_ms=steps, part_saves=len(part_saves),
+         part_save_seconds=sum(part_saves), link_staging=link_staging,
+         link_partitions=ev["links_parked"]["partitions"], link_passes=len(link_passes),
+         link_pass_seconds=[e["wall_s"] for e in link_passes],
+         jump_rounds=len(jump_rounds), jump_round_seconds=sum(e["wall_s"] for e in jump_rounds),
+         extension={f: ext[f] for f in ("linear_unitigs", "cyclic_states", "longest_chain")},
+         materialize={f: mat[f] for f in ("unitigs", "total_bp", "longest_bp")},
+         config=cfg, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"scale_chr1 failed: {checks}")
+    return k1
 
 
 def phase_parity_ooc_golden(device):
@@ -2099,9 +2438,30 @@ def bound_fields(passes):
             "bound_operations_ms": sum(o for _, o in passes)}
 
 
-def time_scan(device, batch, launches, tally):
+def scan_bound(codes, lengths, k, m):
+    """bound_fields of K1 on one batch: each input read once, each output
+    (mmer 4 B, kmer 8 B, valid 1 B per window slot) written once;
+    operations the least the function needs for THIS batch, O(1) a window
+    whatever k and m: a base packed into two bits (1); per m-mer position
+    its 32 bits from two words and their reverse complement and the smaller
+    one (12); one min per position and level of the log-step window minimum
+    (log2(k - m + 1) levels); per window that exists its 64 bits, reverse
+    complement, the smaller one and the window minimum (24)."""
+    b_rows, max_len = codes.shape
+    n_win, n_mpos = max_len - k + 1, max_len - m + 1
+    n_valid = int((torch.arange(n_win, device=codes.device)[None, :] + k
+                   <= lengths[:, None]).sum())
+    levels = (k - m + 1).bit_length() - 1
+    n_bytes = b_rows * max_len + 4 * b_rows + 13 * b_rows * n_win
+    n_ops = b_rows * max_len + b_rows * n_mpos * (12 + levels) + n_valid * 24
+    return bound_fields([(n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_ALU_OPS_PER_S * 1e3)])
+
+
+def time_scan(device, batch, launches, tally, chr1_launches):
     """K1 and its plain version on one batch of the main path
-    ([65536, 128], k=31, m=7, the reads of full_e2e), turn about."""
+    ([65536, 128], k=31, m=7, the reads of full_e2e), turn about; and at
+    the super-k-mer count's expansion shape ([2^20, 55]: real record rows
+    of the runner's ecoli reads), where scale_chr1 launches it most."""
     k, m = ECOLI["k"], ECOLI["m"]
     codes = torch.from_numpy(batch.codes).to(device)
     lengths = torch.from_numpy(batch.lengths).to(device)
@@ -2114,29 +2474,22 @@ def time_scan(device, batch, launches, tally):
                        kernel_calls=20)
     times["ms_one_call_an_event_pair"] = timed_ms(
         lambda: minimizer.fast_scan(codes, lengths, k=k, m=m))
-    # bound: each input read once, each output (mmer 4 B, kmer 8 B, valid
-    # 1 B per window slot) written once; operations the least the function
-    # needs for THIS batch, O(1) a window whatever k and m: a base packed
-    # into two bits (1); per m-mer position its 32 bits from two words and
-    # their reverse complement and the smaller one (12); one min per position
-    # and level of the log-step window minimum (log2(k - m + 1) levels); per
-    # window that exists its 64 bits, reverse complement, the smaller one
-    # and the window minimum (24)
-    b_rows, max_len = codes.shape
-    n_win, n_mpos = max_len - k + 1, max_len - m + 1
-    n_valid = int((torch.arange(n_win, device=device)[None, :] + k <= lengths[:, None]).sum())
-    levels = (k - m + 1).bit_length() - 1
-    n_bytes = b_rows * max_len + 4 * b_rows + 13 * b_rows * n_win
-    n_ops = b_rows * max_len + b_rows * n_mpos * (12 + levels) + n_valid * 24
-    bound = bound_fields([(n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_ALU_OPS_PER_S * 1e3)])
+    bound = scan_bound(codes, lengths, k, m)
+    rows, row_lengths = expansion_rows(device, EXPAND_ROWS)
+    at_expansion = turn_about(lambda: minimizer.fast_scan(rows, row_lengths, k=k, m=m),
+                              lambda: minimizer.fast_scan_plain(rows, row_lengths, k=k, m=m))
+    at_expansion.update(shape=list(rows.shape), **scan_bound(rows, row_lengths, k, m))
+    del rows, row_lengths
     return {
         "name": "fast_scan", "route": "cuda",
         "source": "genome_assembly_tpu_torch/csrc/fast_scan.cu",
         "replaces": "genome_assembly_tpu/ops/minimizer_pallas.py:25",
         "launches": launches, "launches_from": "full_e2e (hybrid_e2e launches it as often)",
+        "launches_by_path": {"full_e2e": launches, "scale_chr1": chr1_launches},
         "max_abs_err": tally[1], "mismatches": tally[0],
         **times, "kernel_ms": times["ms"], **bound, "library_ms": None,
         "shape": list(KERNEL_SHAPE), "k": k, "m": m,
+        "at_expansion_shape": at_expansion,
     }
 
 
@@ -2797,6 +3150,9 @@ def main() -> int:
     phase_ooc_e2e(device)
     phase_parity_ooc_golden(device)
     phase_parity_ooc_scale(device)
+    torch.cuda.empty_cache()
+    phase_scale_checks(device)
+    chr1_launches = phase_scale_chr1(device)
     n_keys = full["fields"]["window_slots"]
     first_batch, scan_launches = full["first_batch"], full["launches"]["fast_scan"]
     real_keys = scanned_keys(full["reads"], ecoli_config(), device)
@@ -2805,7 +3161,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     merge_launches = phase_mergepath_entry_point(device, n_keys, real_keys)
     torch.cuda.empty_cache()
-    kernels = [time_scan(device, first_batch, scan_launches, scan_tally)]
+    kernels = [time_scan(device, first_batch, scan_launches, scan_tally, chr1_launches)]
     kernels += time_sort_kernels(device, tallies, hybrid_launches, entry_launches, n_keys)
     torch.cuda.empty_cache()
     kernels += time_merge_kernels(device, tallies, merge_launches, n_keys, real_keys)

@@ -55,6 +55,38 @@ def key_to_lanes(key) -> Tuple[np.ndarray, np.ndarray]:
     return hi.astype(np.uint32), lo.astype(np.uint32)
 
 
+def super_records_to_lanes(mmer, slen, w0, w1):
+    """This package's four super-k-mer record lanes (ops/superkmer.py) ->
+    the JAX package's six uint32 lanes (mmer, s, b0, b1, b2, b3), every
+    lane all ones at a slot that holds no record."""
+    mm = _np(mmer).astype(np.int64)
+    rec = mm != MMER_SENTINEL
+    w0 = _np(w0).astype(np.int64).view(np.uint64)
+    w1 = _np(w1).astype(np.int64).view(np.uint64)
+    lanes = (mm, _np(slen).astype(np.int64), w0 & 0xFFFFFFFF, w0 >> np.uint64(32),
+             w1 & 0xFFFFFFFF, w1 >> np.uint64(32))
+    return tuple(np.where(rec, lane.astype(np.uint32), LANE_SENTINEL) for lane in lanes)
+
+
+def super_records_from_lanes(mmer, slen, b0, b1, b2, b3):
+    """The JAX package's six super-record lanes -> this package's four
+    (mmer int32, s int32, w0 int64, w1 int64) CPU tensors; a slot whose
+    mmer lane is all ones holds no record (MMER_SENTINEL, 0, 0, 0) -- the
+    base lanes cannot say so, a word of 16 A bases is all ones too."""
+    mm = _np(mmer).astype(np.uint32)
+    rec = mm != LANE_SENTINEL
+
+    def word(lo, hi):
+        w = (_np(hi).astype(np.uint64) << np.uint64(32)) | _np(lo).astype(np.uint64)
+        return np.where(rec, w.view(np.int64), 0)
+    return (
+        torch.from_numpy(np.where(rec, mm.astype(np.int64), MMER_SENTINEL).astype(np.int32)),
+        torch.from_numpy(np.where(rec, _np(slen).astype(np.int64), 0).astype(np.int32)),
+        torch.from_numpy(word(b0, b1)),
+        torch.from_numpy(word(b2, b3)),
+    )
+
+
 def read_batch_to_torch(batch: ReadBatch):
     """ReadBatch (either package's: same numpy fields) -> CPU tensors
     (codes uint8, lengths int32, read_ids int64: torch has no uint32

@@ -21,6 +21,7 @@ indexes with int64); the JAX package carries them as int32.
 from __future__ import annotations
 
 import math
+import time
 from typing import List, NamedTuple, Tuple
 
 import numpy as np
@@ -260,18 +261,59 @@ def build_unitig_links_ooc(
     no edge is ever lost.
 
     Returns next_state [2N] int64.  (The JAX package's builder also
-    returns an overflow count; here it could only be 0.)
+    returns an overflow count; here it could only be 0.)  The passes are
+    ``build_unitig_links_parked``'s with nothing parked.
+    """
+    return build_unitig_links_parked(kmer, valid, k=k, partitions=partitions,
+                                     chunk_nodes=chunk_nodes)
+
+
+def _compact_edges(src: torch.Tensor, dst: torch.Tensor):
+    """Real edges to the front, in ascending ``src``, for a thin read-back:
+    (src with non-edges SENTINEL, dst in the same order, the edge count
+    as a device scalar)."""
+    key_s, order = torch.sort(torch.where(src >= 0, src, SENTINEL))
+    return key_s, dst[order], (src >= 0).sum()
+
+
+def build_unitig_links_parked(
+    kmer,
+    valid,
+    *,
+    k: int,
+    partitions: int,
+    chunk_nodes: int = 1 << 24,
+    park_links: bool = False,
+    on_event=None,
+    device="cuda",
+):
+    """build_unitig_links_ooc with the big residents parked in host RAM.
+
+    - **parked keys**: pass ``kmer``/``valid`` as host numpy arrays; each
+      pass uploads them a chunk at a time to ``device`` (the last chunk
+      padded there), so the device holds one chunk's keys at a time.
+      Tensors are used where they lie (``device`` is then unused).
+    - **parked links** (``park_links``): each partition's edges are
+      compacted on the device (``_compact_edges``), read back as exactly
+      n_edges (src, dst) rows and written into a host next_state, so the
+      device never holds the 2N link array.
+
+    ``on_event(kind, **fields)`` reports progress: ``link_pass`` (g,
+    chunks, wall_s, cap_bp, overflowed_chunks: per partition of the group,
+    the chunks whose share passed cap_bp) after each group's sweep,
+    ``link_partition`` (p, wall_s, n_edges; -1 unless park_links) after
+    each partition's join, ``link_reextract`` (p, overflowed_chunks) when
+    a staging cap overflowed.  The same links
+    as ``build_unitig_links_ooc`` and ``build_unitig_links_join``: int64
+    numpy [2N] when park_links, else a tensor.
     """
     from genome_assembly_tpu_torch.ops import outofcore
 
     if k % 2 == 0:
         raise ValueError("fast-mode dBG requires odd k")
+    keys_hosted = isinstance(kmer, np.ndarray)
     n = kmer.shape[0]
-    if n % chunk_nodes:
-        pad = chunk_nodes - (n % chunk_nodes)
-        kmer = torch.cat([kmer, kmer.new_full((pad,), SENTINEL)])
-        valid = torch.cat([valid, valid.new_zeros((pad,))])
-    n_chunks = kmer.shape[0] // chunk_nodes
+    n_chunks = -(-n // chunk_nodes)
     rec_per_chunk = 4 * chunk_nodes
     cap_bp, G = outofcore.range_group_plan(
         n_chunks, rec_per_chunk, partitions=partitions,
@@ -279,24 +321,52 @@ def build_unitig_links_ooc(
         sigma_scale=2.9,  # boundary keys join in groups of <= 8 per
         # (k-1)-mer: sqrt(8) deviation inflation
     )
+    link_device = torch.device(device) if keys_hosted else kmer.device
 
     def chunk_records(c):
         s = c * chunk_nodes
-        return _chunk_boundary_records(
-            kmer[s: s + chunk_nodes], valid[s: s + chunk_nodes], s, k=k)
+        kc, vc = kmer[s: s + chunk_nodes], valid[s: s + chunk_nodes]
+        if keys_hosted:
+            kc = torch.from_numpy(np.ascontiguousarray(kc)).to(link_device)
+            vc = torch.from_numpy(np.ascontiguousarray(vc)).to(link_device)
+        if kc.shape[0] < chunk_nodes:
+            pad = chunk_nodes - kc.shape[0]
+            kc = torch.cat([kc, kc.new_full((pad,), SENTINEL)])
+            vc = torch.cat([vc, vc.new_zeros((pad,))])
+        return _chunk_boundary_records(kc, vc, s, k=k)
 
-    # one spare slot past the 2N states takes the writes of non-edges
-    next_state = kmer.new_full((2 * kmer.shape[0] + 1,), -1)
+    n2p = 2 * n_chunks * chunk_nodes
+    if park_links:
+        next_host = np.full(n2p, -1, dtype=np.int64)
+    else:
+        # one spare slot past the states takes the writes of non-edges
+        next_state = torch.full((n2p + 1,), -1, dtype=torch.int64, device=link_device)
 
-    def emit(key, pay):
+    def emit(p, key, pay):
+        t0 = time.perf_counter()
         src, dst = _partition_edges(key, pay)
-        _scatter_edges(next_state, src, dst)
+        n_edges = -1
+        if park_links:
+            src_c, dst_c, n_dev = _compact_edges(src, dst)
+            del src, dst
+            n_edges = int(n_dev)
+            next_host[src_c[:n_edges].cpu().numpy()] = dst_c[:n_edges].cpu().numpy()
+        else:
+            _scatter_edges(next_state, src, dst)
+        if on_event is not None:
+            on_event("link_partition", p=p, wall_s=round(time.perf_counter() - t0, 3),
+                     n_edges=n_edges)
 
     for g in range(-(-partitions // G)):
+        t_sweep = time.perf_counter()
         parts, group_overflows = outofcore.stage_group(
             chunk_records, n_chunks, outofcore.extract_partition_range3, g,
             partitions=partitions, group_size=G, cap_bp=cap_bp,
             dtypes=(torch.int64, torch.int64))
+        if on_event is not None:
+            on_event("link_pass", g=g, chunks=n_chunks,
+                     wall_s=round(time.perf_counter() - t_sweep, 3), cap_bp=cap_bp,
+                     overflowed_chunks=group_overflows)
         overflowed = []
         for r in range(G):
             p = g * G + r
@@ -304,18 +374,21 @@ def build_unitig_links_ooc(
             if p >= partitions:
                 continue
             if group_overflows[r]:
-                # incomplete staging: no edge of it is scattered; it is
-                # re-extracted alone once the group's staging is freed
+                # incomplete staging: re-extracted alone after the group
                 overflowed.append(p)
                 continue
-            emit(*lanes)
+            emit(p, *lanes)
             del lanes
         del parts
         for p in overflowed:
-            emit(*outofcore._reextract(
+            if on_event is not None:
+                on_event("link_reextract", p=p, overflowed_chunks=group_overflows[p - g * G])
+            emit(p, *outofcore._reextract(
                 chunk_records, n_chunks, p, extract=outofcore.extract_partition_range3,
                 partitions=partitions, cap0=cap_bp, unit_records=rec_per_chunk,
                 what="link"))
+    if park_links:
+        return next_host[: 2 * n]
     return next_state[: 2 * n]
 
 
@@ -371,7 +444,9 @@ def _jump_finish(tbl: torch.Tensor, pred: torch.Tensor, next_state: torch.Tensor
     return CompactedGraph(next_state=next_state, head=head, rank=rank, is_cycle=is_cycle)
 
 
-def pointer_jump_bulk(next_state: torch.Tensor, lowmem_chunks: int | None = None) -> CompactedGraph:
+def pointer_jump_bulk(next_state: torch.Tensor, checkpoint_dir: str | None = None,
+                      checkpoint_every: int = 4, lowmem_chunks: int | None = None,
+                      on_round=None) -> CompactedGraph:
     """pointer_jump for HUGE graphs: the same result, lower peak memory.
 
     Each doubling round is its own step over a [2N, lanes] table (one
@@ -384,11 +459,22 @@ def pointer_jump_bulk(next_state: torch.Tensor, lowmem_chunks: int | None = None
     that many slices over two ping-ponged tables
     (``_jump_round_lowmem``); the states are padded to a multiple of it
     with self-absorbed isolates, invisible to results and to early exit.
+
+    checkpoint_dir: every ``checkpoint_every`` rounds the table (and pred)
+    is saved there (``utils/checkpoint``: the JAX package's files,
+    fingerprinted against this link array), and a later call on the same
+    links resumes at the last saved round.  Rounds are idempotent given
+    the table, so a resumed jump equals an uninterrupted one bit for bit;
+    frontiers are saved unpadded, so a lowmem and a non-lowmem run resume
+    each other's.  on_round(round, seconds) runs after each round.
     """
+    from genome_assembly_tpu_torch.utils import checkpoint as ckpt_mod
+
     n2 = next_state.shape[0]
     steps = max(1, math.ceil(math.log2(max(n2, 2))) + 1)
     if lowmem_chunks is None:
         lowmem_chunks = 8 if n2 > (1 << 27) else 0
+    fp = ckpt_mod.jump_fingerprint(next_state) if checkpoint_dir is not None else None
     n2p = n2
     ns_run = next_state
     if lowmem_chunks:
@@ -396,16 +482,44 @@ def pointer_jump_bulk(next_state: torch.Tensor, lowmem_chunks: int | None = None
         if n2p != n2:
             ns_run = torch.cat([next_state, next_state.new_full((n2p - n2,), -1)])
 
+    def pad_frontier(a: np.ndarray) -> torch.Tensor:
+        """A saved frontier array on the device, padded to n2p with
+        self-absorbed rows (pred: no predecessor)."""
+        if a.shape[0] != n2p:
+            pad_ids = np.arange(a.shape[0], n2p, dtype=np.int64)
+            if a.ndim == 2:
+                cols = [pad_ids, np.zeros_like(pad_ids)] + ([pad_ids] if a.shape[1] == 3 else [])
+                pad = np.stack(cols, axis=1)
+            else:
+                pad = np.full(n2p - a.shape[0], -1, np.int64)
+            a = np.concatenate([a, pad])
+        return torch.from_numpy(a).to(next_state.device)
+
     def run(lanes):
-        tbl, pred = _jump_init(ns_run, lanes)
+        start, saved = 0, None
+        if fp is not None:
+            saved = ckpt_mod.load_jump_frontier(checkpoint_dir, lanes, fp)
+        if saved is not None:
+            tbl_h, pred_h, start = saved
+            tbl, pred = pad_frontier(tbl_h), pad_frontier(pred_h)
+            del saved, tbl_h, pred_h
+        else:
+            tbl, pred = _jump_init(ns_run, lanes)
         out = torch.empty_like(tbl) if lowmem_chunks else None
-        for _ in range(steps):
+        for r in range(start, steps):
+            t0 = time.perf_counter()
             if lowmem_chunks:
                 new, changed = _jump_round_lowmem(tbl, out, n_chunks=lowmem_chunks)
                 tbl, out = new, tbl
             else:
                 tbl, changed = _jump_rows(tbl, tbl)
-            if not bool(changed):  # one read-back a round
+            done = not bool(changed)  # one read-back a round
+            if on_round is not None:
+                on_round(r, time.perf_counter() - t0)
+            if fp is not None and not done and (r + 1) % checkpoint_every == 0:
+                ckpt_mod.save_jump_frontier(checkpoint_dir, tbl[:n2], pred[:n2], r + 1,
+                                            lanes, fp)
+            if done:
                 break
         del out
         graph = _jump_finish(tbl, pred, next_state)
@@ -826,6 +940,87 @@ def materialize_unitigs_device(
         buf.tobytes(), out_off, chain_lens, chain_sums,
         cycle_strings, cycle_sums, cycle_lens,
     )
+
+
+def materialize_unitigs_partitioned(kmer, valid, graph: CompactedGraph, k: int,
+                                    partitions: int = 8) -> List[str]:
+    """materialize_unitigs with bounded host memory a bucket (host numpy).
+
+    Chains are bucketed by a multiplicative hash of their head id (a chain
+    is atomic under head bucketing) and each bucket runs the flat-buffer
+    placement over its own states only, so the host memory past the inputs
+    is O(total / partitions).  Cycles take the shared cycle path first,
+    unbucketed.  Palindromic twins are deduped by the chain-invariant rule
+    "emit from the twin whose head id is smaller", so no bucket needs
+    another's output.  The same output SET as ``materialize_unitigs``; the
+    order is the JAX package's (cycles, then bucket by bucket).
+    """
+    value = _host(kmer).astype(np.uint64)
+    valid = _host(valid)
+    head = _host(graph.head)
+    rank = _host(graph.rank).astype(np.int64)
+    is_cycle = _host(graph.is_cycle)
+    node_valid = np.repeat(valid, 2)
+
+    out: List[str] = []
+    cyc_states = np.flatnonzero(is_cycle & node_valid)
+    if cyc_states.size:
+        cs, _, _ = _materialize_cycles(
+            _host(graph.next_state), head, cyc_states,
+            _host_state_vals(kmer, k, cyc_states), k, None)
+        out.extend(cs)
+
+    lin_states = np.flatnonzero(node_valid & ~is_cycle)
+    if lin_states.size == 0:
+        return out
+    hb = (head[lin_states].astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+          >> np.uint64(40)) % np.uint64(partitions)
+    for b in range(partitions):
+        sel = lin_states[hb == np.uint64(b)]
+        if sel.size == 0:
+            continue
+        order = np.lexsort((rank[sel], head[sel]))
+        s_sorted = sel[order]
+        h_sorted = head[sel][order]
+        chain_start = np.empty(len(s_sorted), dtype=bool)
+        chain_start[0] = True
+        chain_start[1:] = h_sorted[1:] != h_sorted[:-1]
+        starts = np.flatnonzero(chain_start)
+        chain_lens = np.diff(np.append(starts, len(s_sorted)))
+        out_off = np.zeros(len(starts) + 1, dtype=np.int64)
+        np.cumsum(chain_lens + (k - 1), out=out_off[1:])
+        buf = np.empty(out_off[-1], dtype=np.uint8)
+
+        # each state's LAST base: a forward state's is ``value & 3``, a
+        # reverse state's the complement (3 - code) of the key's FIRST base
+        v = value[s_sorted >> 1]
+        first_code = (v >> np.uint64(2 * k - 2)) & np.uint64(3)
+        code = np.where((s_sorted & 1) == 0, v & np.uint64(3), np.uint64(3) - first_code)
+        # a head state gives its chain's first k-1 bases; its last base
+        # comes through the byte lane like every other state's
+        head_sids = s_sorted[starts]
+        first_vals = _host_state_vals(kmer, k, head_sids)
+        for j in range(k - 1):
+            shift = np.uint64(2 * (k - 1 - j))
+            buf[out_off[:-1] + j] = _CODE_CHARS[
+                ((first_vals >> shift) & np.uint64(3)).astype(np.int64)]
+        chain_id = np.cumsum(chain_start) - 1
+        local_i = np.arange(len(s_sorted), dtype=np.int64) - starts[chain_id]
+        buf[out_off[chain_id] + (k - 1) + local_i] = _CODE_CHARS[code.astype(np.int64)]
+
+        # the twin chain's head is this chain's last state ^ 1: the
+        # palindrome tiebreak needs no other bucket
+        last_sids = s_sorted[starts + chain_lens - 1]
+        data = buf.tobytes()
+        for c in range(len(starts)):
+            u = data[out_off[c]: out_off[c + 1]].decode()
+            rc_u = _rc_str(u)
+            if u > rc_u:
+                continue
+            if u == rc_u and not int(head_sids[c]) < int(last_sids[c] ^ 1):
+                continue
+            out.append(u)
+    return out
 
 
 _CHAR_CODE = np.full(256, 255, dtype=np.uint8)

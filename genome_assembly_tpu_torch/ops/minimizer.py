@@ -49,6 +49,18 @@ class WindowRecords(NamedTuple):
     valid: torch.Tensor
 
 
+def _window_min(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Min over each run of ``width`` consecutive columns of x [B, n]:
+    [B, n - width + 1].  Doubling: spans of 1, 2, 4 ... columns, then the
+    two overlapping largest spans that cover a window."""
+    n_out = x.shape[1] - width + 1
+    span = 1
+    while span * 2 <= width:
+        x = torch.minimum(x[:, :-span], x[:, span:])
+        span *= 2
+    return torch.minimum(x[:, :n_out], x[:, width - span: width - span + n_out])
+
+
 def fast_scan_plain(
     codes: torch.Tensor, lengths: torch.Tensor, *, k: int, m: int
 ) -> WindowRecords:
@@ -65,15 +77,15 @@ def fast_scan_plain(
         raise ValueError(f"need 1 <= m <= 15, m <= k <= 31, k <= L; got k={k} m={m} L={max_len}")
 
     n_mpos = max_len - m + 1
-    fwd = encode._windowed_pack(encode._doubling_packs(codes, m), m, n_mpos)
-    rc_m = encode._windowed_rc_pack(encode._doubling_rc_packs(codes, m), m, n_mpos)
-    canon_m = torch.minimum(fwd, rc_m)
+    # one pair of pyramids serves the m-mers and the k-mers (m <= k)
+    packs, rc_packs = encode._doubling_packs(codes, k), encode._doubling_rc_packs(codes, k)
+    fwd = encode._windowed_pack(packs, m, n_mpos)
+    rc_m = encode._windowed_rc_pack(rc_packs, m, n_mpos)
+    canon_m = torch.minimum(fwd, rc_m).to(torch.int32)  # m <= 15: 30 bits
+    wmin = _window_min(canon_m, k - m + 1)
 
-    # windowed min over the k - m + 1 m-mer positions of each window
-    wmin = canon_m.unfold(1, k - m + 1, 1).amin(dim=2)
-
-    key, rc_key = encode.pack_kmers_both(codes, k)
-    canon = torch.minimum(key, rc_key)
+    canon = torch.minimum(encode._windowed_pack(packs, k, n_win),
+                          encode._windowed_rc_pack(rc_packs, k, n_win))
 
     starts = torch.arange(n_win, device=codes.device)
     valid = starts[None, :] + k <= lengths[:, None]

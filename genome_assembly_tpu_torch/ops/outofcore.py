@@ -10,6 +10,12 @@ each partition entirely on the device.  G comes from a staging budget
 (``range_group_plan``), so the pass count is about the record bytes over
 that budget.  The link builder (ops/dbg.py: key + payload) and parity
 mode (five lanes) use the same range scheme through their own extractors.
+The super-k-mer count (``partitioned_count_super``) stages 24-byte records
+of about ten windows each, partitioned by minimizer in ragged groups of any
+partition ids, and expands each partition back to windows before its count.
+Both fast counts can bank each partition in a checkpoint directory
+(``_PartStore``, the JAX package's files) and count a worker's share of
+the partitions.
 
 All duplicates of a key share its hash, so a partition's counts are
 complete and partitions are disjoint: the union of the partitions' kept
@@ -33,7 +39,10 @@ partition's ``n_distinct`` and ``n_kept`` in one read-back.
 
 from __future__ import annotations
 
+import json
 import logging
+import os
+import pathlib
 from typing import Callable, List, NamedTuple
 
 import numpy as np
@@ -114,8 +123,18 @@ def _range_lower_bound(p: torch.Tensor, partitions: int) -> torch.Tensor:
     return torch.where(p >= partitions, _NO_HASH, bucket << 16)
 
 
+def _group_pids(group, group_size, device) -> torch.Tensor:
+    """The partition ids a group extracts: ``group`` itself when it is a
+    tensor of ids (any ids, in any order), else the consecutive ids
+    [group * G, (group + 1) * G).  An id >= partitions is inert: its slice
+    starts at the invalid run and nothing in it is a member."""
+    if isinstance(group, torch.Tensor):
+        return group
+    return torch.arange(group_size, dtype=torch.int64, device=device) + group * group_size
+
+
 def _extract(h, valid, lanes, fills, group, *, partitions, group_size, cap_bp):
-    """Partitions [group * G, (group + 1) * G) of one batch's records.
+    """The partitions of ``group`` (``_group_pids``) of one batch's records.
 
     h: the 32-bit hash of every slot (int64); valid: the slots that hold
     a record; lanes: the record's tensors, flat, with their fill values.
@@ -132,7 +151,7 @@ def _extract(h, valid, lanes, fills, group, *, partitions, group_size, cap_bp):
         raise ValueError(f"cap_bp {cap_bp} exceeds the {n} slots of a batch")
     comp = torch.where(valid, torch.clamp(h, max=_NO_HASH - 1), _NO_HASH)
     comp_s, order = torch.sort(comp, stable=True)
-    pids = torch.arange(group_size, dtype=torch.int64, device=h.device) + group * group_size
+    pids = _group_pids(group, group_size, h.device)
     bounds = torch.searchsorted(comp_s, _range_lower_bound(pids, partitions))
     starts = torch.clamp(bounds, max=n - cap_bp)
     rows = starts[:, None] + torch.arange(cap_bp, dtype=torch.int64, device=h.device)
@@ -231,28 +250,36 @@ def range_group_plan(
     return cap_bp, min(group_size, partitions)
 
 
-def stage_group(records, n_units: int, extract, g: int, *, partitions: int,
-                group_size: int, cap_bp: int, dtypes):
-    """One re-scan pass: partitions [g * G, (g + 1) * G) of every unit.
+def stage_group(records, n_units: int, extract, group, *, partitions: int,
+                group_size: int | None = None, cap_bp: int, dtypes, on_unit=None):
+    """One re-scan pass: the partitions of ``group`` from every unit.
 
-    records(u) -> the lanes of unit u; extract(*lanes, g, ...) -> G rows
-    of cap_bp a lane (non-members hold the lane's fill) and G overflow
-    flags.  Each partition's lanes are staged in one flat buffer a lane
-    (n_units * cap_bp, ``dtypes``), filled unit by unit, so no
-    concatenation follows and each partition's buffers can be
-    let go of alone.  The flags are summed on the device and read back
-    once, at the end: the pass makes ONE synchronising call of its own.
-    Returns (parts: G lists of lanes, overflows: G ints).
+    group: a group index g (the partitions [g * G, (g + 1) * G), G =
+    ``group_size``) or a list of partition ids (G = its length; copied to
+    the device once a pass).  records(u) -> the lanes of unit u;
+    extract(*lanes, group, ...) -> G rows of cap_bp a lane (non-members
+    hold the lane's fill) and G overflow flags.  Each partition's lanes
+    are staged in one flat buffer a lane (n_units * cap_bp, ``dtypes``),
+    filled unit by unit, so no concatenation follows and each partition's
+    buffers can be let go of alone.  The flags are summed on the device and
+    read back once, at the end: the pass makes ONE synchronising call of
+    its own.  ``on_unit(u + 1)`` runs after each unit's extraction is
+    queued.  Returns (parts: G lists of lanes, overflows: G ints).
     """
-    parts = ovf_sum = None
+    if not isinstance(group, (int, np.integer)):
+        group = np.asarray(group, dtype=np.int64)
+        group_size = len(group)
+    parts = ovf_sum = pids = None
     for u in range(n_units):
         lanes = records(u)
         if parts is None:
             device = lanes[0].device
+            pids = int(group) if isinstance(group, (int, np.integer)) else \
+                torch.from_numpy(group).to(device)
             parts = [[torch.empty(n_units * cap_bp, dtype=dt, device=device) for dt in dtypes]
                      for _ in range(group_size)]
             ovf_sum = torch.zeros(group_size, dtype=torch.int64, device=device)
-        *rows, ovf = extract(*lanes, g, partitions=partitions, group_size=group_size,
+        *rows, ovf = extract(*lanes, pids, partitions=partitions, group_size=group_size,
                              cap_bp=cap_bp)
         del lanes
         for r, bufs in enumerate(parts):
@@ -260,17 +287,21 @@ def stage_group(records, n_units: int, extract, g: int, *, partitions: int,
                 buf[u * cap_bp: (u + 1) * cap_bp] = lane[r]
         ovf_sum += ovf
         del rows, ovf
+        if on_unit is not None:
+            on_unit(u + 1)
     return parts, ovf_sum.tolist()
 
 
-def _reextract(records, n_units, p, *, extract, partitions, cap0, unit_records, what):
+def _reextract(records, n_units, p, *, extract, partitions, cap0, unit_records, what,
+               fill=SENTINEL):
     """Re-extract ONE partition whose statistical staging cap overflowed.
 
     Sweeps the units again extracting only partition p, with the cap
     doubled until no unit overflows (a cap of a whole unit cannot).  Each
     unit's slice is compacted on the device and read back at its true
-    size, so device memory stays at one unit's extraction.  Returns the
-    partition's lanes, on the device of the records.
+    size, so device memory stays at one unit's extraction.  ``fill`` is the
+    first lane's value at a non-member row.  Returns the partition's lanes,
+    on the device of the records.
     """
     cap = cap0
     while True:
@@ -286,28 +317,200 @@ def _reextract(records, n_units, p, *, extract, partitions, cap0, unit_records, 
             if bool(ovf[0]):
                 overflowed = True
                 break
-            real = rows[0][0] != SENTINEL  # the key lane of the one partition
+            real = rows[0][0] != fill  # the first lane of the one partition
             pieces.append([lane[0][real].cpu() for lane in rows])
         if not overflowed or cap >= unit_records:
             return [torch.cat(lane).to(device) for lane in zip(*pieces)]
 
 
 # ---------------------------------------------------------------------------
-# fast mode: partitioned count
+# fast mode: partitioned count, and its checkpoints
 # ---------------------------------------------------------------------------
 
 
 class PartitionedCount(NamedTuple):
     """Union of the partitions' pruned keys, in partition order (each
-    partition's keys ascending; the sort-join link builder needs no
-    global order)."""
+    partition's keys ascending -- subrange by subrange for a super
+    partition counted in subranges; the sort-join link builder needs no
+    global order).  With ``return_host`` kmer and valid are numpy arrays."""
 
     kmer: torch.Tensor  # [n_kept] int64 kept canonical keys (exact size)
     valid: torch.Tensor  # [n_kept] bool
     n_distinct: int
     n_kept: int
-    group_size: int = 3  # partitions extracted per re-scan pass
+    group_size: int = 3  # partitions a pass (super: the widest group's width bucket)
     partitions: int = 0
+    passes: int = 0  # re-scan passes this call made (a resumed group makes none)
+    expand_chunks: int = 0  # super records: chunks expanded (each one K1 launch)
+
+
+class _PartStore:
+    """The ``part_<p>.npz`` checkpoints of a partitioned count, in the JAX
+    package's format (written uncompressed, which the JAX package's
+    ``np.load`` reads as well): ``meta.json`` holds the run's fingerprint (a
+    directory written by another configuration is refused), each part
+    file its partition's kept keys as uint32 ``khi``/``klo`` lanes with
+    int64 ``n_distinct``, ``n_kept``, ``batch_overflows`` -- written to a
+    temporary name and renamed.  A part is reused only if its pass saw no
+    overflow.  Partition contents depend on the fingerprinted parameters
+    alone (not on the group widths or caps), so a directory survives a
+    change of staging budget, and a directory written by either package
+    resumes in the other."""
+
+    def __init__(self, checkpoint_dir, fingerprint: dict):
+        self.dir = pathlib.Path(checkpoint_dir)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        meta_path = self.dir / "meta.json"
+        if meta_path.exists():
+            old = json.loads(meta_path.read_text())
+            if old != fingerprint:
+                raise ValueError(
+                    f"checkpoint_dir {self.dir} was written by a different "
+                    f"configuration: {old} != {fingerprint}; use a fresh directory")
+        else:
+            meta_path.write_text(json.dumps(fingerprint))
+
+    @classmethod
+    def open(cls, checkpoint_dir, dataset_tag, fingerprint: dict):
+        """The store of checkpoint_dir (None without one); ``dataset_tag``,
+        when given, joins the fingerprint as its ``dataset``."""
+        if checkpoint_dir is None:
+            return None
+        if dataset_tag is not None:
+            fingerprint = {**fingerprint, "dataset": dataset_tag}
+        return cls(checkpoint_dir, fingerprint)
+
+    def usable(self, p: int) -> bool:
+        path = self.dir / f"part_{p}.npz"
+        return path.exists() and int(np.load(path)["batch_overflows"]) == 0
+
+    def load(self, p: int):
+        """(kept keys int64 numpy, n_distinct, n_kept)."""
+        saved = np.load(self.dir / f"part_{p}.npz")
+        key = (saved["khi"].astype(np.int64) << 32) | saved["klo"].astype(np.int64)
+        return key, int(saved["n_distinct"]), int(saved["n_kept"])
+
+    def save(self, p: int, key: np.ndarray, n_distinct: int, n_kept: int) -> None:
+        # uncompressed (np.load reads both forms): zlib took about 1 s a
+        # partition of near-random keys for a few percent
+        tmp = self.dir / f"part_{p}.tmp.npz"
+        np.savez(
+            tmp, khi=(key >> 32).astype(np.uint32), klo=(key & MASK32).astype(np.uint32),
+            n_distinct=np.int64(n_distinct), n_kept=np.int64(n_kept),
+            batch_overflows=np.int64(0))
+        os.replace(tmp, self.dir / f"part_{p}.npz")
+
+
+def _owned_range(only_partitions, store, partitions: int):
+    """(lo, hi) of ``only_partitions`` after the JAX package's checks."""
+    if only_partitions is None:
+        return None
+    if store is None:
+        raise ValueError("only_partitions requires checkpoint_dir (partition "
+                         "results flow through the shared part_<p>.npz files)")
+    own_lo, own_hi = int(only_partitions[0]), int(only_partitions[1])
+    if own_lo >= min(own_hi, partitions):
+        raise ValueError(
+            f"only_partitions=({own_lo}, {own_hi}) owns nothing: the run has "
+            f"{partitions} partitions (auto-sized; check the worker's range "
+            "against the merge run's partition count)")
+    return own_lo, own_hi
+
+
+class _KeptKeys:
+    """The kept keys of a partitioned count as they come, partition by
+    partition, on the host; each counted partition is saved to the store
+    (when there is one)."""
+
+    def __init__(self, store):
+        self.store = store
+        self.parts: List[np.ndarray] = []
+        self.n_distinct = self.n_kept = 0
+
+    def add(self, key: np.ndarray, n_distinct: int, n_kept: int) -> None:
+        self.parts.append(key)
+        self.n_distinct += n_distinct
+        self.n_kept += n_kept
+
+    def load(self, p: int) -> None:
+        self.add(*self.store.load(p))
+
+    def counted(self, p: int, key: np.ndarray, n_distinct: int, n_kept: int) -> None:
+        self.add(key, n_distinct, n_kept)
+        if self.store is not None:
+            self.store.save(p, key, n_distinct, n_kept)
+
+    def result(self, device, return_host: bool, **fields) -> PartitionedCount:
+        key = np.concatenate(self.parts) if self.parts else np.zeros(0, np.int64)
+        kmer = key if return_host else torch.from_numpy(key).to(device)
+        return PartitionedCount(kmer=kmer, valid=kmer != SENTINEL, n_distinct=self.n_distinct,
+                                n_kept=self.n_kept, **fields)
+
+
+def _progress(on_progress, g: int, n_groups: int, n_units: int):
+    if on_progress is None:
+        return None
+    return lambda done: on_progress(g, n_groups, done, n_units)
+
+
+def _count_kept(keys: torch.Tensor, *, cutoff: int, hybrid_sort: bool = False):
+    """(kept keys, ascending, int64 numpy; n_distinct; n_kept) of one set
+    of keys (SENTINEL = none); the two counters in one read-back."""
+    recs = WindowRecords(mmer=keys[:0].int(), kmer=keys, valid=keys != SENTINEL)
+    kc = count_ops.count_keys(recs, cutoff=cutoff, hybrid_sort=hybrid_sort)
+    del recs, keys
+    n_distinct, n_kept = torch.stack(
+        [(kc.group_start & kc.valid).sum(), kc.keep.sum()]).tolist()
+    kept, _ = count_ops.kept_keys_sorted(kc)
+    del kc
+    return kept[:n_kept].cpu().numpy(), n_distinct, n_kept
+
+
+def _count_groups(groups, records, n_units, extract, *, partitions, unit_records, dtypes,
+                  what, fill, store, owned_range, out, count_partition, on_progress):
+    """The group loop of both fast counts; returns the re-scan passes made.
+
+    groups: (what ``stage_group`` takes -- a group index or a list of ids --,
+    the partition ids it stages in row order, the staging cap).  A group
+    whose owned partitions are all in the store is loaded, with no pass.
+    Otherwise one pass stages it; each owned partition is loaded from the
+    store, or counted (``count_partition(p, lanes)``), or -- when its cap
+    overflowed in some unit -- re-extracted alone and counted after the
+    group's others, so no record is dropped and the order is the JAX
+    package's.
+    """
+    passes = 0
+    for g, (group, pids, cap) in enumerate(groups):
+        owned = [p for p in pids if p < partitions
+                 and (owned_range is None or owned_range[0] <= p < owned_range[1])]
+        if not owned:
+            continue
+        if store is not None and all(store.usable(p) for p in owned):
+            for p in owned:
+                out.load(p)
+            continue
+        parts, group_overflows = stage_group(
+            records, n_units, extract, group, partitions=partitions, group_size=len(pids),
+            cap_bp=cap, dtypes=dtypes, on_unit=_progress(on_progress, g, len(groups), n_units))
+        passes += 1
+        overflowed = []
+        for r, p in enumerate(pids):
+            lanes, parts[r] = parts[r], None
+            if p not in owned:
+                continue
+            if store is not None and store.usable(p):
+                out.load(p)
+            elif group_overflows[r]:
+                overflowed.append(p)
+            else:
+                count_partition(p, lanes)
+            del lanes
+        del parts
+        for p in overflowed:
+            count_partition(p, _reextract(
+                records, n_units, p, extract=extract, partitions=partitions, cap0=cap,
+                unit_records=unit_records, what=what, fill=fill))
+    return passes
 
 
 def partitioned_count(
@@ -317,6 +520,12 @@ def partitioned_count(
     partitions: int,
     cutoff: int,
     hybrid_sort: bool = False,
+    group_budget_bytes: int = GROUP_BUDGET_BYTES,
+    checkpoint_dir: str | None = None,
+    return_host: bool = False,
+    only_partitions: tuple | None = None,
+    on_progress: Callable[[int, int, int, int], None] | None = None,
+    dataset_tag: str | None = None,
 ) -> PartitionedCount:
     """Count n_batches key batches in ceil(P / G) re-scan passes.
 
@@ -328,70 +537,292 @@ def partitioned_count(
     and parks its kept keys on the host, trimmed to their true count.
 
     cap_bp and G come from ``range_group_plan`` (G = clamp(
-    GROUP_BUDGET_BYTES // (n_batches * cap_bp * 8), 1, 16)).  A partition
+    group_budget_bytes // (n_batches * cap_bp * 8), 1, 16)).  A partition
     that overflowed its statistical cap in some batch is re-extracted
     alone with a larger cap AFTER the group's clean partitions (so its
     keys land later in the output, as in the JAX package): no record is
     ever dropped, and no overflow is left to report.
+
+    checkpoint_dir: each counted partition's kept keys land in
+    ``part_<p>.npz`` there (``_PartStore``) and are loaded instead of
+    counted on a later call; a group whose partitions are all there makes
+    no pass.  The fingerprint is (partitions, cutoff, n_batches,
+    batch_slots) and ``dataset_tag`` when given (a caller whose batch
+    content can differ under the same geometry must tag).
+    only_partitions=(lo, hi): count only the partitions in [lo, hi) into
+    checkpoint_dir (a worker's share; a later call without it merges every
+    partition with no pass); a group that straddles the range stages all
+    of it but counts and saves only the owned ones.  return_host: the kept
+    keys come back as numpy (they were parked on the host anyway).
+    on_progress(group, n_groups, batches_done, n_batches) runs after each
+    batch's extraction is queued.
     """
     probe = batch_keys(0)
     batch_slots, device = int(probe.shape[0]), probe.device
     del probe
     cap_bp, G = range_group_plan(n_batches, batch_slots, partitions=partitions,
-                                 bytes_per_record=8, budget_bytes=GROUP_BUDGET_BYTES)
+                                 bytes_per_record=8, budget_bytes=group_budget_bytes)
+    store = _PartStore.open(checkpoint_dir, dataset_tag, {
+        "format": 5, "scheme": "range16", "partitions": partitions, "cutoff": cutoff,
+        "n_batches": n_batches, "batch_slots": batch_slots})
+    owned_range = _owned_range(only_partitions, store, partitions)
+    out = _KeptKeys(store)
 
-    parked: List[np.ndarray] = []
-    totals = dict(n_distinct=0, n_kept=0)
-
-    def count_partition(keys: torch.Tensor) -> None:
-        recs = WindowRecords(mmer=keys[:0].int(), kmer=keys, valid=keys != SENTINEL)
-        kc = count_ops.count_keys(recs, cutoff=cutoff, hybrid_sort=hybrid_sort)
-        del recs, keys
-        n_distinct, n_kept = torch.stack(
-            [(kc.group_start & kc.valid).sum(), kc.keep.sum()]).tolist()
-        totals["n_distinct"] += n_distinct
-        totals["n_kept"] += n_kept
-        kept, _ = count_ops.kept_keys_sorted(kc)
-        del kc
-        parked.append(kept[:n_kept].cpu().numpy())
+    def count_partition(p, lanes):
+        out.counted(p, *_count_kept(lanes[0], cutoff=cutoff, hybrid_sort=hybrid_sort))
 
     def records(b):
         return (batch_keys(b),)
 
-    for g in range(-(-partitions // G)):
-        parts, group_overflows = stage_group(
-            records, n_batches, extract_partition_range, g, partitions=partitions,
-            group_size=G, cap_bp=cap_bp, dtypes=(torch.int64,))
-        overflowed = []
-        for r in range(G):
-            p = g * G + r
-            (keys,), parts[r] = parts[r], None
-            if p >= partitions:
-                continue
-            if group_overflows[r]:
-                # the staged records are incomplete: count the partition
-                # after the group's clean ones, re-extracted alone
-                overflowed.append(p)
-                continue
-            count_partition(keys)
-            del keys
-        del parts
-        for p in overflowed:
-            (keys,) = _reextract(
-                records, n_batches, p, extract=extract_partition_range,
-                partitions=partitions, cap0=cap_bp, unit_records=batch_slots, what="count")
-            count_partition(keys)
-            del keys
+    groups = [(g, list(range(g * G, (g + 1) * G)), cap_bp) for g in range(-(-partitions // G))]
+    passes = _count_groups(
+        groups, records, n_batches, extract_partition_range, partitions=partitions,
+        unit_records=batch_slots, dtypes=(torch.int64,), what="count", fill=SENTINEL,
+        store=store, owned_range=owned_range, out=out, count_partition=count_partition,
+        on_progress=on_progress)
+    return out.result(device, return_host, group_size=G, partitions=partitions, passes=passes)
 
-    kmer = torch.from_numpy(np.concatenate(parked)).to(device)
-    return PartitionedCount(
-        kmer=kmer,
-        valid=kmer != SENTINEL,
-        n_distinct=totals["n_distinct"],
-        n_kept=totals["n_kept"],
-        group_size=G,
-        partitions=partitions,
-    )
+
+# ---------------------------------------------------------------------------
+# fast mode: the partitioned count over super-k-mer records
+# ---------------------------------------------------------------------------
+
+# the widest group of the super count (a sanity rail, as in the JAX package)
+SUPER_MAX_GROUP = 128
+
+# Expanded window slots above which a super partition is counted by key-hash
+# subranges.  A module constant, read at call time: tests and chip_smoke.py
+# patch it to force small partitions through the subrange path.
+SUB_COUNT_SLOTS = 192 << 20
+
+# The super count's auto-sized partitions hold about this many expanded
+# window slots (the count sort's working set), and a partition expands
+# EXPAND_CHUNK records a K1 launch: the JAX package's defaults, read at call
+# time (tests patch them to small sizes).
+EXPAND_SLOTS_BUDGET = 128 << 20
+EXPAND_CHUNK = 1 << 20
+
+
+def _mmer_hash(mmer: torch.Tensor) -> torch.Tensor:
+    """fmix32((mm * HASH_A) ^ (mm * HASH_B)): both lanes of the mixer are
+    the m-mer (int32) itself."""
+    mm = mmer.long()
+    return fmix32(((mm * HASH_A) & MASK32) ^ ((mm * HASH_B) & MASK32))
+
+
+def extract_partition_range_super(mmer, slen, w0, w1, group, *, partitions: int,
+                                  cap_bp: int, group_size: int | None = None):
+    """RANGE extraction of super-k-mer records, partitioned by MINIMIZER.
+
+    All of a canonical k-mer's occurrences share its minimizer, so hashing
+    the mmer lane keeps k-mer groups complete per partition.  group: a
+    group index (with group_size) or a tensor of partition ids -- any ids:
+    each slices its own hash interval.  Returns the four lanes [G, cap_bp]
+    (non-members hold ``superkmer.FILLS``) and overflows [G].
+    """
+    from genome_assembly_tpu_torch.ops import superkmer
+
+    outs, ovf = _extract(
+        _mmer_hash(mmer), mmer != MMER_SENTINEL, (mmer, slen, w0, w1), superkmer.FILLS,
+        group, partitions=partitions, group_size=group_size, cap_bp=cap_bp)
+    return (*outs, ovf)
+
+
+def _quarter_pow2(v) -> int:
+    """v rounded up to {1, 1.25, 1.5, 1.75} x 2^e."""
+    v = max(int(v), 1)
+    e = 1 << max(v.bit_length() - 3, 0)
+    return -(-v // e) * e
+
+
+def super_group_plan(loads: np.ndarray, n_batches: int, batch_slots: int, *,
+                     group_budget_bytes: int, expand_slots_budget: int):
+    """The JAX package's ragged groups: [(sorted partition ids, cap, width
+    bucket), ...].
+
+    Per-partition caps come from the probe batch's histogram ``loads``
+    (1.25 x load + 8 sigma + 64), groups are packed from the load-sorted
+    order (similar loads share a group), a group's cap is its largest
+    member's rounded up to a quarter power of two, and its width the
+    largest of 128, 64, ... 1 whose staging (24 B a record) fits the budget
+    less the expansion's working set (4 x expand_slots_budget x 8 B).
+    """
+    partitions = len(loads)
+    caps_p = np.minimum(
+        batch_slots,
+        np.ceil(1.25 * loads + 8.0 * np.sqrt(np.maximum(loads, 1))).astype(np.int64) + 64)
+    resv = 4 * expand_slots_budget * 8
+    stage_budget = max(group_budget_bytes - resv, group_budget_bytes // 8)
+    order = np.argsort(caps_p, kind="stable").astype(np.int64)
+    groups = []
+    lo = 0
+    while lo < partitions:
+        for width_bucket in (128, 64, 32, 16, 8, 4, 2, 1):
+            if width_bucket > SUPER_MAX_GROUP:
+                continue
+            width = min(width_bucket, partitions - lo)
+            cap_g = _quarter_pow2(caps_p[order[lo: lo + width]].max())
+            if width_bucket == 1 or n_batches * cap_g * 24 * width_bucket <= stage_budget:
+                break
+        groups.append((np.sort(order[lo: lo + width]), min(cap_g, batch_slots), width_bucket))
+        lo += width
+    return groups
+
+
+def _expanded_keys(lanes, lo: int, hi: int, *, k: int, m: int) -> torch.Tensor:
+    """The valid keys of records [lo, hi) expanded (one K1 launch)."""
+    from genome_assembly_tpu_torch.ops import superkmer
+
+    key = superkmer.expand_records(*(x[lo:hi] for x in lanes), k=k, m=m)
+    return key[key != SENTINEL]
+
+
+def _count_super_partition(lanes, *, cutoff: int, k: int, m: int, chunk: int):
+    """Expand one partition's records chunk by chunk and count the windows.
+
+    The real records are compacted first (the staged layout is mostly
+    fill) and only they expand, ``chunk`` records a K1 launch.  A partition
+    whose expansion would pass ``SUB_COUNT_SLOTS`` -- by the JAX package's
+    measure: its occupied chunks rounded up to a power of two, times
+    chunk x S_CAP -- is counted by key-hash subranges instead
+    (``_count_super_partition_subranges``), exactly where the JAX package
+    does, so the keys come out in the same order.  Returns (kept keys
+    numpy, n_distinct, n_kept, chunks expanded).
+    """
+    from genome_assembly_tpu_torch.ops import superkmer
+
+    n = lanes[0].shape[0]
+    real = lanes[0] != MMER_SENTINEL
+    lanes = [x[real] for x in lanes]
+    n_real = lanes[0].shape[0]
+    need = max(1, -(-n_real // chunk))
+    n_chunks = min(1 << (need - 1).bit_length(), -(-n // chunk))
+    if n_chunks * chunk * superkmer.S_CAP > SUB_COUNT_SLOTS:
+        return _count_super_partition_subranges(
+            lanes, cutoff=cutoff, k=k, m=m, chunk=chunk, n_chunks=n_chunks)
+    pieces = [_expanded_keys(lanes, lo, lo + chunk, k=k, m=m) for lo in range(0, n_real, chunk)]
+    keys = torch.cat(pieces) if pieces else lanes[1].new_zeros(0).long()
+    return (*_count_kept(keys, cutoff=cutoff), len(pieces))
+
+
+def _count_super_partition_subranges(lanes, *, cutoff: int, k: int, m: int, chunk: int,
+                                     n_chunks: int):
+    """Count ONE oversized super partition in key-hash subranges.
+
+    n_sub = max(2, ceil(n_chunks x chunk x S_CAP / SUB_COUNT_SLOTS)), the
+    JAX package's.  For each subrange every chunk expands again, the
+    windows whose key hashes (LINK constants, independent of the minimizer
+    hash) into the subrange are kept, and the subrange is counted alone:
+    all windows of one k-mer share its key, so subrange counts are exact
+    and their kept sets disjoint.  The keys come out subrange by subrange,
+    each ascending.  (The JAX package bounds each chunk's share with a
+    retain prefix and retries on overflow; the kept keys are the same.)
+    """
+    from genome_assembly_tpu_torch.ops import superkmer
+
+    n_sub = max(2, -(-(n_chunks * chunk * superkmer.S_CAP) // SUB_COUNT_SLOTS))
+    n_real = lanes[0].shape[0]
+    kept, n_distinct, n_kept, expanded = [], 0, 0, 0
+    for sub in range(n_sub):
+        pieces = []
+        for lo in range(0, n_real, chunk):
+            key = _expanded_keys(lanes, lo, lo + chunk, k=k, m=m)
+            expanded += 1
+            pieces.append(key[_range_pid(_mix_key(key, LINK_HASH_A, LINK_HASH_B), n_sub) == sub])
+            del key
+        keys = torch.cat(pieces) if pieces else lanes[1].new_zeros(0).long()
+        del pieces
+        key_s, d, kc = _count_kept(keys, cutoff=cutoff)
+        kept.append(key_s)
+        n_distinct += d
+        n_kept += kc
+    return np.concatenate(kept), n_distinct, n_kept, expanded
+
+
+def partitioned_count_super(
+    batch_super: Callable[[int], tuple],
+    n_batches: int,
+    *,
+    k: int,
+    m: int,
+    partitions: int = 0,
+    cutoff: int,
+    group_budget_bytes: int = GROUP_BUDGET_BYTES,
+    checkpoint_dir: str | None = None,
+    return_host: bool = False,
+    only_partitions: tuple | None = None,
+    on_progress: Callable[[int, int, int, int], None] | None = None,
+    dataset_tag: str | None = None,
+) -> PartitionedCount:
+    """Out-of-core counting over SUPER-K-MER records (ops/superkmer.py).
+
+    batch_super(i) -> the four flat record lanes of batch i
+    (``superkmer.super_records``), made again each pass.  A record costs
+    24 B for about ten windows where the plain count stages 8 B a window,
+    so a pass extracts several times more partitions within one budget.
+    Partitions hash the MINIMIZER (``extract_partition_range_super``), and
+    each partition's records expand back to windows chunk by chunk
+    (``EXPAND_CHUNK`` records a K1 launch) before the count.
+
+    partitions=0 sizes them so one partition's expanded window slots fit
+    ``EXPAND_SLOTS_BUDGET``, from the probe batch's record count.  Groups
+    are the JAX package's ragged groups (``super_group_plan``), each
+    partition's staging cap from the probe batch's histogram; a partition
+    that overflowed its cap is re-extracted alone after its group's clean
+    ones.  The keys come out group by group, each group's partitions in
+    ascending id order, each partition ascending (by subrange when it is
+    counted by subranges) -- the JAX package's list element for element.
+
+    checkpoint_dir, only_partitions, return_host, on_progress and
+    dataset_tag: as in ``partitioned_count`` (fingerprint scheme
+    ``super-range16`` with k, m and S_CAP).
+    """
+    from genome_assembly_tpu_torch.ops import superkmer
+
+    expand_slots_budget, expand_chunk = EXPAND_SLOTS_BUDGET, EXPAND_CHUNK
+    probe = batch_super(0)
+    batch_slots, device = int(probe[0].shape[0]), probe[0].device
+    mm0 = probe[0][probe[0] != MMER_SENTINEL]
+    del probe
+    n_rec0 = int(mm0.shape[0])
+    if partitions == 0:
+        total_recs = max(n_rec0 * n_batches, 1)
+        per_part = max(expand_slots_budget // superkmer.S_CAP, 1)
+        partitions = int(np.ceil(1.1 * total_recs / per_part))
+    partitions = max(partitions, 1)
+    if n_rec0:
+        loads = torch.bincount(_range_pid(_mmer_hash(mm0), partitions),
+                               minlength=partitions).cpu().numpy()
+    else:
+        loads = np.ones(partitions, np.int64)
+    del mm0
+    groups = super_group_plan(loads, n_batches, batch_slots,
+                              group_budget_bytes=group_budget_bytes,
+                              expand_slots_budget=expand_slots_budget)
+
+    store = _PartStore.open(checkpoint_dir, dataset_tag, {
+        "format": 5, "scheme": "super-range16", "partitions": partitions, "cutoff": cutoff,
+        "k": k, "m": m, "s_cap": superkmer.S_CAP, "n_batches": n_batches,
+        "batch_slots": batch_slots})
+    owned_range = _owned_range(only_partitions, store, partitions)
+    out = _KeptKeys(store)
+    expanded = 0
+
+    def count_partition(p, lanes):
+        nonlocal expanded
+        key, n_distinct, n_kept, chunks = _count_super_partition(
+            lanes, cutoff=cutoff, k=k, m=m, chunk=expand_chunk)
+        expanded += chunks
+        out.counted(p, key, n_distinct, n_kept)
+
+    passes = _count_groups(
+        [(pids, [int(p) for p in pids], cap) for pids, cap, _ in groups], batch_super,
+        n_batches, extract_partition_range_super, partitions=partitions,
+        unit_records=batch_slots, dtypes=superkmer.DTYPES, what="super count",
+        fill=MMER_SENTINEL, store=store, owned_range=owned_range, out=out,
+        count_partition=count_partition, on_progress=on_progress)
+    return out.result(device, return_host, group_size=max(b for _, _, b in groups),
+                      partitions=partitions, passes=passes, expand_chunks=expanded)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,382 @@
+"""Genome-scale fast-mode run on one card, reads generated on the device.
+
+    python -m genome_assembly_tpu_torch.tools.run_scale --preset small --cpu
+    python -m genome_assembly_tpu_torch.tools.run_scale --preset chr1 --super \\
+        --park-keys --park-links --materialize --checkpoint-dir DIR
+
+Makes every read batch on the device (``ops/vgenome``: read starts and
+bases are counter hashes, so no read crosses from the host and a pass that
+makes a batch again makes the same reads), runs count -> prune -> links ->
+pointer jump (-> materialize), and prints JSON-line events, one a phase:
+``config``, ``genome``, ``scan`` + ``count`` in core or ``outofcore`` /
+``outofcore_super`` + ``scan_and_count`` out of core, ``links_parked`` /
+``links_outofcore`` with ``link_pass`` / ``link_partition`` /
+``links_upload``, ``links``, ``jump_round``, ``extension``, ``total``,
+``materialize``.  Device phases are closed by ``torch.cuda.synchronize()``
+and carry ``peak_device_bytes`` (null on the CPU).  The counterpart of the
+JAX package's ``tools/run_scale.py``: the same presets, options (its
+``--pallas-sort`` is ``--hybrid-sort``), branches and event names; its
+``--scan-chunk``, ``--tpu-ext-limit``, ``--ext-mode`` and the
+``links_budget`` event are not here.
+
+Runs on the card unless ``--cpu`` is given.  ``humanchr`` is count-only on
+one card (its states pass 2^31; the extension is refused, as in the JAX
+package).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import sys
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from genome_assembly_tpu_torch.common import SENTINEL
+from genome_assembly_tpu_torch.ops import count as count_ops
+from genome_assembly_tpu_torch.ops import dbg, minimizer, outofcore, superkmer, vgenome
+from genome_assembly_tpu_torch.ops.minimizer import WindowRecords
+
+PRESETS = {
+    "small": dict(genome_len=200_000, coverage=10, read_len=100, batch=16384,
+                  kept_cap=1 << 19),
+    "ecoli": dict(genome_len=4_600_000, coverage=50, read_len=100, batch=65536,
+                  kept_cap=1 << 23),
+    "celegans": dict(genome_len=100_000_000, coverage=30, read_len=100,
+                     batch=131072, kept_cap=1 << 27),
+    "mid": dict(genome_len=32_000_000, coverage=30, read_len=100,
+                batch=131072, kept_cap=1 << 26),
+    # human chromosome 1 scale (248.9 Mbp), 30x: links and keys parked on
+    # the host (--park-keys --park-links) rehearse the 3 Gbp memory plan
+    "chr1": dict(genome_len=250_000_000, coverage=30, read_len=100,
+                 batch=131072, kept_cap=1 << 28),
+    # a full human genome, 3 Gbp x 30x: count only on one card
+    "humanchr": dict(genome_len=3_000_000_000, coverage=30, read_len=100,
+                     batch=131072, kept_cap=3_200_000_000),
+}
+
+READ_SLOTS = 128  # columns of a read batch (reads are read_len long)
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m genome_assembly_tpu_torch.tools.run_scale", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--preset", choices=PRESETS, default="ecoli")
+    ap.add_argument("--k", type=int, default=31)
+    ap.add_argument("--m", type=int, default=7)
+    ap.add_argument("--cutoff", type=int, default=1)
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--count-only", action="store_true",
+                    help="stop after the count (no dBG compaction)")
+    ap.add_argument("--partitions", type=int, default=0,
+                    help="out-of-core count partitions (0 = auto: in core up to 3 GiB "
+                         "of keys, else one partition a GiB; 1 = in core)")
+    ap.add_argument("--group-budget-gb", type=float, default=8.0,
+                    help="device staging budget (GiB) of one out-of-core pass")
+    ap.add_argument("--super", action="store_true", dest="super_records",
+                    help="stage the out-of-core count as super-k-mer records "
+                         "(ops/superkmer.py): 24 B for about ten windows")
+    ap.add_argument("--hybrid-sort", action="store_true",
+                    help="count sorts by library chunk sorts merged by the bitonic "
+                         "kernels (the plain count; the super count ignores it)")
+    ap.add_argument("--link-partitions", type=int, default=0,
+                    help="out-of-core link partitions (0 = auto from a 1 GiB "
+                         "record budget; 1 = the in-core join)")
+    ap.add_argument("--link-chunk", type=int, default=1 << 23,
+                    help="nodes a chunk when the link records are made again")
+    ap.add_argument("--park-keys", action="store_true",
+                    help="keep the kept keys in host RAM; the link builder uploads "
+                         "them a chunk at a time")
+    ap.add_argument("--park-links", action="store_true",
+                    help="build the 2N link array in host RAM from each partition's "
+                         "edges; it is uploaded once for the jump")
+    ap.add_argument("--materialize", action="store_true",
+                    help="materialize the unitig strings after the jump and report "
+                         "their count and lengths")
+    ap.add_argument("--jump-checkpoint-every", type=int, default=0,
+                    help="doubling rounds between jump frontier checkpoints in "
+                         "--checkpoint-dir (default 0: none, count checkpoints "
+                         "stay; on one card a frontier save outlasts all the "
+                         "rounds it would spare a resumed run)")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="directory of resumable count partitions (and jump "
+                         "frontiers under jump/): a killed run resumes there")
+    ap.add_argument("--part-range", default="", metavar="LO:HI",
+                    help="count only out-of-core partitions [LO, HI) into "
+                         "--checkpoint-dir (a worker's share; a later run without "
+                         "it merges every partition with no re-scan)")
+    ap.add_argument("--virtual-genome", action=argparse.BooleanOptionalAction, default=None,
+                    help="read bases as a counter hash of (seed, position) "
+                         "(ops/vgenome.py) instead of a genome made with a seeded "
+                         "torch.Generator and stored on the device.  Default: on "
+                         "the card virtual, with --cpu stored")
+    return ap
+
+
+class Dataset:
+    """The preset's reads, batch by batch, made on ``device``.
+
+    Batch b holds ``batch`` reads of ``read_len`` bases in [batch, 128]
+    uint8 rows: read starts ``vgenome.read_starts(seed, b, ...)`` in
+    [0, G - read_len), bases from the virtual genome or from a stored
+    genome (``torch.randint`` with a generator seeded ``seed``, made on the
+    CPU and copied).  A pure function of (preset, seed, virtual, b): the
+    same on the CPU and the card.
+    """
+
+    def __init__(self, preset: str, *, k: int, m: int, seed: int, virtual: bool, device):
+        cfg = PRESETS[preset]
+        self.k, self.m, self.seed, self.virtual = k, m, seed, virtual
+        self.device = torch.device(device)
+        self.genome_len = cfg["genome_len"]
+        self.read_len = cfg["read_len"]
+        self.batch = cfg["batch"]
+        self.kept_cap = cfg["kept_cap"]
+        n_reads = int(self.genome_len * cfg["coverage"] / self.read_len)
+        self.n_batches = max(1, -(-n_reads // self.batch))
+        self.n_reads = self.n_batches * self.batch
+        self.n_win = READ_SLOTS - k + 1
+        self.batch_slots = self.batch * self.n_win
+        self.total_slots = self.n_reads * self.n_win
+        # a checkpoint directory must never mix the two datasets
+        self.tag = f"{'vg' if virtual else 'gen'}-ctr-seed{seed}"
+        self.genome = None
+        if not virtual:
+            gen = torch.Generator().manual_seed(seed)
+            self.genome = torch.randint(0, 4, (self.genome_len,), generator=gen,
+                                        dtype=torch.uint8).to(self.device)
+        self._lengths = torch.full((self.batch,), self.read_len, dtype=torch.int32,
+                                   device=self.device)
+
+    def codes(self, b: int):
+        """(codes [batch, 128] uint8, lengths [batch] int32) of batch b."""
+        starts = vgenome.read_starts(self.seed, b, self.batch,
+                                     self.genome_len - self.read_len, device=self.device)
+        if self.virtual:
+            reads = vgenome.read_batch(self.seed, starts, self.read_len)
+        else:
+            offs = torch.arange(self.read_len, dtype=torch.int64, device=self.device)
+            reads = self.genome[starts[:, None] + offs[None, :]]
+        codes = torch.zeros((self.batch, READ_SLOTS), dtype=torch.uint8, device=self.device)
+        codes[:, : self.read_len] = reads
+        return codes, self._lengths
+
+    def keys(self, b: int) -> torch.Tensor:
+        """Flat canonical keys of batch b (SENTINEL where no window)."""
+        return minimizer.fast_scan(*self.codes(b), k=self.k, m=self.m).kmer.reshape(-1)
+
+    def super_records(self, b: int):
+        """The four flat super-k-mer record lanes of batch b."""
+        return superkmer.super_records(*self.codes(b), k=self.k, m=self.m)
+
+
+class _Phases:
+    """Wall seconds and peak device bytes of a phase: the card is
+    synchronised at both ends and its peak counter reset at the start."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.t0 = time.perf_counter()
+
+    def start(self) -> None:
+        if self.cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        self.t0 = time.perf_counter()
+
+    def wall(self) -> float:
+        if self.cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter() - self.t0
+
+    def peak(self) -> Optional[int]:
+        return torch.cuda.max_memory_allocated() if self.cuda else None
+
+
+def _print_event(event: dict) -> None:
+    print(json.dumps(event), flush=True)
+
+
+def _graph_stats(graph, valid: torch.Tensor):
+    """(linear chain heads, valid cycle states, largest rank) of a graph."""
+    ids = torch.arange(graph.head.shape[0], device=graph.head.device)
+    node_valid = valid[ids >> 1]
+    lin_heads = ((graph.head == ids) & node_valid & ~graph.is_cycle).sum()
+    n_cyc = (graph.is_cycle & node_valid).sum()
+    max_rank = torch.where(node_valid, graph.rank, 0).max()
+    return [int(x) for x in torch.stack([lin_heads, n_cyc, max_rank]).tolist()]
+
+
+def main(argv=None, emit_event: Callable[[dict], None] = _print_event) -> int:
+    """Run the tool; every event goes to ``emit_event`` (printed as a JSON
+    line by default).  Returns the exit code."""
+    args = parser().parse_args(argv)
+    device = torch.device("cpu" if args.cpu else "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("run_scale was asked for a CUDA device and this machine has "
+                           "none; pass --cpu to run on the CPU")
+
+    def emit(event, **kw):
+        emit_event({"event": event, **kw})
+
+    K, CUTOFF = args.k, args.cutoff
+    phases = _Phases(device)
+    virtual = (not args.cpu) if args.virtual_genome is None else args.virtual_genome
+    phases.start()
+    ds = Dataset(args.preset, k=K, m=args.m, seed=args.seed, virtual=virtual, device=device)
+    emit("config", preset=args.preset, genome_len=ds.genome_len, n_reads=ds.n_reads, k=K,
+         m=args.m, total_window_slots=ds.total_slots, n_batches=ds.n_batches,
+         device=str(device), dataset=ds.tag)
+    emit("genome", wall_s=phases.wall(), virtual=virtual)
+    kept_cap = ds.kept_cap
+
+    partitions = args.partitions
+    if partitions == 0:
+        # in core while the keys fit 3 GiB; else one partition a GiB
+        total_bytes = ds.total_slots * 8
+        partitions = 1 if total_bytes <= 3 * (1 << 30) else int(np.ceil(total_bytes / (1 << 30)))
+    checkpoint_dir = args.checkpoint_dir or None
+    if partitions > 1:
+        part_range = None
+        if args.part_range:
+            lo_s, hi_s = args.part_range.split(":")
+            part_range = (int(lo_s), int(hi_s))
+        last = [0.0]
+
+        def progress(g, n_groups, b, n_b):
+            now = time.monotonic()
+            if now - last[0] >= 60 or b >= n_b:
+                last[0] = now
+                print(f"[progress] group {g + 1}/{n_groups} made {b}/{n_b} batches",
+                      file=sys.stderr, flush=True)
+
+        common = dict(cutoff=CUTOFF, group_budget_bytes=int(args.group_budget_gb * (1 << 30)),
+                      checkpoint_dir=checkpoint_dir, return_host=args.park_keys,
+                      only_partitions=part_range, on_progress=progress, dataset_tag=ds.tag)
+        phases.start()
+        if args.super_records:
+            emit("outofcore_super", requested_partitions=partitions, part_range=part_range)
+            pc = outofcore.partitioned_count_super(
+                ds.super_records, ds.n_batches, k=K, m=args.m, partitions=0, **common)
+        else:
+            emit("outofcore", partitions=partitions, part_range=part_range)
+            pc = outofcore.partitioned_count(
+                ds.keys, ds.n_batches, partitions=partitions, hybrid_sort=args.hybrid_sort,
+                **common)
+        if part_range is not None:
+            emit("count_worker_done", part_range=list(part_range), n_kept=pc.n_kept,
+                 n_distinct=pc.n_distinct, overflows=0, passes=pc.passes)
+            return 0
+        scan_wall, count_wall = 0.0, phases.wall()
+        kmer, valid = pc.kmer, pc.valid
+        kept_cap = int(kmer.shape[0])
+        n_distinct, n_kept = pc.n_distinct, pc.n_kept
+        emit("scan_and_count", wall_s=count_wall,
+             kmers_scanned_and_counted_per_s=ds.total_slots / count_wall,
+             distinct=n_distinct, kept=n_kept, group_size=pc.group_size,
+             partitions=pc.partitions, passes=pc.passes, expand_chunks=pc.expand_chunks,
+             peak_device_bytes=phases.peak())
+        del pc
+    else:
+        phases.start()
+        keys = torch.cat([ds.keys(b) for b in range(ds.n_batches)])
+        scan_wall = phases.wall()
+        emit("scan", wall_s=scan_wall, windows_per_s=ds.total_slots / scan_wall,
+             peak_device_bytes=phases.peak())
+        phases.start()
+        kc = count_ops.count_keys(
+            WindowRecords(mmer=keys[:0].int(), kmer=keys, valid=keys != SENTINEL),
+            cutoff=CUTOFF, hybrid_sort=args.hybrid_sort)
+        del keys
+        n_distinct, n_kept = torch.stack(
+            [(kc.group_start & kc.valid).sum(), kc.keep.sum()]).tolist()
+        kmer, valid = count_ops.kept_keys_sorted(kc)
+        del kc
+        kmer, valid = kmer[:kept_cap], valid[:kept_cap]
+        count_wall = phases.wall()
+        if n_kept > kept_cap:
+            raise AssertionError(f"raise kept_cap: {n_kept} > {kept_cap}")
+        emit("count", wall_s=count_wall, kmers_counted_per_s=ds.total_slots / count_wall,
+             distinct=n_distinct, kept=n_kept, peak_device_bytes=phases.peak())
+    ds.genome = None  # not needed past the count
+
+    if args.count_only:
+        emit("total", wall_s=scan_wall + count_wall,
+             end_to_end_kmers_per_s=ds.total_slots / max(scan_wall + count_wall, 1e-9))
+        return 0
+    if 2 * kept_cap > 2 ** 31:
+        emit("extension_skipped",
+             reason="states exceed 2^31; run with --count-only on one card")
+        return 1
+
+    phases.start()
+    n_nodes = int(kmer.shape[0])
+    link_partitions = args.link_partitions
+    if link_partitions == 0:
+        rec_bytes = 4 * n_nodes * 12  # 4 records a node at the JAX package's 12 B
+        link_partitions = 1 if rec_bytes <= 3 * (1 << 30) else int(np.ceil(rec_bytes / (1 << 30)))
+    if not args.park_keys and isinstance(kmer, np.ndarray):
+        kmer, valid = torch.from_numpy(kmer).to(device), torch.from_numpy(valid).to(device)
+    if args.park_keys or args.park_links:
+        parts = max(link_partitions, 2)
+        emit("links_parked", partitions=parts, chunk_nodes=args.link_chunk,
+             park_keys=args.park_keys, park_links=args.park_links)
+        links = dbg.build_unitig_links_parked(
+            kmer, valid, k=K, partitions=parts, chunk_nodes=args.link_chunk,
+            park_links=args.park_links, on_event=lambda kind, **kw: emit(kind, **kw),
+            device=device)
+        if args.park_links:
+            t_up = time.perf_counter()
+            links = torch.from_numpy(links).to(device)  # one upload for the jump
+            phases.wall()
+            emit("links_upload", wall_s=time.perf_counter() - t_up)
+        emit("links", wall_s=phases.wall(), partitions=parts, peak_device_bytes=phases.peak())
+    elif link_partitions > 1:
+        emit("links_outofcore", partitions=link_partitions, chunk_nodes=args.link_chunk)
+        links = dbg.build_unitig_links_ooc(kmer, valid, k=K, partitions=link_partitions,
+                                           chunk_nodes=args.link_chunk)
+        emit("links", wall_s=phases.wall(), partitions=link_partitions,
+             peak_device_bytes=phases.peak())
+    else:
+        links = dbg.build_unitig_links_join(kmer, valid, k=K)
+    valid_dev = torch.as_tensor(valid).to(device)
+    if 2 * n_nodes > 1 << 26:
+        # the keys wait on the host while the bulk jump holds the card
+        if isinstance(kmer, torch.Tensor):
+            kmer = kmer.cpu().numpy()
+        jump_dir = None
+        if checkpoint_dir and args.jump_checkpoint_every:
+            jump_dir = str(pathlib.Path(checkpoint_dir) / "jump")
+        graph = dbg.pointer_jump_bulk(
+            links, checkpoint_dir=jump_dir, checkpoint_every=max(args.jump_checkpoint_every, 1),
+            on_round=lambda r, dt: emit("jump_round", round=r, wall_s=dt))
+    else:
+        graph = dbg.pointer_jump(links)
+    del links
+    lin_heads, n_cyc_states, max_rank = _graph_stats(graph, valid_dev)
+    del valid_dev
+    ext_wall = phases.wall()
+    emit("extension", wall_s=ext_wall, linear_unitigs=lin_heads // 2,
+         cyclic_states=n_cyc_states, longest_chain=max_rank + 1,
+         states_per_s=2 * kept_cap / ext_wall, peak_device_bytes=phases.peak())
+    total = scan_wall + count_wall + ext_wall
+    emit("total", wall_s=total, end_to_end_kmers_per_s=ds.total_slots / total)
+    if args.materialize:
+        phases.start()
+        unitigs, _, _ = dbg.materialize_unitigs_device(kmer, valid, graph, K)
+        del graph
+        emit("materialize", wall_s=phases.wall(), unitigs=len(unitigs),
+             total_bp=sum(len(u) for u in unitigs),
+             longest_bp=max((len(u) for u in unitigs), default=0),
+             peak_device_bytes=phases.peak())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -378,3 +378,128 @@ def test_partitioned_count_parity_forced_cap_overflow_is_reported(monkeypatch):
     want, got = _parity_both(partitions=4, cutoff=-1)
     _same_host(want[0], got[0])
     assert got[1:] == want[1:] and got[2] > 0
+
+
+# -- checkpoints, workers, pid lists -------------------------------------------
+
+class _Killed(Exception):
+    pass
+
+
+def test_partitioned_count_resumes_after_a_kill(monkeypatch, tmp_path):
+    """Killed during its second pass: the first pass's partitions are on
+    disk, the resumed call skips their group (no re-scan) and gives the
+    same keys in order as an uninterrupted run and the JAX package."""
+    _force_plan(monkeypatch, tooc, group_size=2)
+    batches = _count_batches()
+    want, fresh = _run_both(batches, partitions=5, cutoff=1, jax_kw=dict(group_size=2))
+    made = []
+
+    def keys(b, kill_at=None):
+        made.append(b)
+        if kill_at is not None and len(made) == kill_at:
+            raise _Killed
+        return torch.from_numpy(batches[b])
+    ck = str(tmp_path / "ck")
+    with pytest.raises(_Killed):  # the probe, one pass of 3 batches, then a kill
+        tooc.partitioned_count(lambda b: keys(b, kill_at=6), 3, partitions=5, cutoff=1,
+                               checkpoint_dir=ck)
+    assert sorted(p.name for p in tmp_path.joinpath("ck").glob("part_*.npz")) == \
+        ["part_0.npz", "part_1.npz"]
+    made.clear()
+    got = tooc.partitioned_count(keys, 3, partitions=5, cutoff=1, checkpoint_dir=ck)
+    assert made == [0] + [0, 1, 2] * 2 and got.passes == 2
+    _same_count(want, got)
+    assert torch.equal(got.kmer, fresh.kmer)
+    # every part saved: a third call makes no pass, return_host gives numpy
+    made.clear()
+    again = tooc.partitioned_count(keys, 3, partitions=5, cutoff=1, checkpoint_dir=ck,
+                                   return_host=True)
+    assert made == [0] and again.passes == 0
+    assert isinstance(again.kmer, np.ndarray) and np.array_equal(again.kmer, fresh.kmer.numpy())
+
+
+def test_partitioned_count_directories_resume_across_packages(tmp_path):
+    """Worker ranges written by one package, merged by the other with no
+    re-scan: the keys equal a fresh JAX count in order; the part files hold
+    uint32 khi/klo lanes and int64 counters."""
+    batches = _count_batches()
+    want = jooc.partitioned_count(lambda b: _lanes(batches[b]), 3, partitions=6, cutoff=1,
+                                  kept_cap=1 << 20)
+    for writer in ("jax", "port"):
+        ck = str(tmp_path / writer)
+        for lo, hi in ((0, 3), (3, 6)):
+            if writer == "jax":
+                jooc.partitioned_count(lambda b: _lanes(batches[b]), 3, partitions=6, cutoff=1,
+                                       kept_cap=1 << 20, checkpoint_dir=ck,
+                                       only_partitions=(lo, hi), dataset_tag="d")
+            else:
+                tooc.partitioned_count(lambda b: torch.from_numpy(batches[b]), 3,
+                                       partitions=6, cutoff=1, checkpoint_dir=ck,
+                                       only_partitions=(lo, hi), dataset_tag="d")
+        saved = np.load(tmp_path / writer / "part_0.npz")
+        assert saved["khi"].dtype == np.uint32 and saved["klo"].dtype == np.uint32
+        assert saved["n_kept"].dtype == np.int64 and int(saved["batch_overflows"]) == 0
+        if writer == "jax":
+            made = []
+            got = tooc.partitioned_count(lambda b: (made.append(b), torch.from_numpy(
+                batches[b]))[1], 3, partitions=6, cutoff=1, checkpoint_dir=ck, dataset_tag="d")
+            assert made == [0] and got.passes == 0
+            _same_count(want, got)
+        else:
+            got = jooc.partitioned_count(lambda b: _lanes(batches[b]), 3, partitions=6,
+                                         cutoff=1, kept_cap=1 << 20, checkpoint_dir=ck,
+                                         dataset_tag="d")
+            assert np.array_equal(convert.lanes_to_key(got.kmer_hi, got.kmer_lo),
+                                  convert.lanes_to_key(want.kmer_hi, want.kmer_lo))
+            assert (got.n_kept, got.n_distinct) == (want.n_kept, want.n_distinct)
+
+
+def test_partitioned_count_refuses_foreign_directories_and_empty_ranges(tmp_path):
+    batches = _count_batches()
+
+    def keys(b):
+        return torch.from_numpy(batches[b])
+    tooc.partitioned_count(keys, 3, partitions=4, cutoff=1, checkpoint_dir=str(tmp_path),
+                           dataset_tag="vg-ctr-seed0")
+    meta = (tmp_path / "meta.json").read_text()
+    assert '"scheme": "range16"' in meta and '"format": 5' in meta
+    for kw in (dict(partitions=5, dataset_tag="vg-ctr-seed0"),
+               dict(partitions=4, dataset_tag="gen-ctr-seed0"), dict(partitions=4)):
+        with pytest.raises(ValueError, match="different configuration"):
+            tooc.partitioned_count(keys, 3, cutoff=1, checkpoint_dir=str(tmp_path), **kw)
+    with pytest.raises(ValueError, match="owns nothing"):
+        tooc.partitioned_count(keys, 3, partitions=4, cutoff=1, checkpoint_dir=str(tmp_path),
+                               dataset_tag="vg-ctr-seed0", only_partitions=(4, 8))
+    with pytest.raises(ValueError, match="requires checkpoint_dir"):
+        tooc.partitioned_count(keys, 3, partitions=4, cutoff=1, only_partitions=(0, 2))
+
+
+def test_partitioned_count_reports_progress_per_batch():
+    batches = _count_batches()
+    seen = []
+    tooc.partitioned_count(lambda b: torch.from_numpy(batches[b]), 3, partitions=3, cutoff=1,
+                           on_progress=lambda *a: seen.append(a))
+    assert seen == [(0, 1, b, 3) for b in (1, 2, 3)]
+
+
+@pytest.mark.parametrize("extract,n_lanes", [(tooc.extract_partition_range, 1),
+                                             (tooc.extract_partition_range3, 2)])
+def test_stage_group_takes_a_list_of_partition_ids(extract, n_lanes):
+    """A pid list stages the same rows as the consecutive groups that hold
+    its ids; an id past the partitions stages only fill."""
+    batches = [torch.from_numpy(k) for k in _count_batches()]
+
+    def records(u):
+        return (batches[u],) * n_lanes
+    kw = dict(partitions=6, cap_bp=800, dtypes=(torch.int64,) * n_lanes)
+    listed, ovf = tooc.stage_group(records, 3, extract, [4, 1, 9], **kw)
+    by_group = {}
+    for g in (0, 1):
+        parts, govf = tooc.stage_group(records, 3, extract, g, group_size=3, **kw)
+        for r in range(3):
+            by_group[g * 3 + r] = (parts[r], govf[r])
+    for (lanes, o), p in zip(zip(listed, ovf), [4, 1]):
+        assert all(torch.equal(a, b) for a, b in zip(lanes, by_group[p][0]))
+        assert o == by_group[p][1]
+    assert all((lane == SENT).all() for lane in listed[2]) and ovf[2] == 0
