@@ -39,7 +39,13 @@ its functions on the ecoli preset (``scale_checks``: super-k-mer and plain
 out-of-core counts, card == CPU, forced subrange counts, worker ranges merged
 from one checkpoint directory, a killed jump resumed, parked links, the
 bucketed materializer) and its chr1 rehearsal at full size, 250 Mb x 30x,
-7,360,217,088 window slots (``scale_chr1``); and prints one JSON object per
+7,360,217,088 window slots (``scale_chr1``); drives the multi-device path
+(``mesh_e2e``): ``FastAssembler.unitigs(mesh=)`` over 4 shards on the card
+(or one a card) on the ecoli reads, held against ``full_e2e``'s list, K1
+once a shard; the ragged count of the same reads; ``ParityAssembler`` over
+the mesh on the goldens' input and BASELINE.md's big run; and
+``tools/run_multihost.py`` over several processes (NCCL, and gloo on one
+card), held against the one-process mesh; and prints one JSON object per
 phase.  Exits non-zero if there is no CUDA device, if the
 package cannot be imported (run it from the root of a checkout) or if any
 phase fails.  Imports nothing of JAX and nothing of the JAX package.  A
@@ -96,8 +102,11 @@ try:
     from genome_assembly_tpu_torch.ops import minimizer_cuda
     from genome_assembly_tpu_torch.ops import outofcore
     from genome_assembly_tpu_torch.ops import superkmer
+    from genome_assembly_tpu_torch.parallel import mesh as mesh_lib
+    from genome_assembly_tpu_torch.parallel import shard_count
     from genome_assembly_tpu_torch.parity import nonacgt
     from genome_assembly_tpu_torch.parity import table as parity_table
+    from genome_assembly_tpu_torch.tools import run_multihost
     from genome_assembly_tpu_torch.tools import run_scale
     from genome_assembly_tpu_torch.utils import checkpoint as jump_checkpoint
 except ImportError as missing:
@@ -144,6 +153,8 @@ BIG_RUN_OOC_BYTES = 150_000_000
 GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden"
 
 KERNEL_SHAPE = (65536, 128)
+# rows a slice of the plain scan takes when a kernel is held against it
+PLAIN_ROWS = 131072
 # rows of one expansion chunk of the super-k-mer count (its default
 # expand_chunk), each S_CAP + k - 1 = 55 bases at k = 31
 EXPAND_ROWS = 1 << 20
@@ -162,6 +173,16 @@ FORCED_SUB_COUNT_SLOTS = 40 << 20
 # what the chunk sorts do on 2^28 keys, as rows
 ROWS_SHAPE = (16384, 4096)
 SQUARE_ROWS_SHAPE = (1 << 14, 1 << 14)
+# the mesh path: 4 shards, on the one card or one a card; the processes of
+# run_multihost.py on a 200 kb genome at 20x with the ecoli preset's k and m
+MESH_SHARDS = 4
+# one shard's rows of the ecoli reads as one batch (2,300,000 reads): the
+# shape K1 takes on the mesh path
+MESH_SHARD_ROWS = -(-ECOLI["genome_len"] * ECOLI["coverage"] // ECOLI["read_len"]
+                    // MESH_SHARDS)
+MULTIHOST_DATASET = dict(genome_len=200_000, read_len=100, coverage=20.0, seed=3, k=31, m=7,
+                         cutoff=1, max_read_len=128)
+MULTIHOST_TIMEOUT = 300
 
 
 def emit(phase: str, **fields) -> None:
@@ -313,9 +334,16 @@ def phase_build():
 
 
 def compare_scan(codes, lengths, k, m):
-    """(mismatching elements, max |kernel - plain|) over mmer, kmer, valid."""
+    """(mismatching elements, max |kernel - plain|) over mmer, kmer, valid.
+    The kernel takes the whole batch in one launch; the plain version runs
+    on slices of PLAIN_ROWS rows (each row's windows depend on that row
+    alone), which bounds its intermediates."""
     got = minimizer.fast_scan(codes, lengths, k=k, m=m)
-    want = minimizer.fast_scan_plain(codes, lengths, k=k, m=m)
+    parts = [minimizer.fast_scan_plain(codes[r:r + PLAIN_ROWS], lengths[r:r + PLAIN_ROWS],
+                                       k=k, m=m)
+             for r in range(0, max(codes.shape[0], 1), PLAIN_ROWS)]
+    want = minimizer.WindowRecords(*(torch.cat(lane) for lane in zip(*parts)))
+    del parts
     torch.cuda.synchronize()
     mismatches, max_err = 0, 0.0
     for name in ("mmer", "kmer", "valid"):
@@ -352,7 +380,8 @@ def scan_batch(rng, batch, max_len, device, kind, offset=0):
 def phase_kernel_check(device):
     rng = np.random.default_rng(1234)
     cases = [(KERNEL_SHAPE[0], KERNEL_SHAPE[1], 31, 7, "random", 0),
-             (CHR1_BATCH, 128, 31, 7, "random", 0)]  # a chr1 batch's shape
+             (CHR1_BATCH, 128, 31, 7, "random", 0),  # a chr1 batch's shape
+             (MESH_SHARD_ROWS, 128, 31, 7, "random", 0)]  # a mesh shard's rows
     for k, m in [(31, 7), (21, 7), (17, 5), (16, 5), (15, 5), (31, 4)]:
         cases.append((1000, 128, k, m, "random", 0))
         cases.append((1000, 100, k, m, "random", 0))
@@ -1275,6 +1304,209 @@ def phase_hybrid_e2e(device, full):
          full_e2e_max_memory_allocated=full["fields"]["max_memory_allocated"],
          full_e2e_kmers_counted_per_s=full["fields"]["kmers_counted_per_s"], **fields)
     return launches
+
+
+# --------------------------------------------------------------------------
+# over a mesh
+# --------------------------------------------------------------------------
+
+def card_devices():
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def reset_peaks(devices):
+    for d in devices:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def peaks(devices):
+    return {str(d): torch.cuda.max_memory_allocated(d) for d in devices}
+
+
+def timed_mesh(devices, fn):
+    """fn() with the launch counts and every card's peak set to 0 just
+    before it; (result, wall seconds, peak bytes by card, launches)."""
+    reset_peaks(devices)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return out, time.perf_counter() - t0, peaks(devices), read_launch_counts()
+
+
+def multihost_runs():
+    """(processes, backend, --device) of each run_multihost.py launch: NCCL
+    with a card a process where there are several cards; NCCL over one
+    process and gloo over two processes on card 0 where there is one."""
+    count = torch.cuda.device_count()
+    if count > 1:
+        return [(count, "nccl", "cuda")]
+    return [(1, "nccl", "cuda"), (2, "gloo", "cuda:0")]
+
+
+def run_multihost_launches():
+    """Every launch of multihost_runs() at once, each a launcher process
+    (it starts and stops its workers); (run, summary) pairs.  A launch
+    that fails fails the phase; none is left running."""
+    root = pathlib.Path(__file__).resolve().parent
+    dataset = [arg for name, value in MULTIHOST_DATASET.items()
+               for arg in (f"--{name.replace('_', '-')}", str(value))]
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = []
+        for i, (procs, backend, device) in enumerate(multihost_runs()):
+            out = pathlib.Path(tmp) / f"summary{i}.json"
+            cmd = [sys.executable, "-m", "genome_assembly_tpu_torch.tools.run_multihost",
+                   "--procs", str(procs), "--backend", backend, "--device", device,
+                   "--out", str(out), "--timeout", str(MULTIHOST_TIMEOUT), *dataset]
+            launches.append(((procs, backend, device), out, subprocess.Popen(
+                cmd, cwd=str(root), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        results, failed = [], []
+        for run, out, proc in launches:
+            try:
+                _, err = proc.communicate(timeout=MULTIHOST_TIMEOUT + 60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                _, err = proc.communicate()
+            if proc.returncode:
+                failed.append(f"{run}: exit {proc.returncode}\n{err[-3000:]}")
+            else:
+                results.append((run, json.loads(out.read_text())))
+    if failed:
+        raise AssertionError("mesh_e2e: run_multihost failed:\n" + "\n".join(failed))
+    return results
+
+
+def phase_mesh_e2e(device, full, parity_runs):
+    """The mesh path (one process, MESH_SHARDS shards: all on the card, or
+    one a card where there are several): ``FastAssembler.unitigs(mesh=)``
+    on the ecoli reads (key routing, padded blocks) == full_e2e's list and
+    counters, K1 once a shard, and K1 == its plain version on each shard's
+    rows of that batch; the ragged count of the same reads, its kept
+    keys == full_e2e's kept table; ``ParityAssembler.assemble(mesh=)`` on
+    the goldens' input (padded and ragged, byte for byte) and on
+    BASELINE.md's big run, clean (padded) and dirty (ragged) side by side,
+    == parity_e2e's lines; and run_multihost.py's processes == the
+    one-process mesh of as many shards.  Every overflow counter 0 (the
+    assemblers raise on one)."""
+    cards = card_devices()
+    devices = cards if len(cards) > 1 else [device]
+    mesh = mesh_lib.make_mesh(MESH_SHARDS, devices=devices)
+    reads = full["reads"]
+    cfg = ecoli_config()
+    asm = FastAssembler(cfg, device=device)
+    (unitigs, stats), wall, peak, launches = timed_mesh(
+        cards, lambda: asm.unitigs(reads, mesh=mesh))
+    padded = dict(
+        equal_to_full_e2e=unitigs == full["unitigs"],
+        counters_equal=counters(stats) == full["counters"], phase_seconds=dict(stats.wall_s),
+        assemble_wall_seconds=wall, max_memory_allocated_by_card=peak, launches=launches,
+        n_unitigs=len(unitigs), **counters(stats))
+    mesh_k1 = launches["fast_scan"]
+    if not (padded["equal_to_full_e2e"] and padded["counters_equal"]):
+        raise AssertionError(f"mesh_e2e: the mesh's unitigs differ from full_e2e's: {padded}")
+    if mesh_k1 != MESH_SHARDS or any(sort_kernel_launches(launches).values()):
+        raise AssertionError(f"mesh_e2e: launches {launches}, want K1 once a shard")
+    del unitigs
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    (batch,) = reads_io.batch_reads(reads, cfg.max_read_len)
+    batch = reads_io.pad_batch(batch, -(-batch.n // MESH_SHARDS) * MESH_SHARDS)
+    t_batch = time.perf_counter() - t0
+
+    # K1 against its plain version on each shard's rows of the batch the
+    # mesh path scanned (not counted as launches of the path)
+    shard_scans = []
+    for s, (codes, lengths) in enumerate(zip(mesh.shard_rows(batch.codes),
+                                             mesh.shard_rows(batch.lengths))):
+        mism, err = compare_scan(codes, lengths, cfg.k, cfg.m)
+        shard_scans.append(dict(shard=s, shape=list(codes.shape), mismatches=mism,
+                                max_abs_err=err))
+        del codes, lengths
+    scan_tally = (sum(x["mismatches"] for x in shard_scans),
+                  max(x["max_abs_err"] for x in shard_scans))
+    if scan_tally[0] or shard_scans[0]["shape"] != [MESH_SHARD_ROWS, cfg.max_read_len]:
+        raise AssertionError(f"mesh_e2e: K1 on the shards' rows: {shard_scans}")
+    torch.cuda.empty_cache()
+
+    def ragged_kept():
+        sc = shard_count.sharded_count(
+            batch.codes, batch.lengths, batch.read_ids, k=cfg.k, m=cfg.m, parity=False,
+            cutoff=cfg.abundance_cutoff, mesh=mesh, routing="ragged", route_by="key")
+        overflow = mesh.total(sc.overflow)
+        kept = torch.cat([x[keep].to(device) for x, keep in zip(sc.kmer, sc.keep)])
+        return overflow, torch.sort(kept).values.cpu().numpy()
+
+    (overflow, kept), r_wall, r_peak, r_launches = timed_mesh(cards, ragged_kept)
+    ragged = dict(overflow=overflow, kept_equal_full_e2e=np.array_equal(kept, full["kept"]),
+                  batch_host_seconds=t_batch, count_wall_seconds=r_wall,
+                  max_memory_allocated_by_card=r_peak, launches=r_launches)
+    if overflow or not ragged["kept_equal_full_e2e"] or r_launches["fast_scan"] != MESH_SHARDS:
+        raise AssertionError(f"mesh_e2e: the ragged count differs: {ragged}")
+    del batch, kept
+    torch.cuda.empty_cache()
+
+    golden_reads = reads_io.load_reads_parity(str(GOLDEN / "input.txt"))
+    want = ((GOLDEN / "input_k6m3_unitigs.txt").read_text().splitlines(),
+            (GOLDEN / "input_k6m3_verbose.txt").read_text())
+    goldens = []
+    for routing in ("padded", "ragged"):
+        for batch_reads in (64, 7):
+            gasm = ParityAssembler(PipelineConfig(k=6, m=3, max_read_len=32,
+                                                  batch_reads=batch_reads), device=device)
+            got = (gasm.assemble(golden_reads, engine="native", mesh=mesh, routing=routing)[0],
+                   gasm.assemble(golden_reads, engine="native", verbose=True, mesh=mesh,
+                                 routing=routing)[0])
+            goldens.append(dict(routing=routing, batch_reads=batch_reads,
+                                unitigs_exact=got[0] == want[0], verbose_exact=got[1] == want[1]))
+            if got != want:
+                raise AssertionError(f"mesh_e2e: parity goldens over the mesh: {goldens[-1]}")
+
+    pasm = ParityAssembler(parity_config(PARITY_E2E), device=device)
+    reset_peaks(cards)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        big = {"clean_padded": pool.submit(pasm.assemble, parity_runs["ids"], engine="native",
+                                           mesh=mesh, routing="padded"),
+               "dirty_ragged": pool.submit(pasm.assemble, parity_runs["dirty_ids"],
+                                           engine="native", mesh=mesh, routing="ragged")}
+        big = {name: run.result() for name, run in big.items()}
+    big_wall = time.perf_counter() - t0
+    no_kernel_launched("mesh_e2e parity")
+    big_run = dict(
+        clean_padded_equal_parity_e2e=big["clean_padded"][0] == parity_runs["lines"],
+        dirty_ragged_equal_parity_dirty=big["dirty_ragged"][0] == parity_runs["dirty_lines"],
+        side_by_side_wall_seconds=big_wall, max_memory_allocated_by_card=peaks(cards),
+        phase_seconds={name: dict(out[1].wall_s) for name, out in big.items()})
+    if not (big_run["clean_padded_equal_parity_e2e"]
+            and big_run["dirty_ragged_equal_parity_dirty"]):
+        raise AssertionError(f"mesh_e2e: BASELINE.md's big run over the mesh differs: {big_run}")
+
+    t0 = time.perf_counter()
+    multihost = []
+    for (procs, backend, spec), got in run_multihost_launches():
+        ref_mesh = mesh_lib.make_mesh(procs, devices=cards if spec == "cuda" else [spec])
+        ref = run_multihost.summarize(ref_mesh, **MULTIHOST_DATASET)
+        same = {key: got[key] == ref[key] for key in (
+            "entries", "digest", "ragged_digest", "n_unitigs", "unitig_digest", "overflow")}
+        multihost.append(dict(processes=procs, backend=backend, device=spec, equal=same,
+                              summary=got, one_process_phase_seconds=ref["phase_seconds"]))
+        if (not all(same.values()) or got["overflow"] or got["processes"] != procs
+                or got["ragged_digest"] != got["digest"]):
+            raise AssertionError(f"mesh_e2e: run_multihost differs: {multihost[-1]}")
+    t_multihost = time.perf_counter() - t0
+    emit("mesh_e2e", n_shards=MESH_SHARDS, devices=[str(d) for d in devices],
+         preset="ecoli", reads=len(reads), window_slots=full["fields"]["window_slots"],
+         k1_launches=mesh_k1, k1_on_shard_rows=shard_scans, padded=padded, ragged=ragged,
+         parity_goldens=goldens,
+         parity_big_run=big_run, multihost_dataset=MULTIHOST_DATASET,
+         multihost=multihost, multihost_seconds=t_multihost)
+    torch.cuda.empty_cache()
+    return mesh_k1, scan_tally
 
 
 # --------------------------------------------------------------------------
@@ -2258,6 +2490,7 @@ def phase_parity_e2e_and_dirty(device):
     if not all(same) or not n_dirty_ids or not d_lines:
         raise AssertionError(f"parity_dirty: card and CPU differ {same}, "
                              f"{n_dirty_ids} dirty reads")
+    return dict(ids=ids, lines=lines, dirty_ids=dirty_ids, dirty_lines=d_lines)
 
 
 def phase_parity_scale(device):
@@ -2457,7 +2690,7 @@ def scan_bound(codes, lengths, k, m):
     return bound_fields([(n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_ALU_OPS_PER_S * 1e3)])
 
 
-def time_scan(device, batch, launches, tally, chr1_launches):
+def time_scan(device, batch, launches, tally, chr1_launches, mesh_launches):
     """K1 and its plain version on one batch of the main path
     ([65536, 128], k=31, m=7, the reads of full_e2e), turn about; and at
     the super-k-mer count's expansion shape ([2^20, 55]: real record rows
@@ -2485,7 +2718,8 @@ def time_scan(device, batch, launches, tally, chr1_launches):
         "source": "genome_assembly_tpu_torch/csrc/fast_scan.cu",
         "replaces": "genome_assembly_tpu/ops/minimizer_pallas.py:25",
         "launches": launches, "launches_from": "full_e2e (hybrid_e2e launches it as often)",
-        "launches_by_path": {"full_e2e": launches, "scale_chr1": chr1_launches},
+        "launches_by_path": {"full_e2e": launches, "scale_chr1": chr1_launches,
+                             "mesh_e2e": mesh_launches},
         "max_abs_err": tally[1], "mismatches": tally[0],
         **times, "kernel_ms": times["ms"], **bound, "library_ms": None,
         "shape": list(KERNEL_SHAPE), "k": k, "m": m,
@@ -3139,13 +3373,16 @@ def main() -> int:
     scan_tally = phase_kernel_check(device)
     phase_small_e2e(device)
     phase_parity_golden(device)
-    phase_parity_e2e_and_dirty(device)
+    parity_runs = phase_parity_e2e_and_dirty(device)
     phase_parity_scale(device)
     full = phase_full_e2e(device, args.coverage)
     tallies = phase_sort_check(device)
     tallies.update(phase_merge_check(device))
     hybrid_launches = phase_hybrid_e2e(device, full)
     torch.cuda.empty_cache()
+    mesh_launches, mesh_scan_tally = phase_mesh_e2e(device, full, parity_runs)
+    scan_tally = (scan_tally[0] + mesh_scan_tally[0], max(scan_tally[1], mesh_scan_tally[1]))
+    del parity_runs
     phase_ooc_extension(device, full, args.coverage)
     phase_ooc_e2e(device)
     phase_parity_ooc_golden(device)
@@ -3161,7 +3398,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     merge_launches = phase_mergepath_entry_point(device, n_keys, real_keys)
     torch.cuda.empty_cache()
-    kernels = [time_scan(device, first_batch, scan_launches, scan_tally, chr1_launches)]
+    kernels = [time_scan(device, first_batch, scan_launches, scan_tally, chr1_launches,
+                         mesh_launches)]
     kernels += time_sort_kernels(device, tallies, hybrid_launches, entry_launches, n_keys)
     torch.cuda.empty_cache()
     kernels += time_merge_kernels(device, tallies, merge_launches, n_keys, real_keys)

@@ -2,8 +2,8 @@
 
 There are no weights in this system; what crosses between the two
 packages is read batches, window records, key tables (fast mode's
-``KeyCounts``, parity mode's ``CountedTable`` and ``HostTable``) and
-graphs.  The JAX
+``KeyCounts``, parity mode's ``CountedTable`` and ``HostTable``, the
+mesh's ``ShardedCount``) and graphs.  The JAX
 package holds a k-mer as two uint32 lanes ``(hi, lo)`` with the all-ones
 pair as padding sentinel, m-mers as uint32, counts and state ids as
 32-bit; this package holds one int64 key ``(hi << 32) | lo`` with int64
@@ -27,6 +27,7 @@ from genome_assembly_tpu_torch.io.reads import ReadBatch
 from genome_assembly_tpu_torch.ops.count import CountedTable, KeyCounts
 from genome_assembly_tpu_torch.ops.dbg import CompactedGraph
 from genome_assembly_tpu_torch.ops.minimizer import WindowRecords
+from genome_assembly_tpu_torch.parallel.shard_count import ShardedCount
 from genome_assembly_tpu_torch.parity.table import HostTable
 
 LANE_SENTINEL = np.uint32(0xFFFFFFFF)
@@ -233,3 +234,27 @@ def host_table_to_lanes(host: HostTable):
         _np(host.first_seen).astype(np.uint32),
         [_np(r).astype(np.uint32) for r in host.read_ids],
     )
+
+
+def sharded_count_to_lanes(sc: ShardedCount):
+    """``ShardedCount`` of a one-process mesh (every shard local) -> the
+    JAX package's ``ShardedCount`` fields as numpy ``[n_shards, R]`` arrays
+    in its types, ``overflow`` int32 ``[n_shards]``.  Rows without a record
+    map as ``counted_table_to_lanes`` maps them."""
+    shards = [counted_table_to_lanes(CountedTable(*(getattr(sc, f)[i]
+                                                    for f in CountedTable._fields)))
+              for i in range(len(sc.mmer))]
+    overflow = np.asarray([int(x) for x in sc.overflow], dtype=np.int32)
+    return (*(np.stack(lane) for lane in zip(*shards)), overflow)
+
+
+def sharded_count_from_lanes(mmer, kmer_hi, kmer_lo, read_id, stream_idx, valid, group_start,
+                             count, keep, overflow) -> ShardedCount:
+    """The JAX package's ``ShardedCount`` fields ([n_shards, R] numpy) ->
+    this package's, one CPU tensor a shard in each field."""
+    lanes = [_np(x) for x in (mmer, kmer_hi, kmer_lo, read_id, stream_idx, valid, group_start,
+                              count, keep)]
+    tables = [counted_table_from_lanes(*(lane[s] for lane in lanes))
+              for s in range(lanes[0].shape[0])]
+    return ShardedCount(*(list(f) for f in zip(*tables)),
+                        [torch.tensor(int(v)) for v in _np(overflow)])

@@ -1,4 +1,4 @@
-"""End-to-end assembly pipelines, in core, one device.
+"""End-to-end assembly pipelines.
 
 Fast mode (``FastAssembler``): ingest (host) -> canonical scan -> count ->
 prune -> links -> pointer jump -> materialize (host).
@@ -17,10 +17,17 @@ hash partitions; fast mode then builds its links out of core past
 switch formulas are the JAX package's, so both packages take the same
 branch for one config.
 
+Given a ``mesh`` (parallel/mesh.py: shards in one process, or one shard a
+process over ``torch.distributed``) both modes count over the mesh
+(parallel/shard_count.py): fast mode with one key-routed batch, then the
+routed link join and the sharded (or, past 2**31 states, the routed) jump
+over the mesh's row blocks of the kept keys, and the host materializer;
+parity mode with minimizer-routed batches feeding the same replay.  The
+JAX package's two-level routing is not ported yet.
+
 Every entry point takes ``device`` and defaults to ``"cuda"``: asked for a
 card on a machine without one it raises, it does not carry on on the CPU.
-The multi-device branches of the JAX package are not ported yet and raise
-``NotImplementedError``.
+A mesh names its own devices.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from genome_assembly_tpu_torch.common import SENTINEL
 from genome_assembly_tpu_torch.config import PipelineConfig
 from genome_assembly_tpu_torch.io import reads as reads_io
 from genome_assembly_tpu_torch.io import stream as stream_io
@@ -40,6 +48,7 @@ from genome_assembly_tpu_torch.ops import count as count_ops
 from genome_assembly_tpu_torch.ops import dbg
 from genome_assembly_tpu_torch.ops import minimizer
 from genome_assembly_tpu_torch.ops import outofcore
+from genome_assembly_tpu_torch.parallel import part_dbg, shard_count, shard_dbg
 from genome_assembly_tpu_torch.parity import nonacgt
 from genome_assembly_tpu_torch.parity import replay as replay_mod
 from genome_assembly_tpu_torch.parity import table as table_ops
@@ -63,16 +72,18 @@ class PhaseStats:
 
 
 class _PhaseClock:
-    """Adds the seconds between two ``lap`` calls to ``stats.wall_s``."""
+    """Adds the seconds between two ``lap`` calls to ``stats.wall_s``; a
+    lap first synchronizes every CUDA device it was given."""
 
-    def __init__(self, stats: PhaseStats, device: torch.device):
+    def __init__(self, stats: PhaseStats, *devices: torch.device):
         self.stats = stats
-        self.device = device
+        self.devices = {torch.device(d) for d in devices}
         self.t = time.perf_counter()
 
     def lap(self, name: str) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for device in self.devices:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         now = time.perf_counter()
         self.stats.wall_s[name] = self.stats.wall_s.get(name, 0.0) + now - self.t
         self.t = now
@@ -236,18 +247,12 @@ class FastAssembler:
                 )
         return self.unitigs(chunks)
 
-    def _check_ported(self, mesh) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-device counting) is not ported yet "
-                "(multi-device slice)"
-            )
-
     def unitigs(
         self, reads: Sequence[str], mesh=None
     ) -> Tuple[List[str], PhaseStats]:
         cfg = self.config
-        self._check_ported(mesh)
+        if mesh is not None:
+            return self._unitigs_sharded(reads, mesh)
         n_batches = -(-len(reads) // cfg.batch_reads)
         total_slots = n_batches * cfg.batch_reads * cfg.windows_per_read
         if total_slots * 8 > cfg.outofcore_bytes:
@@ -355,7 +360,8 @@ class FastAssembler:
         n_kmers[i] is unitig i's mean k-mer occurrence count.
         """
         cfg = self.config
-        self._check_ported(mesh)
+        if mesh is not None:
+            return self._unitigs_cov_sharded(reads, mesh)
         stats = PhaseStats(n_reads=len(reads))
         clock = _PhaseClock(stats, self.device)
         combined, _ = self._flat_fast_records(reads, stats, clock)
@@ -389,7 +395,8 @@ class FastAssembler:
         unitig.
         """
         cfg = self.config
-        self._check_ported(mesh)
+        if mesh is not None:
+            return self._unitigs_rids_sharded(reads, mesh)
         stats = PhaseStats(n_reads=len(reads))
         clock = _PhaseClock(stats, self.device)
         combined, rid_flat = self._flat_fast_records(
@@ -458,6 +465,161 @@ class FastAssembler:
         clock.lap("materialize")
         stats.entries_post_extension = len(out)
         return out, per_unitig, stats
+
+    # ------------------------------------------------------------------
+    # over a mesh
+    # ------------------------------------------------------------------
+
+    def _sharded_count(self, reads: Sequence[str], mesh, stats: PhaseStats,
+                       clock: _PhaseClock) -> shard_count.ShardedCount:
+        """All reads as one batch, counted over the mesh with key ownership
+        (minimizer mass is heavy-tailed and skews shard loads at high shard
+        counts); laps ``batch``."""
+        cfg = self.config
+        (batch,) = reads_io.batch_reads(reads, cfg.max_read_len)
+        batch = reads_io.pad_batch(batch, -(-batch.n // mesh.n_shards) * mesh.n_shards)
+        clock.lap("batch")
+        sc = shard_count.sharded_count(
+            batch.codes, batch.lengths, batch.read_ids, k=cfg.k, m=cfg.m, parity=False,
+            cutoff=cfg.abundance_cutoff, mesh=mesh, route_by="key")
+        overflow = mesh.total(sc.overflow)
+        if overflow:
+            raise RuntimeError(f"key routing overflow ({overflow})")
+        stats.n_windows = mesh.total([v.sum() for v in sc.valid])
+        stats.entries_pre_prune = mesh.total(
+            [(g & v).sum() for g, v in zip(sc.group_start, sc.valid)])
+        return sc
+
+    def _sharded_graph(self, reads: Sequence[str], mesh, *, with_counts: bool):
+        """The mesh path up to the compacted graph.
+
+        The graph is built over the kept keys padded to a multiple of the
+        mesh size, as the JAX package builds it (node ids, so the unitig
+        order, follow the pad).  Returns host (kmer, valid, counts or None,
+        graph, wide, stats, clock); ``wall_s``: batch, count, links, jump."""
+        cfg = self.config
+        stats = PhaseStats(n_reads=len(reads))
+        clock = _PhaseClock(stats, *mesh.devices)
+        sc = self._sharded_count(reads, mesh, stats, clock)
+        kmer, counts, stats.entries_post_prune = _sharded_kept_keys(sc, mesh, with_counts)
+        del sc
+        valid = [x != SENTINEL for x in kmer]
+        clock.lap("count")
+        rows2 = 2 * kmer[0].shape[0]
+        wide = cfg.wide_state_ids is True or (
+            cfg.wide_state_ids == "auto" and rows2 * mesh.n_shards >= 1 << 31)
+        links, ovf = part_dbg.partitioned_unitig_links_join(kmer, valid, k=cfg.k, mesh=mesh)
+        _raise_on_overflow(mesh, ovf, "link-join routing")
+        clock.lap("links")
+        if wide:
+            # the JAX package's wide (owner, local) jump: with int64 ids
+            # here, the routed jump
+            g, ovf = part_dbg.partitioned_pointer_jump(links, mesh=mesh)
+            _raise_on_overflow(mesh, ovf, "jump routing")
+        else:
+            g = shard_dbg.sharded_pointer_jump(links, mesh=mesh)
+        graph = dbg.CompactedGraph(*(torch.from_numpy(mesh.to_host(x).reshape(-1)) for x in g))
+        clock.lap("jump")
+        kmer = mesh.to_host(kmer).reshape(-1)
+        counts = None if counts is None else mesh.to_host(counts).reshape(-1)
+        return kmer, kmer != SENTINEL, counts, graph, wide, stats, clock
+
+    def _unitigs_sharded(self, reads: Sequence[str], mesh):
+        """Counting and dBG compaction over the mesh; the host materializer
+        (the bucketed one for wide ids, as in the JAX package)."""
+        kmer, valid, _, graph, wide, stats, clock = self._sharded_graph(
+            reads, mesh, with_counts=False)
+        if wide:
+            out = dbg.materialize_unitigs_partitioned(kmer, valid, graph, self.config.k)
+        else:
+            out = dbg.materialize_unitigs(kmer, valid, graph, self.config.k)
+        clock.lap("materialize")
+        stats.entries_post_extension = len(out)
+        return out, stats
+
+    def _unitigs_cov_sharded(self, reads: Sequence[str], mesh):
+        """``unitigs_with_coverage`` over the mesh: the counts ride the
+        kept-key sort."""
+        kmer, valid, counts, graph, _, stats, clock = self._sharded_graph(
+            reads, mesh, with_counts=True)
+        out, occ_sum, n_kmers = dbg.materialize_unitigs_cov(kmer, valid, graph, self.config.k,
+                                                           counts)
+        clock.lap("materialize")
+        stats.entries_post_extension = len(out)
+        return out, occ_sum, n_kmers, stats
+
+    def _unitigs_rids_sharded(self, reads: Sequence[str], mesh):
+        """``unitigs_with_read_ids`` over the mesh.  Each key is owned by one
+        shard, so the shard-major concatenation of the kept groups is the
+        global grouping: the host flattens them into the CSR, sorts the kept
+        keys into dBG order and permutes the CSR alongside; the tail is the
+        in-core one."""
+        stats = PhaseStats(n_reads=len(reads))
+        clock = _PhaseClock(stats, *mesh.devices, self.device)
+        sc = self._sharded_count(reads, mesh, stats, clock)
+        lanes = shard_count.host_lanes(sc, mesh, ("kmer", "read_id", "count", "keep"))
+        del sc
+        s_idx, g_idx = np.nonzero(lanes["keep"])
+        counts = lanes["count"][s_idx, g_idx].astype(np.int64)
+        kmer = lanes["kmer"][s_idx, g_idx]
+        stats.entries_post_prune = len(s_idx)
+        offsets = np.zeros(len(s_idx) + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        within = np.arange(offsets[-1], dtype=np.int64) - np.repeat(offsets[:-1], counts)
+        base = s_idx.astype(np.int64) * lanes["keep"].shape[1] + g_idx
+        values = lanes["read_id"].reshape(-1)[np.repeat(base, counts) + within].astype(np.uint32)
+        # dBG order: sort the kept keys, permute the CSR alongside
+        order = np.argsort(kmer, kind="stable")
+        counts_s = counts[order]
+        off_s = np.zeros(len(order) + 1, dtype=np.int64)
+        np.cumsum(counts_s, out=off_s[1:])
+        pos = (np.arange(offsets[-1], dtype=np.int64) - np.repeat(off_s[:-1], counts_s)
+               + np.repeat(offsets[:-1][order], counts_s))
+        clock.lap("count")
+        return self._assemble_with_read_ids(kmer[order], off_s, values[pos], stats, clock)
+
+
+def _raise_on_overflow(mesh, overflow, what: str) -> None:
+    total = mesh.total(overflow)
+    if total:
+        raise RuntimeError(f"{what} overflow ({total})")
+
+
+def _sharded_kept_keys(sc: shard_count.ShardedCount, mesh, with_counts: bool):
+    """The kept keys of a ShardedCount, sorted, cut into the mesh's row
+    blocks.
+
+    Every shard's kept keys (padded to the largest shard's count) are
+    gathered to every device, sorted there once by the int64 key, and each
+    local shard takes its rows of the first ``n_shards * ceil(n_kept /
+    n_shards)`` (SENTINEL past the kept keys); only the shards' kept counts
+    are read back.  Returns (kmer, counts or None: lists a local shard,
+    n_kept)."""
+    n = mesh.n_shards
+    kept = [x[keep] for x, keep in zip(sc.kmer, sc.keep)]
+    sizes = mesh.all_gather([torch.tensor([x.shape[0]], device=x.device) for x in kept])
+    sizes = sizes[0].tolist()
+    n_kept = sum(sizes)
+    width = max(max(sizes), 1)
+    rows = max(1, -(-n_kept // n))
+
+    def gathered(parts, fill):
+        return mesh.all_gather([torch.cat([x, x.new_full((width - x.shape[0],), fill)])
+                                for x in parts])
+
+    keys = gathered(kept, SENTINEL)
+    cnts = (gathered([c[keep] for c, keep in zip(sc.count, sc.keep)], 0)
+            if with_counts else [None] * len(keys))
+    done = {}
+    kmer, counts = [], []
+    for s, key, cnt in zip(mesh.local, keys, cnts):
+        if id(key) not in done:
+            key_s, order = torch.sort(key)
+            done[id(key)] = (key_s, None if cnt is None else cnt[order])
+        key_s, cnt_s = done[id(key)]
+        kmer.append(key_s[s * rows:(s + 1) * rows])
+        counts.append(None if cnt_s is None else cnt_s[s * rows:(s + 1) * rows])
+    return kmer, (counts if with_counts else None), n_kept
 
 
 ENGINES = ("auto", "python", "native")
@@ -565,11 +727,59 @@ class ParityAssembler:
             return host, streams, stats
         return host, stats
 
-    def _assemble_sharded(self):
-        raise NotImplementedError(
-            "mesh= (multi-device parity counting) is not ported yet "
-            "(ROADMAP.md queue 1 item 4)"
-        )
+    def _assemble_sharded(self, reads: Sequence[str], mesh, engine: str, verbose: bool,
+                          routing: str):
+        """Counting over the mesh (minimizer routing, any number of
+        batches: each shard keeps its records across batches, so groups
+        spanning batches stay whole), then the replay, as in core: each
+        group carries its global first stream index.  Reads with non-ACGT
+        bytes take the same exception regroup on the merged table.  The
+        batches hold ``batch_reads`` rows rounded up to the mesh size, so a
+        stream index is still row * windows_per_read + window.  ``wall_s``:
+        batch, count, extract, replay."""
+        cfg = self.config
+        stats = PhaseStats(n_reads=len(reads))
+        clock = _PhaseClock(stats, *mesh.devices)
+        n = mesh.n_shards
+        rows = max(n, -(-cfg.batch_reads // n) * n)
+        batches = [reads_io.pad_batch(b, rows) for b in reads_io.batch_reads(
+            reads, cfg.max_read_len, rows, parity_chars=True)]
+        clock.lap("batch")
+        sc = shard_count.sharded_count_batches(
+            batches, k=cfg.k, m=cfg.m, parity=True, cutoff=-1, mesh=mesh, routing=routing)
+        overflow = mesh.total(sc.overflow)
+        if overflow:
+            raise RuntimeError(
+                f"minimizer routing overflow ({overflow} records); rerun with a larger "
+                "slack factor")
+        stats.n_windows = mesh.total([v.sum() for v in sc.valid])
+        stats.entries_pre_prune = mesh.total(
+            [(g & v).sum() for g, v in zip(sc.group_start, sc.valid)])
+        clock.lap("count")
+        if nonacgt.has_non_acgt(reads):
+            host, streams = shard_count.sharded_host_table_with_streams(sc, mesh)
+            del sc
+            groups = nonacgt.regroup_with_exceptions(
+                host, streams, reads, k=cfg.k, m=cfg.m, n_win=cfg.windows_per_read)
+            clock.lap("extract")
+            return self._replay(
+                stats, clock, lambda: self._replay_string_groups(groups, engine, verbose))
+        if engine == "native":
+            groups = shard_count.sharded_groups_for_replay(sc, mesh)
+
+            def run():
+                text, _ = replay_native.replay(*groups, cfg.k, cfg.m, cfg.abundance_cutoff,
+                                               verbose=verbose)
+                return text if verbose else text.splitlines()
+        else:
+            host, _ = shard_count.sharded_host_table_with_streams(sc, mesh)
+
+            def run():
+                groups = replay_mod.groups_from_host_table(host, cfg.k, cfg.m)
+                return self._replay_string_groups(groups, engine, verbose)
+        del sc
+        clock.lap("extract")
+        return self._replay(stats, clock, run)
 
     def pruned_table_dict(self, reads: Sequence[str]) -> Dict:
         if nonacgt.has_non_acgt(reads):
@@ -605,7 +815,7 @@ class ParityAssembler:
 
     def assemble(
         self, reads: Sequence[str], engine: str = "auto", verbose: bool = False,
-        mesh=None,
+        mesh=None, routing: str = "padded",
     ):
         """Full parity pipeline -> unitig lines in the reference's exact
         print order.
@@ -613,13 +823,14 @@ class ParityAssembler:
         engine: 'python' (executable spec), 'native' (C++ engine), or
         'auto' (native if it builds, else python).
         verbose: return the print_kmer_read_ids text instead of unitig lines.
-        mesh: the distributed count; not ported yet (raises).
+        mesh: count over this mesh (parallel/mesh.py); the replay is the
+        same.  routing: "padded" or "ragged" record exchange on the mesh.
         Returns (lines or text, PhaseStats).
         """
         cfg = self.config
         engine = self._engine(engine)
         if mesh is not None:
-            self._assemble_sharded()
+            return self._assemble_sharded(reads, mesh, engine, verbose, routing)
         if nonacgt.has_non_acgt(reads):
             return self._assemble_nonacgt(reads, engine, verbose)
         if self._needs_outofcore(reads):

@@ -246,9 +246,22 @@ def test_outofcore_everything_pruned_matches_jax():
 @pytest.mark.parametrize(
     "method", ["unitigs", "unitigs_with_coverage", "unitigs_with_read_ids"])
 def test_mesh_branch_waits(method):
+    """The mesh branch runs (a CPU mesh of 4 shards gives the single-device
+    unitigs); what still waits for the next multi-device slice is the
+    two-level routing."""
+    from genome_assembly_tpu_torch.io import reads as treads
+    from genome_assembly_tpu_torch.parallel import mesh as tmesh
+    from genome_assembly_tpu_torch.parallel import shard_count
+
     reads, kw = _case("brute_force_k11")
+    asm = TFast(TConfig(**kw), device="cpu")
+    mesh = tmesh.make_mesh(4, devices=["cpu"])
+    assert sorted(getattr(asm, method)(reads, mesh=mesh)[0]) == sorted(
+        getattr(asm, method)(reads)[0])
+    (b,) = treads.batch_reads(reads[:8], kw["max_read_len"])
     with pytest.raises(NotImplementedError, match="multi-device"):
-        getattr(TFast(TConfig(**kw), device="cpu"), method)(reads, mesh=object())
+        shard_count.sharded_count(b.codes, b.lengths, b.read_ids, k=kw["k"], m=kw["m"],
+                                  parity=False, cutoff=1, mesh=mesh, routing="two_level")
 
 
 def test_constructor_checks_match_jax():

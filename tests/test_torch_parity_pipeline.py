@@ -355,11 +355,21 @@ def test_outofcore_nonacgt_equals_in_core():
 # -- what is not ported raises ---------------------------------------------
 
 def test_mesh_raises_not_implemented():
+    """The mesh count runs (a CPU mesh of 4 shards gives the in-core lines);
+    its count-shard checkpoints wait for the next multi-device slice."""
+    from genome_assembly_tpu_torch.io import reads as treads
+    from genome_assembly_tpu_torch.parallel import mesh as tmesh
+    from genome_assembly_tpu_torch.parallel import shard_count
+
     _, incore = _pair()
     reads = incore.load(str(FIXTURE)) * 4
     assert not incore._needs_outofcore(reads)
+    mesh = tmesh.make_mesh(4, devices=["cpu"])
+    assert incore.assemble(reads, mesh=mesh)[0] == incore.assemble(reads)[0]
+    batches = treads.batch_reads(reads, 32, 64, parity_chars=True)
     with pytest.raises(NotImplementedError, match="multi-device"):
-        incore.assemble(reads, mesh=object())
+        shard_count.sharded_count_batches(batches, k=6, m=3, parity=True, cutoff=-1,
+                                          mesh=mesh, checkpoint_dir="count_shards")
     with pytest.raises(ValueError):
         incore.assemble(reads, engine="rust")
     with pytest.raises(ValueError):

@@ -46,6 +46,9 @@ names = all_modules()
 assert len(names) >= 19, names
 assert pkg.__name__ + ".ops.bitonic_sort" in names and pkg.__name__ + ".ops.bitonic_cuda" in names
 assert pkg.__name__ + ".ops.mergepath_sort" in names and pkg.__name__ + ".ops.mergepath_cuda" in names
+for mod in ("mesh", "distributed", "ragged", "shard_count", "part_dbg", "shard_dbg"):
+    assert f"{pkg.__name__}.parallel.{mod}" in names, mod
+assert pkg.__name__ + ".tools.run_multihost" in names
 for n in names:
     importlib.import_module(n)
 assert jax_side() == [], jax_side()
@@ -418,3 +421,34 @@ def test_chip_smoke_alone_names_the_missing_package(tmp_path):
     assert r.returncode != 0
     assert r.stdout == ""
     assert "genome_assembly_tpu_torch" in r.stderr and str(tmp_path) in r.stderr
+
+
+def test_a_mesh_of_cards_raises_without_one():
+    """``make_mesh()`` takes the visible CUDA devices: without one it raises
+    (it never builds a CPU mesh unasked), and so does a mesh, a process
+    group or an assembler asked for a card."""
+    r = _run("""
+import torch
+assert not torch.cuda.is_available()
+from genome_assembly_tpu_torch.parallel import distributed, mesh
+for call in (lambda: mesh.make_mesh(), lambda: mesh.make_mesh(4),
+             lambda: mesh.make_mesh(4, devices=["cuda"]),
+             lambda: mesh.make_mesh(2, devices="cuda:0"),
+             lambda: distributed.init_multi_host("127.0.0.1:1", 2, 0, device="cuda")):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "CUDA" in str(e), e
+    else:
+        raise AssertionError("no error")
+try:
+    distributed.global_mesh("cpu")
+except RuntimeError as e:
+    assert "init_multi_host" in str(e)
+else:
+    raise AssertionError("no error")
+assert mesh.make_mesh(4, devices=["cpu"]).n_shards == 4
+print("OK")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "OK"
