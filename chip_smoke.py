@@ -19,7 +19,11 @@ the count of the largest in-core parity read set (``parity_scale``), then runs
 fast-mode in-core assembly end to
 end through ``FastAssembler.unitigs`` at a small size (card vs CPU) and at
 the size of the repo's ``ecoli`` scale preset -- once with the default
-library sort (``full_e2e``) and once with ``hybrid_sort=True``, the count
+library sort (``full_e2e``), then through the CLI with ``--trace`` and
+``--metrics`` beside the other one-device surfaces (``surfaces_e2e``: the
+trace's device busy share by phase, ``count --checkpoint`` on BASELINE.md's
+big run, the threaded feeder, the parity out-of-core checkpoints resumed,
+the ``entry()`` step card == CPU), and once with ``hybrid_sort=True``, the count
 sort through the bitonic kernels (``hybrid_e2e``; same reads, the results
 must be equal; the scan phase must read back from the card once) -- drives
 the sort entry points no pipeline calls
@@ -80,7 +84,8 @@ import numpy as np
 import torch
 
 try:
-    from genome_assembly_tpu_torch import convert
+    from genome_assembly_tpu_torch import cli, convert
+    from genome_assembly_tpu_torch import entry as entry_mod
     from genome_assembly_tpu_torch.common import SENTINEL
     from genome_assembly_tpu_torch.config import PipelineConfig
     from genome_assembly_tpu_torch.csrc import build as csrc_build
@@ -89,7 +94,7 @@ try:
     from genome_assembly_tpu_torch.io import stream as stream_io
     from genome_assembly_tpu_torch.models import pipeline
     from genome_assembly_tpu_torch.models.pipeline import (
-        FastAssembler, ParityAssembler, PhaseStats)
+        CountPipeline, FastAssembler, ParityAssembler, PhaseStats)
     from genome_assembly_tpu_torch.native import build as native_build
     from genome_assembly_tpu_torch.native import replay_native
     from genome_assembly_tpu_torch.ops import bitonic_cuda
@@ -108,7 +113,7 @@ try:
     from genome_assembly_tpu_torch.parity import table as parity_table
     from genome_assembly_tpu_torch.tools import run_multihost
     from genome_assembly_tpu_torch.tools import run_scale
-    from genome_assembly_tpu_torch.utils import checkpoint as jump_checkpoint
+    from genome_assembly_tpu_torch.utils import checkpoint as checkpoint_io
 except ImportError as missing:
     # the run fails all the same; it says why instead of failing in silence
     sys.exit(f"chip_smoke: cannot import {missing.name} (looked for the package "
@@ -1174,7 +1179,10 @@ def ecoli_config(hybrid_sort=False):
 class NoClock:
     """A phase clock that neither times nor synchronises."""
 
-    def lap(self, name):
+    def start(self, name):
+        pass
+
+    def stop(self):
         pass
 
 
@@ -1276,6 +1284,335 @@ def phase_full_e2e(device, coverage):
     first = reads_io.batch_reads(reads[: cfg.batch_reads], cfg.max_read_len, cfg.batch_reads)[0]
     return dict(reads=reads, kept=kept, unitigs=unitigs, counters=counters(stats),
                 launches=launches, first_batch=first, fields=fields)
+
+
+# --------------------------------------------------------------------------
+# surfaces_e2e: the CLI's --trace/--metrics, count checkpoints, the feeder,
+# the parity out-of-core checkpoints and the entry step
+# --------------------------------------------------------------------------
+
+FAST_PHASES = ("batch", "scan", "count", "links", "jump", "materialize")
+# the fields of the JAX package's fast-mode `assemble` record, in its order
+ASSEMBLE_FIELDS = ["ts", "run", "event", "wall_s", "mode", "k", "m", "entries_post_prune",
+                   "n_unitigs", "n_windows"]
+COUNT_FIELDS = ["ts", "run", "event", "wall_s", "k", "m", "n_reads", "n_windows",
+                "entries_pre_prune", "entries_post_prune"]
+DEVICE_EVENT_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the batch the entry step is also held on: overlapping reads, most k-mers kept
+ENTRY_COVERAGE = dict(genome_len=20_000, read_len=128, coverage=16, seed=1, with_reverse=True)
+
+
+def interval_union(spans):
+    """Length of the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > reach:
+            total += b - max(a, reach)
+            reach = b
+    return total
+
+
+def busy_share(spans, lo, hi):
+    """The share of [lo, hi] that the union of the spans covers."""
+    return interval_union([(max(a, lo), min(b, hi)) for a, b in spans if b > lo and a < hi]) / (
+        hi - lo)
+
+
+def read_trace(trace_dir):
+    """(device events by kind as (name, start, end) in us, host ranges
+    (name, start, end), file bytes) of the one Chrome trace in trace_dir."""
+    (path,) = pathlib.Path(trace_dir).glob("*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    device = {kind: [] for kind in DEVICE_EVENT_KINDS}
+    ranges = []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        span = (e["name"], float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+        if e.get("cat") in device:
+            device[e["cat"]].append(span)
+        elif e.get("cat") == "user_annotation":
+            ranges.append(span)
+    return device, ranges, path.stat().st_size
+
+
+def trace_report(device_events, ranges):
+    """The device busy share of the `assemble` range (kernels; kernels and
+    copies), the same within each phase range, and the five device
+    operations that took the most time."""
+    kernels = [(a, b) for _, a, b in device_events["kernel"]]
+    every = [(a, b) for kind in DEVICE_EVENT_KINDS for _, a, b in device_events[kind]]
+    seen = {}
+    for name, _, _ in ranges:
+        seen[name] = seen.get(name, 0) + 1
+    want = ["assemble", *FAST_PHASES]
+    if any(seen.get(name) != 1 for name in want):
+        raise AssertionError(f"surfaces_e2e: trace ranges {seen}, want one each of {want}")
+    window = {name: (a, b) for name, a, b in ranges if name in want}
+    lo, hi = window["assemble"]
+    phases = {}
+    for name in FAST_PHASES:
+        a, b = window[name]
+        phases[name] = dict(wall_ms=(b - a) / 1e3, kernel_busy_share=busy_share(kernels, a, b),
+                            device_busy_share=busy_share(every, a, b))
+    totals = {}
+    for kind in DEVICE_EVENT_KINDS:
+        for name, a, b in device_events[kind]:
+            t = totals.setdefault(name, [0.0, 0, kind])
+            t[0] += b - a
+            t[1] += 1
+    top = sorted(totals.items(), key=lambda kv: -kv[1][0])[:5]
+    return dict(
+        assemble_wall_ms=(hi - lo) / 1e3,
+        kernel_busy_share=busy_share(kernels, lo, hi),
+        device_busy_share=busy_share(every, lo, hi),
+        kernel_busy_ms=interval_union([(max(a, lo), min(b, hi)) for a, b in kernels
+                                       if b > lo and a < hi]) / 1e3,
+        by_phase=phases, other_ranges={n: c for n, c in seen.items() if n not in want},
+        top5_device_ops=[dict(name=name[:120], kind=kind, ms=us / 1e3, events=n)
+                         for name, (us, n, kind) in top],
+        device_events={kind: len(v) for kind, v in device_events.items()})
+
+
+def jsonl_record(path, fields):
+    """The one JSONL record in path, held to the JAX package's field order."""
+    (line,) = pathlib.Path(path).read_text().splitlines()
+    rec = json.loads(line)
+    if list(rec) != fields:
+        raise AssertionError(f"surfaces_e2e: metrics record keys {list(rec)} != {fields}")
+    return rec
+
+
+def surfaces_traced_assemble(device, full, tmp):
+    """`assemble --mode fast --trace --metrics` through cli.main on the card,
+    on full_e2e's reads and config: its lines == full_e2e's unitigs, K1
+    launched once a batch, the trace holds K1 and one range a phase."""
+    reads, fields = full["reads"], full["fields"]
+    reads_path = tmp / "ecoli_reads.txt"
+    t0 = time.perf_counter()
+    reads_path.write_text("\n".join(reads) + "\n")
+    t_write = time.perf_counter() - t0
+    out_path, jsonl, trace_dir = tmp / "unitigs.txt", tmp / "assemble.jsonl", tmp / "trace"
+    args = ["assemble", str(reads_path), "--mode", "fast", "--k", str(ECOLI["k"]),
+            "--m", str(ECOLI["m"]), "--cutoff", str(ECOLI["cutoff"]),
+            "--batch-reads", str(ECOLI["batch_reads"]),
+            "--max-read-len", str(ECOLI["max_read_len"]),
+            "--trace", str(trace_dir), "--metrics", str(jsonl)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out, contextlib.redirect_stdout(out):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launch_counts()
+    lines = out_path.read_text().splitlines()
+    rec = jsonl_record(jsonl, ASSEMBLE_FIELDS)
+    want = full["counters"]
+    same = dict(
+        exit_code_0=rc == 0, lines_equal_full_e2e=lines == full["unitigs"],
+        k1_launches_equal_batches=launches["fast_scan"] == fields["n_batches"],
+        no_sort_kernel=not any(v for n, v in launches.items() if n != "fast_scan"),
+        metrics_equal=(rec["event"], rec["mode"], rec["k"], rec["m"], rec["entries_post_prune"],
+                       rec["n_unitigs"], rec["n_windows"])
+        == ("assemble", "fast", ECOLI["k"], ECOLI["m"], want["entries_post_prune"],
+            len(full["unitigs"]), want["n_windows"]))
+    t0 = time.perf_counter()
+    device_events, ranges, trace_bytes = read_trace(trace_dir)
+    report = trace_report(device_events, ranges)
+    t_read = time.perf_counter() - t0
+    k1_events = sum("fast_scan_kernel" in name for name, _, _ in device_events["kernel"])
+    same["k1_events_equal_launches"] = k1_events == launches["fast_scan"]
+    emit("surfaces_trace", nvidia_smi=nvidia_smi_line(), **report)
+    return dict(args=args[2:], wall_seconds=wall, full_e2e_wall_seconds=fields["assemble_wall_seconds"],
+                metrics_wall_s=rec["wall_s"], reads_write_seconds=t_write,
+                trace_bytes=trace_bytes, trace_read_seconds=t_read, k1_trace_events=k1_events,
+                launches=launches, checks=same)
+
+
+def surfaces_count_checkpoint(device, parity_runs, tmp):
+    """`count --checkpoint --metrics` in parity mode on BASELINE.md's big run
+    through cli.main on the card; the file loads back equal, lane for lane,
+    to CountPipeline.count_reads of the same read ids on the card."""
+    p = PARITY_E2E
+    _, lines, _ = datagen.generate_coverage_reads(
+        genome_len=p["genome_len"], read_len=p["read_len"], coverage=p["coverage"],
+        seed=p["seed"])
+    reads_path, ckpt, jsonl = tmp / "big_run.txt", tmp / "big_run_count.npz", tmp / "count.jsonl"
+    datagen.write_reads(lines, str(reads_path))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with timed_calls(checkpoint_io, "save_counted_table") as saves:
+        rc = cli.main(["count", str(reads_path), "--k", str(p["k"]), "--m", str(p["m"]),
+                       "--cutoff", str(p["cutoff"]), "--batch-reads", str(p["batch_reads"]),
+                       "--max-read-len", str(p["max_read_len"]),
+                       "--checkpoint", str(ckpt), "--metrics", str(jsonl)])
+    wall = time.perf_counter() - t0
+    no_kernel_launched("surfaces_e2e count")
+    rec = jsonl_record(jsonl, COUNT_FIELDS)
+    (table, cfg, phase), t_load, _ = timed_call(lambda: checkpoint_io.load_counted_table(ckpt))
+    want_cfg = parity_config(p)
+    counted, stats = CountPipeline(want_cfg, device=device).count_reads(parity_runs["ids"])
+    got_lanes = convert.counted_table_to_lanes(table)
+    want_lanes = convert.counted_table_to_lanes(counted)
+    same = dict(
+        exit_code_0=rc == 0, one_save=len(saves) == 1, phase=phase == "post-count",
+        config=cfg == want_cfg,
+        lanes=all(a.dtype == b.dtype and np.array_equal(a, b)
+                  for a, b in zip(got_lanes, want_lanes)),
+        metrics=[rec[f] for f in COUNT_FIELDS[4:]]
+        == [p["k"], p["m"], stats.n_reads, stats.n_windows, stats.entries_pre_prune,
+            stats.entries_post_prune])
+    return dict(cli_wall_seconds=wall, count_wall_s=rec["wall_s"], save_seconds=saves,
+                load_seconds=t_load,
+                file_bytes=ckpt.stat().st_size, rows=int(got_lanes[0].shape[0]),
+                entries_pre_prune=stats.entries_pre_prune,
+                entries_post_prune=stats.entries_post_prune, checks=same)
+
+
+def live_threads():
+    return {t for t in threading.enumerate() if t is not threading.current_thread()}
+
+
+def surfaces_feeder(device, reads):
+    """The ecoli batches through feed_read_batches == the plain copies,
+    tensor for tensor; a consumer that breaks off after 3 batches (in a
+    `with` block, and one that only drops the feeder) leaves no worker alive
+    and its staged batches freed."""
+    cfg = ecoli_config()
+    batches = reads_io.batch_reads(reads, cfg.max_read_len, cfg.batch_reads)
+    batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    equal = 0
+    with stream_io.feed_read_batches(batches, device) as feeder:
+        for b, staged in zip(batches, feeder):
+            plain = [t.to(device) for t in convert.read_batch_to_torch(b)]
+            equal += all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(staged, plain))
+    torch.cuda.synchronize()
+    t_feed = time.perf_counter() - t0
+    broken_off = {}
+    for form in ("with", "dropped"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before_threads, before_bytes = live_threads(), torch.cuda.memory_allocated()
+        if form == "with":
+            with stream_io.feed_read_batches(batches, device) as feeder:
+                for i, _ in enumerate(feeder):
+                    if i == 2:
+                        break
+        else:
+            for i, _ in enumerate(stream_io.feed_read_batches(batches, device)):
+                if i == 2:
+                    break
+        del _
+        feeder = None
+        workers = live_threads() - before_threads
+        for t in workers:
+            t.join(timeout=10.0)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        broken_off[form] = dict(
+            workers_alive=sum(t.is_alive() for t in workers),
+            memory_allocated_before=before_bytes,
+            memory_allocated_after=torch.cuda.memory_allocated())
+    same = dict(batches_equal=equal == len(batches),
+                **{f"{form}_stopped": v["workers_alive"] == 0
+                   and v["memory_allocated_after"] == v["memory_allocated_before"]
+                   for form, v in broken_off.items()})
+    return dict(batches=len(batches), feed_seconds=t_feed, broken_off_after_3=broken_off,
+                checks=same)
+
+
+def surfaces_parity_ooc_checkpoint(device, tmp):
+    """partitioned_count_parity(checkpoint_dir=) on the card at the
+    parity_ooc_scale size: a run into a fresh directory, again from the full
+    directory, and again after half of its part files were deleted; both
+    give the first run's HostTable, array for array."""
+    p = PARITY_OOC_SCALE
+    _, lines, _ = datagen.generate_coverage_reads(
+        genome_len=p["genome_len"], read_len=p["read_len"], coverage=p["coverage"],
+        seed=p["seed"])
+    ids = fgets_read_ids(lines)
+    asm = ParityAssembler(parity_config(p), device=device)
+    if not asm._needs_outofcore(ids):
+        raise AssertionError("surfaces_e2e: the parity read set stays in core")
+    ckdir = tmp / "parity_ooc"
+    runs = {}
+    deleted = []
+    reset_launch_counts()
+    for label in ("fresh", "full_directory", "half_deleted"):
+        if label == "half_deleted":
+            deleted = sorted(ckdir.glob("part_*_parity.npz"))[::2]
+            for path in deleted:
+                path.unlink()
+        (host, stats), seconds, peak = timed_call(
+            lambda: asm._groups_outofcore(ids, -1, checkpoint_dir=str(ckdir)))
+        runs[label] = dict(host=host, stats=stats, seconds=seconds, peak=peak,
+                           parts=len(list(ckdir.glob("part_*_parity.npz"))))
+        torch.cuda.empty_cache()
+    no_kernel_launched("surfaces_e2e parity checkpoint")
+    first = runs["fresh"]
+    same = {label: host_tables_equal(first["host"], r["host"])
+            and counters(first["stats"]) == counters(r["stats"])
+            for label, r in runs.items() if label != "fresh"}
+    return dict(read_ids=len(ids), groups=len(first["host"].mmer),
+                partitions=runs["fresh"]["parts"],
+                directory_bytes=sum(f.stat().st_size for f in ckdir.iterdir()),
+                runs={label: dict(seconds=r["seconds"], max_memory_allocated=r["peak"],
+                                  parts_on_disk_after=r["parts"])
+                      for label, r in runs.items()},
+                deleted_parts=len(deleted),
+                checks=same)
+
+
+def surfaces_entry(device):
+    """entry()'s step on the card == the same step on the CPU, on the
+    entry's own batch and on a batch of overlapping reads."""
+    step, args = entry_mod.entry(device)
+    cpu_step, cpu_args = entry_mod.entry("cpu")
+    _, reads, _ = datagen.generate_coverage_reads(**ENTRY_COVERAGE)
+    (batch,) = reads_io.batch_reads(reads, ENTRY_COVERAGE["read_len"])
+    cov = (torch.from_numpy(batch.codes), torch.from_numpy(batch.lengths))
+    out, checks = {}, {}
+    for label, card_args, host_args in (("example", args, cpu_args),
+                                        ("coverage", tuple(t.to(device) for t in cov), cov)):
+        reset_launch_counts()
+        got = step(*card_args)
+        torch.cuda.synchronize()
+        k1 = read_launch_counts()["fast_scan"]
+        want = cpu_step(*host_args)
+        checks[label] = k1 == 1 and all(
+            g.shape == w.shape and torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        out[label] = dict(shape=list(card_args[0].shape), n_kept=int(want[0]),
+                          states=int(want[1].shape[0]), k1_launches=k1)
+    checks["coverage_keeps_kmers"] = out["coverage"]["n_kept"] > 0
+    return dict(batches=out, checks=checks)
+
+
+def phase_surfaces_e2e(device, full, parity_runs):
+    """The one-device surfaces at the main path's size: the traced CLI
+    assembly, count checkpoints, the feeder, the parity out-of-core
+    checkpoints and the entry step (see the parts' docstrings)."""
+    t_start = time.perf_counter()
+    parts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for name, run in (("traced_assemble", lambda: surfaces_traced_assemble(device, full, tmp)),
+                          ("count_checkpoint",
+                           lambda: surfaces_count_checkpoint(device, parity_runs, tmp)),
+                          ("feeder", lambda: surfaces_feeder(device, full["reads"])),
+                          ("parity_ooc_checkpoint",
+                           lambda: surfaces_parity_ooc_checkpoint(device, tmp)),
+                          ("entry", lambda: surfaces_entry(device))):
+            t0 = time.perf_counter()
+            parts[name] = dict(run(), seconds=time.perf_counter() - t0)
+            torch.cuda.empty_cache()
+    failed = {name: part["checks"] for name, part in parts.items()
+              if not all(part["checks"].values())}
+    emit("surfaces_e2e", seconds=time.perf_counter() - t_start, **parts)
+    if failed:
+        raise AssertionError(f"surfaces_e2e: checks failed: {failed}")
 
 
 def phase_hybrid_e2e(device, full):
@@ -1906,7 +2243,7 @@ def phase_scale_checks(device):
             dbg.pointer_jump_bulk(links, checkpoint_dir=jd, checkpoint_every=2, on_round=kill)
         except _Killed:
             pass
-        saved = jump_checkpoint.load_jump_frontier(jd, 2, jump_checkpoint.jump_fingerprint(links))
+        saved = checkpoint_io.load_jump_frontier(jd, 2, checkpoint_io.jump_fingerprint(links))
         rounds = []
         resumed = dbg.pointer_jump_bulk(links, checkpoint_dir=jd, checkpoint_every=2,
                                         on_round=lambda r, dt: rounds.append(r))
@@ -2796,7 +3133,11 @@ def time_sort_kernels(device, tallies, hybrid_launches, entry_launches, n_keys):
         turn_about(lambda: bitonic_sort.chunk_sort(key, sizes, chunk=chunk),
                    lambda: bitonic_sort.chunk_sort_plain(key, sizes, chunk=chunk),
                    kernel_reps=5, plain_reps=2, warm=1),
-        bound_fields([chunk_sort_bound]), None, [total], chunk=chunk, levels=len(sizes),
+        bound_fields([chunk_sort_bound]),
+        timed_ms(lambda: torch.sort(key.view(-1, chunk), dim=1), reps=5, warm=1), [total],
+        library_call="torch.sort(x.view(-1, chunk), dim=1): the ascending half of the "
+                     "function (the kernel sorts every other chunk descending)",
+        chunk=chunk, levels=len(sizes),
         block_keys=block_keys, keys_per_thread=per_thread, threads=threads,
         shared_bytes=shared_bytes))
 
@@ -3376,6 +3717,7 @@ def main() -> int:
     parity_runs = phase_parity_e2e_and_dirty(device)
     phase_parity_scale(device)
     full = phase_full_e2e(device, args.coverage)
+    phase_surfaces_e2e(device, full, parity_runs)
     tallies = phase_sort_check(device)
     tallies.update(phase_merge_check(device))
     hybrid_launches = phase_hybrid_e2e(device, full)

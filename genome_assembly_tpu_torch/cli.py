@@ -1,22 +1,30 @@
-"""Command line of the port: ``assemble`` (parity and fast mode) and
-``generate``.
+"""Command line of the port.
 
   python -m genome_assembly_tpu_torch assemble reads.txt --k 6 --m 3 \\
       [--verbose-output] [--cpu]                    # parity mode (default)
   python -m genome_assembly_tpu_torch generate --genome-len 3000 --coverage 8 \\
       --read-len 64 --seed 5 --with-reverse --out r.txt
   python -m genome_assembly_tpu_torch assemble r.txt --mode fast --k 21 --m 7 \\
-      [--cpu] [--hybrid-sort]
+      [--cpu] [--hybrid-sort] [--metrics m.jsonl] [--trace DIR]
+  python -m genome_assembly_tpu_torch count reads.txt [--checkpoint out.npz] [--metrics m.jsonl]
+  python -m genome_assembly_tpu_torch generate --triangular --read-num 20 \\
+      [--plot reads.png] [--starts-out starts.txt]
+  python -m genome_assembly_tpu_torch plot verbose.txt [--genome-file g.txt] \\
+      [--starts-file starts.txt] --outdir plots
 
-``assemble`` runs on the card unless ``--cpu`` is given.  The other
-subcommands and options of the JAX package's CLI (``count``, ``plot``,
-``bench-scaling``, ``--metrics``, ``--trace``) are not ported yet.
+``assemble`` and ``count`` run on the card unless ``--cpu`` is given.
+``--metrics`` appends JSONL records (utils/metrics.py), ``--trace`` writes
+a Chrome-trace JSON of the run, card activity included (utils/profiling.py),
+``count --checkpoint`` the counted table in the JAX package's format
+(utils/checkpoint.py).  The JAX package's ``bench-scaling`` is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 
 def _add_pipeline_args(ap: argparse.ArgumentParser) -> None:
@@ -33,6 +41,7 @@ def _add_pipeline_args(ap: argparse.ArgumentParser) -> None:
                     help="parity-mode fgets buffer size (reference READ_LENGTH)")
     ap.add_argument("--max-read-len", type=int, default=128)
     ap.add_argument("--batch-reads", type=int, default=16384)
+    ap.add_argument("--metrics", default=None, help="append JSONL metrics here")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     ap.add_argument(
         "--hybrid-sort",
@@ -70,60 +79,114 @@ def _make_config(args):
 def cmd_assemble(args) -> int:
     from genome_assembly_tpu_torch.io import reads as reads_io
     from genome_assembly_tpu_torch.models.pipeline import FastAssembler, ParityAssembler
+    from genome_assembly_tpu_torch.utils.metrics import open_metrics
+    from genome_assembly_tpu_torch.utils.profiling import annotate, maybe_trace
 
     cfg = _make_config(args)
     device = "cpu" if args.cpu else "cuda"
-    if cfg.parity:
-        asm = ParityAssembler(cfg, device=device)
-        reads = asm.load(args.reads_file)
-        if args.verbose_output:
-            text, _ = asm.assemble(reads, verbose=True)
-            sys.stdout.write(text)
-        else:
-            lines, _ = asm.assemble(reads)
-            sys.stdout.write("\n".join(lines) + ("\n" if lines else ""))
-        return 0
-    asm = FastAssembler(cfg, device=device)
-    if args.fasta:
-        seqs = reads_io.load_fasta(args.reads_file)
-        if args.coverage:
-            # long sequences chunked exactly as unitigs_from_sequences
-            chunks = []
-            for s in seqs:
-                if len(s) <= cfg.max_read_len:
-                    chunks.append(s)
+    log = open_metrics(args.metrics, run_id=f"assemble-{int(time.time())}")
+    with maybe_trace(args.trace, cuda=not args.cpu):
+        if cfg.parity:
+            asm = ParityAssembler(cfg, device=device)
+            reads = asm.load(args.reads_file)
+            with log.phase("assemble", mode="parity", k=cfg.k, m=cfg.m) as extra, \
+                    annotate("assemble"):
+                if args.verbose_output:
+                    text, stats = asm.assemble(reads, verbose=True)
+                    sys.stdout.write(text)
                 else:
-                    chunks.extend(
-                        reads_io.chunk_long_sequence(s, cfg.max_read_len, cfg.k)
-                    )
-            unitigs, occ, nk, _ = asm.unitigs_with_coverage(chunks)
-        else:
-            unitigs, _ = asm.unitigs_from_sequences(seqs)
-    elif args.coverage:
-        unitigs, occ, nk, _ = asm.unitigs_with_coverage(asm.load(args.reads_file))
-    else:
-        unitigs, _ = asm.unitigs(asm.load(args.reads_file))
-    if args.coverage:
-        lines = [
-            f"{u}\t{int(n)}\t{s / n:.3f}" for u, s, n in zip(unitigs, occ, nk)
-        ]
-    else:
-        lines = unitigs
-    sys.stdout.write("\n".join(lines) + ("\n" if lines else ""))
+                    lines, stats = asm.assemble(reads)
+                    sys.stdout.write("\n".join(lines) + ("\n" if lines else ""))
+                extra["entries_pre_prune"] = stats.entries_pre_prune
+                extra["n_reads"] = stats.n_reads
+                extra["n_windows"] = stats.n_windows
+            return 0
+        asm = FastAssembler(cfg, device=device)
+        with log.phase("assemble", mode="fast", k=cfg.k, m=cfg.m) as extra, \
+                annotate("assemble"):
+            if args.fasta:
+                seqs = reads_io.load_fasta(args.reads_file)
+                if args.coverage:
+                    # long sequences chunked exactly as unitigs_from_sequences
+                    chunks = []
+                    for s in seqs:
+                        if len(s) <= cfg.max_read_len:
+                            chunks.append(s)
+                        else:
+                            chunks.extend(
+                                reads_io.chunk_long_sequence(s, cfg.max_read_len, cfg.k)
+                            )
+                    unitigs, occ, nk, stats = asm.unitigs_with_coverage(chunks)
+                else:
+                    unitigs, stats = asm.unitigs_from_sequences(seqs)
+            elif args.coverage:
+                unitigs, occ, nk, stats = asm.unitigs_with_coverage(asm.load(args.reads_file))
+            else:
+                unitigs, stats = asm.unitigs(asm.load(args.reads_file))
+            if args.coverage:
+                lines = [
+                    f"{u}\t{int(n)}\t{s / n:.3f}" for u, s, n in zip(unitigs, occ, nk)
+                ]
+            else:
+                lines = unitigs
+            sys.stdout.write("\n".join(lines) + ("\n" if lines else ""))
+            extra["entries_post_prune"] = stats.entries_post_prune
+            extra["n_unitigs"] = stats.entries_post_extension
+            extra["n_windows"] = stats.n_windows
+    return 0
+
+
+def cmd_count(args) -> int:
+    """Count + prune only (``CountPipeline.count_reads``, either mode);
+    optionally checkpoint the table."""
+    from genome_assembly_tpu_torch.models.pipeline import (
+        CountPipeline, FastAssembler, ParityAssembler)
+    from genome_assembly_tpu_torch.utils.checkpoint import save_counted_table
+    from genome_assembly_tpu_torch.utils.metrics import open_metrics
+
+    cfg = _make_config(args)
+    device = "cpu" if args.cpu else "cuda"
+    log = open_metrics(args.metrics, run_id=f"count-{int(time.time())}")
+    loader = ParityAssembler(cfg, device=device) if cfg.parity else FastAssembler(cfg, device=device)
+    reads = loader.load(args.reads_file)
+    pipeline = CountPipeline(cfg, device=loader.device)
+    with log.phase("count", k=cfg.k, m=cfg.m) as extra:
+        counted, stats = pipeline.count_reads(reads)
+        extra["n_reads"] = stats.n_reads
+        extra["n_windows"] = stats.n_windows
+        extra["entries_pre_prune"] = stats.entries_pre_prune
+        extra["entries_post_prune"] = stats.entries_post_prune
+    if args.checkpoint:
+        save_counted_table(args.checkpoint, counted, cfg, phase="post-count")
+        print(f"checkpoint written: {args.checkpoint}", file=sys.stderr)
+    print(
+        f"entries: {stats.entries_pre_prune} -> {stats.entries_post_prune} "
+        f"({stats.n_windows} windows from {stats.n_reads} reads)",
+        file=sys.stderr,
+    )
     return 0
 
 
 def cmd_generate(args) -> int:
     from genome_assembly_tpu_torch.io import datagen
 
-    genome, reads, starts = datagen.generate_coverage_reads(
-        genome_len=args.genome_len,
-        read_len=args.read_len,
-        coverage=args.coverage,
-        seed=args.seed,
-        error_rate=args.error_rate,
-        with_reverse=args.with_reverse,
-    )
+    if args.triangular:
+        genome, starts = datagen.generate_reads(
+            genome_len=args.genome_len,
+            read_len=args.read_len,
+            read_num=args.read_num,
+            seed=args.seed,
+        )
+        reads = datagen.reads_from_starts(genome, starts, args.read_len)
+    else:
+        genome, reads, starts = datagen.generate_coverage_reads(
+            genome_len=args.genome_len,
+            read_len=args.read_len,
+            coverage=args.coverage,
+            seed=args.seed,
+            error_rate=args.error_rate,
+            with_reverse=args.with_reverse,
+        )
     datagen.write_reads(reads, args.out)
     if args.genome_out:
         with open(args.genome_out, "w") as f:
@@ -131,7 +194,39 @@ def cmd_generate(args) -> int:
     if args.starts_out:
         with open(args.starts_out, "w") as f:
             f.write("\n".join(str(int(s)) for s in starts) + "\n")
+    if args.plot:
+        from genome_assembly_tpu_torch.utils.plots import plot_reads
+
+        plot_reads(starts, len(genome), args.read_len, args.plot)
     print(f"{len(reads)} reads -> {args.out}", file=sys.stderr)
+    return 0
+
+
+def cmd_plot(args) -> int:
+    """Validation plots from a verbose (print_kmer_read_ids) dump: k-mers
+    per m-mer bin, and with a genome the unitigs' placement on it."""
+    import pathlib
+
+    from genome_assembly_tpu_torch.utils import plots
+
+    text = pathlib.Path(args.unitigs_file).read_text()
+    bin_counts, unitigs = plots.parse_verbose_output(text)
+    outdir = pathlib.Path(args.outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    plots.plot_mmer_bins(bin_counts, str(outdir / "mmers.png"))
+    if args.genome_file:
+        genome = pathlib.Path(args.genome_file).read_text().strip()
+        if args.starts_file:
+            starts = [int(line) for line in pathlib.Path(args.starts_file).read_text().split()]
+            plots.plot_unitig_placement_by_read_ids(
+                unitigs, starts, genome, args.read_len, str(outdir / "kmers.png"))
+        else:
+            plots.plot_unitig_placement(
+                [u for u, _ in unitigs], genome, str(outdir / "kmers.png"))
+    print(
+        f"{sum(bin_counts.values())} unitigs in {len(bin_counts)} bins -> {outdir}",
+        file=sys.stderr,
+    )
     return 0
 
 
@@ -149,22 +244,46 @@ def main(argv=None) -> int:
     a.add_argument("--coverage", action="store_true",
                    help="fast mode: emit TSV unitig<TAB>n_kmers<TAB>mean_cov "
                         "(per-unitig mean k-mer occurrence count)")
+    a.add_argument("--trace", default=None,
+                   help="write a trace of the run (Chrome JSON) into this directory")
     _add_pipeline_args(a)
     a.set_defaults(fn=cmd_assemble)
+
+    c = sub.add_parser("count", help="count+prune only, optional checkpoint")
+    c.add_argument("reads_file")
+    c.add_argument("--checkpoint", default=None)
+    _add_pipeline_args(c)
+    c.set_defaults(fn=cmd_count)
 
     g = sub.add_parser("generate", help="synthetic read sets")
     g.add_argument("--out", default="reads.txt")
     g.add_argument("--genome-out", default=None)
     g.add_argument("--genome-len", type=int, default=500)
     g.add_argument("--read-len", type=int, default=30)
+    g.add_argument("--read-num", type=int, default=20)
     g.add_argument("--coverage", type=float, default=10.0)
     g.add_argument("--error-rate", type=float, default=0.0)
     g.add_argument("--seed", type=int, default=20)
     g.add_argument("--with-reverse", action="store_true")
+    g.add_argument("--triangular", action="store_true",
+                   help="reference-style triangular random walk positions")
+    g.add_argument("--plot", default=None, help="write read-coverage bitmap PNG")
     g.add_argument("--starts-out", default=None,
                    help="write read start positions (one per line; read id "
                    "= line number)")
     g.set_defaults(fn=cmd_generate)
+
+    p = sub.add_parser("plot", help="validation plots from verbose output")
+    p.add_argument("unitigs_file")
+    p.add_argument("--genome-file", default=None)
+    p.add_argument("--starts-file", default=None,
+                   help="read start positions (generate --starts-out); "
+                   "switches kmers.png to read-id-based placement instead of "
+                   "exact search")
+    p.add_argument("--read-len", type=int, default=100,
+                   help="read length for --starts-file placement windows")
+    p.add_argument("--outdir", default="plots")
+    p.set_defaults(fn=cmd_plot)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -52,6 +52,7 @@ from genome_assembly_tpu_torch.parallel import part_dbg, shard_count, shard_dbg
 from genome_assembly_tpu_torch.parity import nonacgt
 from genome_assembly_tpu_torch.parity import replay as replay_mod
 from genome_assembly_tpu_torch.parity import table as table_ops
+from genome_assembly_tpu_torch.utils import profiling
 from genome_assembly_tpu_torch.utils.plots import parse_verbose_table
 
 
@@ -72,21 +73,36 @@ class PhaseStats:
 
 
 class _PhaseClock:
-    """Adds the seconds between two ``lap`` calls to ``stats.wall_s``; a
-    lap first synchronizes every CUDA device it was given."""
+    """Times the phases of one run into ``stats.wall_s``: ``start(name)``
+    ends the phase in progress and begins ``name``, ``stop()`` ends the
+    last.  Ending a phase first synchronizes every CUDA device the clock
+    was given, so its seconds hold its device work.  Each phase is also
+    one range of its name in a trace (``utils/profiling.annotate``)."""
 
-    def __init__(self, stats: PhaseStats, *devices: torch.device):
+    def __init__(self, stats: PhaseStats, *devices: torch.device, phase: Optional[str] = None):
         self.stats = stats
         self.devices = {torch.device(d) for d in devices}
+        self.name = self.range = None
+        if phase is not None:
+            self.start(phase)
+
+    def start(self, name: str) -> None:
+        self.stop()
+        self.range = profiling.annotate(name)
+        self.range.__enter__()
+        self.name = name
         self.t = time.perf_counter()
 
-    def lap(self, name: str) -> None:
+    def stop(self) -> None:
+        if self.name is None:
+            return
         for device in self.devices:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         now = time.perf_counter()
-        self.stats.wall_s[name] = self.stats.wall_s.get(name, 0.0) + now - self.t
-        self.t = now
+        self.stats.wall_s[self.name] = self.stats.wall_s.get(self.name, 0.0) + now - self.t
+        self.range.__exit__(None, None, None)
+        self.name = self.range = None
 
 
 def _check_device(device, who: str) -> torch.device:
@@ -102,13 +118,15 @@ def _check_device(device, who: str) -> torch.device:
 def _extension_graph(kmer, valid, *, k: int, clock: _PhaseClock,
                      link_budget: Optional[int] = None,
                      bulk_jump_states: Optional[int] = None):
-    """Links + jump, lapping ``links`` and ``jump`` on the clock.
+    """Links + jump, as the clock's phases ``links`` and ``jump`` (the
+    jump's is left running).
 
     In core (no limits given) the join and the fused jump.  Past device
     memory, with the JAX package's switches: when the 4N link records
     would exceed ~3x ``link_budget`` (at the JAX package's 12 bytes a
     record) the links are built out of core, and above
     ``bulk_jump_states`` states the jump takes its low-memory bulk form."""
+    clock.start("links")
     n_nodes = int(kmer.shape[0])
     rec_bytes = 4 * n_nodes * 12
     if link_budget is None or rec_bytes <= 3 * link_budget:
@@ -120,20 +138,23 @@ def _extension_graph(kmer, valid, *, k: int, clock: _PhaseClock,
         links = dbg.build_unitig_links_ooc(
             kmer, valid, k=k, partitions=int(np.ceil(rec_bytes / link_budget)),
             chunk_nodes=chunk_nodes)
-    clock.lap("links")
+    clock.start("jump")
     if bulk_jump_states is not None and 2 * n_nodes > bulk_jump_states:
         graph = dbg.pointer_jump_bulk(links)
     else:
         graph = dbg.pointer_jump(links)
-    clock.lap("jump")
     return graph
 
 
 def _batch_source(batches, device, fn):
     """b -> fn(b, codes, lengths, read_ids) of host batch b, copied to the
-    device anew on every call (each out-of-core pass re-scans)."""
+    device anew on every call (each out-of-core pass re-scans) by the
+    feeder's staging function."""
+    stage, receive = stream_io.batch_stager(device)
+
     def records(b):
-        codes, lengths, rids = next(iter(stream_io.feed_read_batches([batches[b]], device)))
+        staged = stage(batches[b])
+        codes, lengths, rids = staged if receive is None else receive(staged)
         return fn(b, codes, lengths, rids)
     return records
 
@@ -170,7 +191,7 @@ class CountPipeline:
         """
         cfg = self.config
         stats = PhaseStats(n_reads=len(reads))
-        clock = _PhaseClock(stats, self.device)
+        clock = _PhaseClock(stats, self.device, phase="batch")
         batches = reads_io.batch_reads(
             reads, cfg.max_read_len, cfg.batch_reads, start_id=start_id,
             parity_chars=cfg.parity,
@@ -181,14 +202,15 @@ class CountPipeline:
         # stream index of a slot is its row in the whole set times n_win
         if len(batches) > 1:
             batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
-        clock.lap("batch")
+        clock.start("scan")
         n_windows = torch.zeros((), dtype=torch.int64, device=self.device)
         scanned = []
-        for codes, lengths, rids in stream_io.feed_read_batches(batches, self.device):
-            recs = self.scan(codes, lengths)
-            n_windows += recs.valid.sum()
-            scanned.append((recs, rids))
-        clock.lap("scan")
+        with stream_io.feed_read_batches(batches, self.device) as feeder:
+            for codes, lengths, rids in feeder:
+                recs = self.scan(codes, lengths)
+                n_windows += recs.valid.sum()
+                scanned.append((recs, rids))
+        clock.start("count")
         cutoff = cfg.abundance_cutoff if len(scanned) == 1 else -1
         rows_x_win = cfg.batch_reads * cfg.windows_per_read
         per_batch = [
@@ -205,7 +227,7 @@ class CountPipeline:
         stats.n_windows = int(n_windows)
         stats.entries_pre_prune = int(counted.n_entries)
         stats.entries_post_prune = int(counted.n_kept)
-        clock.lap("count")
+        clock.stop()
         return counted, stats
 
 
@@ -260,6 +282,7 @@ class FastAssembler:
         stats = PhaseStats(n_reads=len(reads))
         clock = _PhaseClock(stats, self.device)
         combined, _ = self._flat_fast_records(reads, stats, clock)
+        clock.start("count")
         kc = count_ops.count_keys(
             combined, cutoff=cfg.abundance_cutoff, hybrid_sort=cfg.hybrid_sort
         )
@@ -271,10 +294,10 @@ class FastAssembler:
         # built over them alone (same node ids, so the same unitigs)
         n_nodes = stats.entries_post_prune
         kmer, valid = kmer[:n_nodes], valid[:n_nodes]
-        clock.lap("count")
         graph = _extension_graph(kmer, valid, k=cfg.k, clock=clock)
+        clock.start("materialize")
         out = dbg.materialize_unitigs(kmer, valid, graph, cfg.k)
-        clock.lap("materialize")
+        clock.stop()
         stats.entries_post_extension = len(out)
         return out, stats
 
@@ -287,11 +310,11 @@ class FastAssembler:
         ``n_windows`` is the window slots, as in the JAX package's branch."""
         cfg = self.config
         stats = PhaseStats(n_reads=len(reads))
-        clock = _PhaseClock(stats, self.device)
+        clock = _PhaseClock(stats, self.device, phase="batch")
         batches = reads_io.batch_reads(reads, cfg.max_read_len, cfg.batch_reads)
         if len(batches) > 1:
             batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
-        clock.lap("batch")
+        clock.start("count")
         batch_keys = _batch_source(
             batches, self.device,
             lambda b, codes, lengths, rids: self.counter.scan(codes, lengths).kmer.reshape(-1))
@@ -304,12 +327,12 @@ class FastAssembler:
         stats.entries_post_prune = pc.n_kept
         kmer, valid = pc.kmer, pc.valid
         del pc
-        clock.lap("count")
         graph = _extension_graph(
             kmer, valid, k=cfg.k, clock=clock, link_budget=cfg.link_budget_bytes,
             bulk_jump_states=cfg.bulk_jump_states)
+        clock.start("materialize")
         out, _, _ = dbg.materialize_unitigs_device(kmer, valid, graph, cfg.k)
-        clock.lap("materialize")
+        clock.stop()
         stats.entries_post_extension = len(out)
         return out, stats
 
@@ -320,25 +343,27 @@ class FastAssembler:
         Returns (records, rid_flat): rid_flat is None unless with_rids.
         """
         cfg = self.config
+        clock.start("batch")
         batches = reads_io.batch_reads(reads, cfg.max_read_len, cfg.batch_reads)
         if not batches:
             raise ValueError("no reads")
         if len(batches) > 1:
             batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
-        clock.lap("batch")
+        clock.start("scan")
         kmers, valids, rid_parts = [], [], []
         # the valid windows are summed on the device and read back once,
         # after the last batch: the scan loop itself never waits for the card
         n_windows = torch.zeros((), dtype=torch.int64, device=self.device)
-        for codes, lengths, rids in stream_io.feed_read_batches(batches, self.device):
-            recs = self.counter.scan(codes, lengths)
-            kmers.append(recs.kmer.reshape(-1))
-            valids.append(recs.valid.reshape(-1))
-            if with_rids:
-                rid_parts.append(
-                    rids[:, None].expand(recs.kmer.shape).reshape(-1)
-                )
-            n_windows += recs.valid.sum()
+        with stream_io.feed_read_batches(batches, self.device) as feeder:
+            for codes, lengths, rids in feeder:
+                recs = self.counter.scan(codes, lengths)
+                kmers.append(recs.kmer.reshape(-1))
+                valids.append(recs.valid.reshape(-1))
+                if with_rids:
+                    rid_parts.append(
+                        rids[:, None].expand(recs.kmer.shape).reshape(-1)
+                    )
+                n_windows += recs.valid.sum()
         stats.n_windows += int(n_windows)
         # the main path throws the minimizers away (routing in the
         # multi-device path is what needs them)
@@ -348,7 +373,6 @@ class FastAssembler:
             valid=torch.cat(valids),
         )
         rid_flat = torch.cat(rid_parts) if with_rids else None
-        clock.lap("scan")
         return combined, rid_flat
 
     def unitigs_with_coverage(
@@ -365,6 +389,7 @@ class FastAssembler:
         stats = PhaseStats(n_reads=len(reads))
         clock = _PhaseClock(stats, self.device)
         combined, _ = self._flat_fast_records(reads, stats, clock)
+        clock.start("count")
         kc = count_ops.count_keys(
             combined, cutoff=cfg.abundance_cutoff, hybrid_sort=cfg.hybrid_sort
         )
@@ -374,12 +399,12 @@ class FastAssembler:
         del kc, combined
         n_nodes = stats.entries_post_prune
         kmer, valid, counts = kmer[:n_nodes], valid[:n_nodes], counts[:n_nodes]
-        clock.lap("count")
         graph = _extension_graph(kmer, valid, k=cfg.k, clock=clock)
+        clock.start("materialize")
         out, occ_sum, n_kmers = dbg.materialize_unitigs_cov(
             kmer, valid, graph, cfg.k, counts
         )
-        clock.lap("materialize")
+        clock.stop()
         stats.entries_post_extension = len(out)
         return out, occ_sum, n_kmers, stats
 
@@ -402,6 +427,7 @@ class FastAssembler:
         combined, rid_flat = self._flat_fast_records(
             reads, stats, clock, with_rids=True
         )
+        clock.start("count")
         krc = count_ops.count_keys_rids(
             combined, rid_flat, cutoff=cfg.abundance_cutoff
         )
@@ -420,7 +446,6 @@ class FastAssembler:
         )
         values = rid_s[np.repeat(starts, counts) + within]
         kmer = krc.kmer.cpu().numpy()[starts]
-        clock.lap("count")
         return self._assemble_with_read_ids(kmer, offsets, values, stats, clock)
 
     def _assemble_with_read_ids(self, kmer, offsets, values, stats, clock):
@@ -432,6 +457,7 @@ class FastAssembler:
         kmer_dev = torch.from_numpy(kmer).to(self.device)
         valid = torch.ones(len(kmer), dtype=torch.bool, device=self.device)
         graph = _extension_graph(kmer_dev, valid, k=cfg.k, clock=clock)
+        clock.start("materialize")
         out = dbg.materialize_unitigs(kmer, np.ones(len(kmer), bool), graph, cfg.k)
         u_off, u_rows = dbg.unitig_member_nodes(kmer, out, cfg.k)
         # one vectorized gather + dedup for ALL unitigs: flatten every
@@ -462,7 +488,7 @@ class FastAssembler:
         per_unitig: List[np.ndarray] = [
             id_u[off2[i] : off2[i + 1]] for i in range(len(out))
         ]
-        clock.lap("materialize")
+        clock.stop()
         stats.entries_post_extension = len(out)
         return out, per_unitig, stats
 
@@ -474,11 +500,12 @@ class FastAssembler:
                        clock: _PhaseClock) -> shard_count.ShardedCount:
         """All reads as one batch, counted over the mesh with key ownership
         (minimizer mass is heavy-tailed and skews shard loads at high shard
-        counts); laps ``batch``."""
+        counts); the clock's phases ``batch`` and ``count`` (left running)."""
         cfg = self.config
+        clock.start("batch")
         (batch,) = reads_io.batch_reads(reads, cfg.max_read_len)
         batch = reads_io.pad_batch(batch, -(-batch.n // mesh.n_shards) * mesh.n_shards)
-        clock.lap("batch")
+        clock.start("count")
         sc = shard_count.sharded_count(
             batch.codes, batch.lengths, batch.read_ids, k=cfg.k, m=cfg.m, parity=False,
             cutoff=cfg.abundance_cutoff, mesh=mesh, route_by="key")
@@ -496,7 +523,8 @@ class FastAssembler:
         The graph is built over the kept keys padded to a multiple of the
         mesh size, as the JAX package builds it (node ids, so the unitig
         order, follow the pad).  Returns host (kmer, valid, counts or None,
-        graph, wide, stats, clock); ``wall_s``: batch, count, links, jump."""
+        graph, wide, stats, clock); ``wall_s``: batch, count, links, jump (the
+        jump's phase left running)."""
         cfg = self.config
         stats = PhaseStats(n_reads=len(reads))
         clock = _PhaseClock(stats, *mesh.devices)
@@ -504,13 +532,13 @@ class FastAssembler:
         kmer, counts, stats.entries_post_prune = _sharded_kept_keys(sc, mesh, with_counts)
         del sc
         valid = [x != SENTINEL for x in kmer]
-        clock.lap("count")
+        clock.start("links")
         rows2 = 2 * kmer[0].shape[0]
         wide = cfg.wide_state_ids is True or (
             cfg.wide_state_ids == "auto" and rows2 * mesh.n_shards >= 1 << 31)
         links, ovf = part_dbg.partitioned_unitig_links_join(kmer, valid, k=cfg.k, mesh=mesh)
         _raise_on_overflow(mesh, ovf, "link-join routing")
-        clock.lap("links")
+        clock.start("jump")
         if wide:
             # the JAX package's wide (owner, local) jump: with int64 ids
             # here, the routed jump
@@ -519,7 +547,6 @@ class FastAssembler:
         else:
             g = shard_dbg.sharded_pointer_jump(links, mesh=mesh)
         graph = dbg.CompactedGraph(*(torch.from_numpy(mesh.to_host(x).reshape(-1)) for x in g))
-        clock.lap("jump")
         kmer = mesh.to_host(kmer).reshape(-1)
         counts = None if counts is None else mesh.to_host(counts).reshape(-1)
         return kmer, kmer != SENTINEL, counts, graph, wide, stats, clock
@@ -529,11 +556,12 @@ class FastAssembler:
         (the bucketed one for wide ids, as in the JAX package)."""
         kmer, valid, _, graph, wide, stats, clock = self._sharded_graph(
             reads, mesh, with_counts=False)
+        clock.start("materialize")
         if wide:
             out = dbg.materialize_unitigs_partitioned(kmer, valid, graph, self.config.k)
         else:
             out = dbg.materialize_unitigs(kmer, valid, graph, self.config.k)
-        clock.lap("materialize")
+        clock.stop()
         stats.entries_post_extension = len(out)
         return out, stats
 
@@ -542,9 +570,10 @@ class FastAssembler:
         kept-key sort."""
         kmer, valid, counts, graph, _, stats, clock = self._sharded_graph(
             reads, mesh, with_counts=True)
+        clock.start("materialize")
         out, occ_sum, n_kmers = dbg.materialize_unitigs_cov(kmer, valid, graph, self.config.k,
                                                            counts)
-        clock.lap("materialize")
+        clock.stop()
         stats.entries_post_extension = len(out)
         return out, occ_sum, n_kmers, stats
 
@@ -575,7 +604,6 @@ class FastAssembler:
         np.cumsum(counts_s, out=off_s[1:])
         pos = (np.arange(offsets[-1], dtype=np.int64) - np.repeat(off_s[:-1], counts_s)
                + np.repeat(offsets[:-1][order], counts_s))
-        clock.lap("count")
         return self._assemble_with_read_ids(kmer[order], off_s, values[pos], stats, clock)
 
 
@@ -653,9 +681,9 @@ class ParityAssembler:
         if self._needs_outofcore(reads):
             return self._groups_outofcore(reads, self.config.abundance_cutoff)
         counted, stats = self.counter.count_reads(reads)
-        clock = _PhaseClock(stats, self.device)
+        clock = _PhaseClock(stats, self.device, phase="extract")
         host = table_ops.extract_groups(counted, pruned=True)
-        clock.lap("extract")
+        clock.stop()
         return host, stats
 
     def _reject_dirty(self, reads: Sequence[str], where: str) -> None:
@@ -675,7 +703,8 @@ class ParityAssembler:
         total_slots = n_batches * cfg.batch_reads * cfg.windows_per_read
         return total_slots * 20 > cfg.outofcore_bytes
 
-    def _groups_outofcore(self, reads: Sequence[str], cutoff: int, with_streams: bool = False):
+    def _groups_outofcore(self, reads: Sequence[str], cutoff: int, with_streams: bool = False,
+                          checkpoint_dir: Optional[str] = None):
         """Hash-partitioned multi-pass parity counting (ops/outofcore.py).
 
         Bit parity holds: partitions cover complete (mmer, kmer) groups and
@@ -683,10 +712,11 @@ class ParityAssembler:
         merged table is in the reference's insertion order.  Returns (host
         table, stats) or, with ``with_streams``, (host table, streams,
         stats).  ``wall_s``: batch, count (every pass and the host merge).
+        ``checkpoint_dir``: ``partitioned_count_parity``'s, resumable.
         """
         cfg = self.config
         stats = PhaseStats(n_reads=len(reads))
-        clock = _PhaseClock(stats, self.device)
+        clock = _PhaseClock(stats, self.device, phase="batch")
         batches = reads_io.batch_reads(
             reads, cfg.max_read_len, cfg.batch_reads, parity_chars=True)
         if not batches:
@@ -695,7 +725,7 @@ class ParityAssembler:
             batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
         n_win = cfg.windows_per_read
         total_slots = len(batches) * cfg.batch_reads * n_win
-        clock.lap("batch")
+        clock.start("count")
 
         def records(b, codes, lengths, rids):
             recs = self.counter.scan(codes, lengths)
@@ -710,7 +740,7 @@ class ParityAssembler:
         out = outofcore.partitioned_count_parity(
             _batch_source(batches, self.device, records), len(batches),
             partitions=partitions, cutoff=cutoff,
-            with_streams=with_streams)
+            with_streams=with_streams, checkpoint_dir=checkpoint_dir)
         host, streams = out[0], (out[1] if with_streams else None)
         n_windows, overflows = out[-2:]
         if overflows:
@@ -722,7 +752,7 @@ class ParityAssembler:
         stats.n_windows = n_windows
         stats.entries_pre_prune = len(host.mmer) if cutoff < 0 else 0
         stats.entries_post_prune = len(host.mmer) if cutoff >= 0 else 0
-        clock.lap("count")
+        clock.stop()
         if with_streams:
             return host, streams, stats
         return host, stats
@@ -739,12 +769,12 @@ class ParityAssembler:
         batch, count, extract, replay."""
         cfg = self.config
         stats = PhaseStats(n_reads=len(reads))
-        clock = _PhaseClock(stats, *mesh.devices)
+        clock = _PhaseClock(stats, *mesh.devices, phase="batch")
         n = mesh.n_shards
         rows = max(n, -(-cfg.batch_reads // n) * n)
         batches = [reads_io.pad_batch(b, rows) for b in reads_io.batch_reads(
             reads, cfg.max_read_len, rows, parity_chars=True)]
-        clock.lap("batch")
+        clock.start("count")
         sc = shard_count.sharded_count_batches(
             batches, k=cfg.k, m=cfg.m, parity=True, cutoff=-1, mesh=mesh, routing=routing)
         overflow = mesh.total(sc.overflow)
@@ -755,13 +785,12 @@ class ParityAssembler:
         stats.n_windows = mesh.total([v.sum() for v in sc.valid])
         stats.entries_pre_prune = mesh.total(
             [(g & v).sum() for g, v in zip(sc.group_start, sc.valid)])
-        clock.lap("count")
+        clock.start("extract")
         if nonacgt.has_non_acgt(reads):
             host, streams = shard_count.sharded_host_table_with_streams(sc, mesh)
             del sc
             groups = nonacgt.regroup_with_exceptions(
                 host, streams, reads, k=cfg.k, m=cfg.m, n_win=cfg.windows_per_read)
-            clock.lap("extract")
             return self._replay(
                 stats, clock, lambda: self._replay_string_groups(groups, engine, verbose))
         if engine == "native":
@@ -778,7 +807,6 @@ class ParityAssembler:
                 groups = replay_mod.groups_from_host_table(host, cfg.k, cfg.m)
                 return self._replay_string_groups(groups, engine, verbose)
         del sc
-        clock.lap("extract")
         return self._replay(stats, clock, run)
 
     def pruned_table_dict(self, reads: Sequence[str]) -> Dict:
@@ -804,11 +832,12 @@ class ParityAssembler:
 
     @staticmethod
     def _replay(stats: PhaseStats, clock: _PhaseClock, run):
-        """Run the replay ``run()`` and time it.  Unitig lines set
-        ``entries_post_extension`` (their number); verbose text leaves it
-        0, as the JAX package leaves it on every parity run."""
+        """Run the replay ``run()`` as the clock's last phase.  Unitig lines
+        set ``entries_post_extension`` (their number); verbose text leaves
+        it 0, as the JAX package leaves it on every parity run."""
+        clock.start("replay")
         out = run()
-        clock.lap("replay")
+        clock.stop()
         if isinstance(out, list):
             stats.entries_post_extension = len(out)
         return out, stats
@@ -839,10 +868,9 @@ class ParityAssembler:
             clock = _PhaseClock(stats, self.device)
         else:
             counted, stats = self.counter.count_reads(reads)
-            clock = _PhaseClock(stats, self.device)
+            clock = _PhaseClock(stats, self.device, phase="extract")
             host_all = table_ops.extract_groups(counted, pruned=False)
             del counted
-            clock.lap("extract")
         if engine == "native":
             # the packed lanes go to the engine as they are
             def run():
@@ -860,10 +888,10 @@ class ParityAssembler:
         cfg = self.config
         if self._needs_outofcore(reads):
             host_all, streams, stats = self._groups_outofcore(reads, -1, with_streams=True)
-            clock = _PhaseClock(stats, self.device)
+            clock = _PhaseClock(stats, self.device, phase="extract")
         else:
             counted, stats = self.counter.count_reads(reads)
-            clock = _PhaseClock(stats, self.device)
+            clock = _PhaseClock(stats, self.device, phase="extract")
             host_all, streams = table_ops.extract_groups_with_streams(
                 counted, pruned=False
             )
@@ -871,7 +899,7 @@ class ParityAssembler:
         groups = nonacgt.regroup_with_exceptions(
             host_all, streams, reads, k=cfg.k, m=cfg.m, n_win=cfg.windows_per_read,
         )
-        clock.lap("extract")
+        clock.stop()
         return groups, stats, clock
 
     def _assemble_nonacgt(self, reads: Sequence[str], engine: str, verbose: bool):

@@ -357,16 +357,19 @@ class _PartStore:
     change of staging budget, and a directory written by either package
     resumes in the other."""
 
+    META = "meta.json"
+    KIND = ""
+
     def __init__(self, checkpoint_dir, fingerprint: dict):
         self.dir = pathlib.Path(checkpoint_dir)
         self.dir.mkdir(parents=True, exist_ok=True)
-        meta_path = self.dir / "meta.json"
+        meta_path = self.dir / self.META
         if meta_path.exists():
             old = json.loads(meta_path.read_text())
             if old != fingerprint:
                 raise ValueError(
                     f"checkpoint_dir {self.dir} was written by a different "
-                    f"configuration: {old} != {fingerprint}; use a fresh directory")
+                    f"{self.KIND}configuration: {old} != {fingerprint}; use a fresh directory")
         else:
             meta_path.write_text(json.dumps(fingerprint))
 
@@ -841,9 +844,10 @@ def _count_parity_partition(mmer, kmer, rid, stream, *, cutoff: int) -> count_op
 
 
 def _partition_groups(ct: count_ops.CountedTable, cutoff: int, with_streams: bool):
-    """One counted partition's groups on the host: (mmer, kmer, count,
-    first stream index (int64), flat read ids, flat streams or None),
-    every group's occurrences contiguous in the flat arrays."""
+    """One counted partition's groups on the host: (mmer uint32, kmer
+    int64, count int32, first stream index int64, flat read ids uint32,
+    flat stream indices int64 or None), every group's occurrences
+    contiguous in the flat arrays."""
     n = int(ct.valid.sum())
     lane = {name: getattr(ct, name)[:n].cpu().numpy()
             for name in ("mmer", "kmer", "read_id", "stream_idx", "group_start",
@@ -856,7 +860,70 @@ def _partition_groups(ct: count_ops.CountedTable, cutoff: int, with_streams: boo
     return (lane["mmer"][starts].astype(np.uint32), lane["kmer"][starts],
             sizes.astype(np.int32), lane["stream_idx"][starts],
             lane["read_id"][rows].astype(np.uint32),
-            lane["stream_idx"][rows].astype(np.uint32) if with_streams else None)
+            lane["stream_idx"][rows] if with_streams else None)
+
+
+class _ParityStore(_PartStore):
+    """The checkpoints of a partitioned parity count, in the JAX package's
+    format: ``meta_parity.json`` (the fingerprint; another configuration's
+    directory is refused), ``windows_parity.npy`` (the valid windows, an
+    int64, written after the first pass) and per partition
+    ``part_<p>_parity.npz`` (uint32 ``mmer``, ``khi``, ``klo``, int32
+    ``count``, ``first`` (below), uint32 ``flat_ids``, ``flat_streams`` when
+    the run kept streams, int64 ``overflows``: the staging overflows of the
+    pass that counted it, reported again on every load).  ``first`` and
+    ``flat_streams`` are uint32 when every value fits (the JAX package's
+    lane) and int64 past 2^32 - 1, where the JAX package's own lane wraps;
+    read back as int64.  A part saved without streams is not used by a run
+    that needs them (that partition is counted again)."""
+
+    META = "meta_parity.json"
+    KIND = "parity "
+
+    def _path(self, p: int) -> pathlib.Path:
+        return self.dir / f"part_{p}_parity.npz"
+
+    def usable(self, p: int, with_streams: bool = False) -> bool:
+        path = self._path(p)
+        if not path.exists():
+            return False
+        if not with_streams:
+            return True
+        with np.load(path) as saved:
+            return "flat_streams" in saved.files
+
+    def load(self, p: int, with_streams: bool = False):
+        """(the partition's groups as ``_partition_groups`` gives them,
+        its overflows)."""
+        from genome_assembly_tpu_torch.convert import lanes_to_key
+
+        with np.load(self._path(p)) as saved:
+            streams = saved["flat_streams"].astype(np.int64) if with_streams else None
+            return ((saved["mmer"].astype(np.uint32), lanes_to_key(saved["khi"], saved["klo"]),
+                     saved["count"].astype(np.int32), saved["first"].astype(np.int64),
+                     saved["flat_ids"].astype(np.uint32), streams),
+                    int(saved["overflows"]))
+
+    def save(self, p: int, part, overflows: int) -> None:
+        from genome_assembly_tpu_torch.convert import key_to_lanes
+        from genome_assembly_tpu_torch.utils.checkpoint import fits_uint32
+
+        mmer, kmer, count, first, flat_ids, flat_streams = part
+        khi, klo = key_to_lanes(kmer)
+        extra = {} if flat_streams is None else {"flat_streams": fits_uint32(flat_streams)}
+        tmp = self.dir / f"part_{p}_parity.tmp.npz"
+        # uncompressed, as _PartStore's (the JAX package compresses; np.load
+        # reads both): with zlib a fresh 2 Mb x 50x run took 31.8 s, without
+        # 9.8 s (chip_smoke.py surfaces_e2e, NVIDIA H100 80GB HBM3, 700 W)
+        np.savez(tmp, mmer=mmer, khi=khi, klo=klo, count=count, first=fits_uint32(first),
+                 flat_ids=flat_ids, overflows=np.int64(overflows), **extra)
+        os.replace(tmp, self._path(p))
+
+    def windows(self) -> int:
+        return int(np.load(self.dir / "windows_parity.npy"))
+
+    def save_windows(self, n_windows: int) -> None:
+        np.save(self.dir / "windows_parity.npy", np.int64(n_windows))
 
 
 def partitioned_count_parity(
@@ -866,6 +933,8 @@ def partitioned_count_parity(
     partitions: int,
     cutoff: int,
     with_streams: bool = False,
+    checkpoint_dir: str | None = None,
+    dataset_tag: str | None = None,
 ):
     """Out-of-core PARITY counting: the payload-carrying analogue of
     ``partitioned_count``.
@@ -886,14 +955,25 @@ def partitioned_count_parity(
     (GROUP_BUDGET_BYTES at 20 bytes a record).  An overflow of the
     statistical cap is reported in ``batch_overflows``, not healed, as in
     the JAX package.
+
+    checkpoint_dir: each counted partition's groups land in
+    ``part_<p>_parity.npz`` there (``_ParityStore``, the JAX package's
+    files) and are loaded instead of counted on a later call; a group whose
+    partitions are all there makes no pass.  The fingerprint is (partitions,
+    cutoff, n_batches, batch_slots) and ``dataset_tag`` when given; a
+    directory of another fingerprint raises ``ValueError``.
     """
     batch_slots = int(batch_records(0)[0].shape[0])
     cap_bp, G = range_group_plan(
         n_batches, batch_slots, partitions=partitions, bytes_per_record=20,
         budget_bytes=GROUP_BUDGET_BYTES)
+    store = _ParityStore.open(checkpoint_dir, dataset_tag, {
+        "format": 2, "scheme": "range16", "mode": "parity", "partitions": partitions,
+        "cutoff": cutoff, "n_batches": n_batches, "batch_slots": batch_slots})
 
     groups = []
     windows = []
+    n_windows = None
     batch_overflows = 0
 
     def first_pass(b):
@@ -902,23 +982,45 @@ def partitioned_count_parity(
         windows.append((lanes[0] != MMER_SENTINEL).sum())
         return lanes
 
+    def usable(p):
+        return store is not None and store.usable(p, with_streams)
+
     for g in range(-(-partitions // G)):
+        pids = range(g * G, min((g + 1) * G, partitions))
+        if all(usable(p) for p in pids):
+            for p in pids:
+                part, overflows = store.load(p, with_streams)
+                groups.append(part)
+                batch_overflows += overflows
+            if g == 0:
+                n_windows = store.windows()
+            continue
         parts, group_overflows = stage_group(
             first_pass if g == 0 else batch_records, n_batches, extract_partition_range5, g,
             partitions=partitions, group_size=G, cap_bp=cap_bp,
             dtypes=(torch.int32, torch.int64, torch.int64, torch.int64))
+        if g == 0:
+            n_windows = torch.stack(windows).sum()
+            if store is not None:
+                store.save_windows(int(n_windows))
         for r in range(G):
             p = g * G + r
             lanes, parts[r] = parts[r], None
             if p >= partitions:
                 continue
-            batch_overflows += group_overflows[r]
-            ct = _count_parity_partition(*lanes, cutoff=cutoff)
-            del lanes
-            groups.append(_partition_groups(ct, cutoff, with_streams))
-            del ct
+            if usable(p):
+                part, overflows = store.load(p, with_streams)
+            else:
+                ct = _count_parity_partition(*lanes, cutoff=cutoff)
+                del lanes
+                part, overflows = _partition_groups(ct, cutoff, with_streams), group_overflows[r]
+                del ct
+                if store is not None:
+                    store.save(p, part, overflows)
+            groups.append(part)
+            batch_overflows += overflows
         del parts
-    n_windows = int(torch.stack(windows).sum())
+    n_windows = int(n_windows)
 
     mmer, kmer, count, first = (np.concatenate([p[j] for p in groups]) for j in range(4))
     flat_ids = np.concatenate([p[4] for p in groups])
@@ -932,7 +1034,8 @@ def partitioned_count_parity(
         read_ids=_regroup(flat_ids, sizes, order),
     )
     if with_streams:
-        streams = _regroup(np.concatenate([p[5] for p in groups]), sizes, order)
+        streams = _regroup(np.concatenate([p[5] for p in groups]).astype(np.uint32), sizes,
+                           order)
         return host, streams, n_windows, batch_overflows
     return host, n_windows, batch_overflows
 

@@ -1,30 +1,116 @@
-"""Pointer-jump frontier checkpoints, in the JAX package's file format.
+"""Checkpoints in the JAX package's file formats (``utils/checkpoint.py``
+there), so a file written by either package loads in the other.
 
-A frontier is the doubling table of ``dbg.pointer_jump_bulk`` after some
-round: ``frontier_l<lanes>.npz`` (``tbl`` int32 [2N, lanes], ``pred`` int32
-[2N], ``rounds_done`` int64; uncompressed, as the table is near-random ids)
-beside ``frontier_l<lanes>.meta.json`` (the format version and a
-fingerprint of the link array it was taken from).  The files are the JAX
-package's (``utils/checkpoint.py``) name for name and byte layout for byte
-layout, so a frontier written by either package resumes in the other;
-this package's int64 state ids are saved as int32 (the JAX package's
-single-array jump holds fewer than 2^31 states too) and read back as int64.
+A counted table (``save_counted_table``) is a compressed npz of the JAX
+package's ``CountedTable`` fields and dtypes (uint32 m-mer and k-mer lanes,
+read ids and stream indices, bool masks, int32 counts) beside a
+``.meta.json`` of the format version, the phase and the run's config under
+the JAX package's ``PipelineConfig`` field names: this package's
+``hybrid_sort`` is written as ``pallas_sort`` (with ``pallas_scan`` false)
+and read back from it, and a ``pallas_scan`` read is dropped (on a card the
+scan is always the kernel).  A stream index past 2^32 - 1 does not fit the
+JAX package's lane: the lane is then written as int64 (this package reads
+it back whole; the JAX package's own file would have wrapped).
+
+A pointer-jump frontier is the doubling table of
+``dbg.pointer_jump_bulk`` after some round: ``frontier_l<lanes>.npz``
+(``tbl`` int32 [2N, lanes], ``pred`` int32 [2N], ``rounds_done`` int64;
+uncompressed, as the table is near-random ids) beside
+``frontier_l<lanes>.meta.json`` (the format version and a fingerprint of
+the link array it was taken from).  This package's int64 state ids are
+saved as int32 (the JAX package's single-array jump holds fewer than 2^31
+states too) and read back as int64.
 
 Numpy and json only, plus torch for the fingerprint's two sums.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pathlib
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from genome_assembly_tpu_torch.common import MASK32
+from genome_assembly_tpu_torch.config import PipelineConfig
+from genome_assembly_tpu_torch.ops.count import CountedTable
 
 FORMAT_VERSION = 1
+
+# the JAX package's CountedTable fields, in its order
+_TABLE_FIELDS = ("mmer", "kmer_hi", "kmer_lo", "read_id", "stream_idx", "valid",
+                 "group_start", "count", "keep")
+
+
+def fits_uint32(x: np.ndarray) -> np.ndarray:
+    """``x`` (non-negative integers) as uint32 when every value fits, else
+    as int64: never wrapped."""
+    x = np.asarray(x)
+    if x.size and int(x.max()) > MASK32:
+        return x.astype(np.int64)
+    return x.astype(np.uint32)
+
+
+def _config_to_jax(config: PipelineConfig) -> dict:
+    """This package's config under the JAX package's field names, in its
+    order (``pallas_scan``, ``pallas_sort`` after ``max_read_len``)."""
+    fields = dataclasses.asdict(config)
+    hybrid = fields.pop("hybrid_sort")
+    out = {}
+    for name, value in fields.items():
+        out[name] = value
+        if name == "max_read_len":
+            out["pallas_scan"] = False
+            out["pallas_sort"] = hybrid
+    return out
+
+
+def _config_from_jax(fields: dict) -> PipelineConfig:
+    fields = dict(fields)
+    fields.pop("pallas_scan", None)
+    fields["hybrid_sort"] = fields.pop("pallas_sort", False)
+    return PipelineConfig(**fields)
+
+
+def _npz_path(path) -> pathlib.Path:
+    p = pathlib.Path(path)
+    return p if p.suffix == ".npz" else p.with_suffix(p.suffix + ".npz")
+
+
+def save_counted_table(path, table: CountedTable, config: PipelineConfig, phase: str) -> None:
+    """Serialize a counted table (device or host tensors) + metadata, as
+    the JAX package's ``save_counted_table`` writes it."""
+    from genome_assembly_tpu_torch import convert
+
+    p = _npz_path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    arrays = dict(zip(_TABLE_FIELDS, convert.counted_table_to_lanes(table)))
+    arrays["stream_idx"] = fits_uint32(convert._np(table.stream_idx))
+    np.savez_compressed(p, **arrays)
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "phase": phase,
+        "config": _config_to_jax(config),
+    }
+    p.with_suffix(".meta.json").write_text(json.dumps(meta, indent=2))
+
+
+def load_counted_table(path) -> Tuple[CountedTable, PipelineConfig, str]:
+    """Restore a counted table written by either package: (table of CPU
+    tensors, config, phase)."""
+    from genome_assembly_tpu_torch import convert
+
+    p = _npz_path(path)
+    meta = json.loads(p.with_suffix(".meta.json").read_text())
+    if meta["format_version"] != FORMAT_VERSION:
+        raise ValueError(f"unsupported checkpoint version {meta['format_version']}")
+    data = np.load(p)
+    table = convert.counted_table_from_lanes(*(data[name] for name in _TABLE_FIELDS))
+    return table, _config_from_jax(meta["config"]), meta["phase"]
 
 
 def jump_fingerprint(next_state) -> dict:

@@ -349,7 +349,10 @@ def test_scan_counts_windows_with_one_read_back(monkeypatch, name, batch_reads):
     monkeypatch.setattr(torch.Tensor, "__int__", lambda t: (to_int.append(1), real(t))[1])
 
     class Clock:
-        def lap(self, name):
+        def start(self, name):
+            pass
+
+        def stop(self):
             pass
 
     stats = PhaseStats()

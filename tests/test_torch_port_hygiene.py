@@ -49,6 +49,8 @@ assert pkg.__name__ + ".ops.mergepath_sort" in names and pkg.__name__ + ".ops.me
 for mod in ("mesh", "distributed", "ragged", "shard_count", "part_dbg", "shard_dbg"):
     assert f"{pkg.__name__}.parallel.{mod}" in names, mod
 assert pkg.__name__ + ".tools.run_multihost" in names
+for mod in ("entry", "utils.metrics", "utils.profiling", "utils.checkpoint", "utils.plots"):
+    assert f"{pkg.__name__}.{mod}" in names, mod
 for n in names:
     importlib.import_module(n)
 assert jax_side() == [], jax_side()
@@ -295,6 +297,33 @@ from genome_assembly_tpu_torch.config import PipelineConfig
 from genome_assembly_tpu_torch.models.pipeline import FastAssembler
 cfg = PipelineConfig(k=11, m=5, parity=False, max_read_len=64, batch_reads=64)
 reads = ["ACGTTGCATGCCGATAGCTAGCTAGGATCGATCGA"] * 4
+try:
+    out = {call}
+except RuntimeError as e:
+    print("RAISED", e)
+else:
+    print("RAN", out)
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("RAISED"), r.stdout
+    assert "CUDA" in r.stdout
+
+
+@pytest.mark.parametrize("call", [
+    "entry.entry()",
+    "stream.feed_read_batches(batches)",
+    "cli.main(['count', 'tests/golden/input.txt', '--k', '6', '--m', '3'])",
+    "cli.main(['assemble', 'tests/golden/input.txt', '--k', '6', '--m', '3', '--metrics', "
+    "os.devnull])",
+])
+def test_new_entry_points_default_to_the_card_and_raise_without_one(call):
+    r = _run(f"""
+import os
+import torch
+assert not torch.cuda.is_available()
+from genome_assembly_tpu_torch import cli, entry
+from genome_assembly_tpu_torch.io import reads, stream
+batches = reads.batch_reads(["ACGTTGCATGCCGATAGCTAGCTAGGATCGATCGA"] * 4, 64, 2)
 try:
     out = {call}
 except RuntimeError as e:
