@@ -67,6 +67,7 @@ import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import os
 import pathlib
@@ -108,10 +109,13 @@ try:
     from genome_assembly_tpu_torch.ops import outofcore
     from genome_assembly_tpu_torch.ops import superkmer
     from genome_assembly_tpu_torch.parallel import mesh as mesh_lib
+    from genome_assembly_tpu_torch.parallel import part_dbg
     from genome_assembly_tpu_torch.parallel import shard_count
+    from genome_assembly_tpu_torch.parallel import two_level
     from genome_assembly_tpu_torch.parity import nonacgt
     from genome_assembly_tpu_torch.parity import table as parity_table
     from genome_assembly_tpu_torch.tools import run_multihost
+    from genome_assembly_tpu_torch.tools import run_multihost_ckpt
     from genome_assembly_tpu_torch.tools import run_scale
     from genome_assembly_tpu_torch.utils import checkpoint as checkpoint_io
 except ImportError as missing:
@@ -188,6 +192,22 @@ MESH_SHARD_ROWS = -(-ECOLI["genome_len"] * ECOLI["coverage"] // ECOLI["read_len"
 MULTIHOST_DATASET = dict(genome_len=200_000, read_len=100, coverage=20.0, seed=3, k=31, m=7,
                          cutoff=1, max_read_len=128)
 MULTIHOST_TIMEOUT = 300
+# the second multi-device phase (mesh2_e2e): the two-level count of the
+# mesh_e2e batch over (2, 2) and (2, 2, 2), each held to the flat count of
+# as many shards; the flat 4-shard count's peak on that batch as mesh_e2e
+# measured it on an H100 (45.36 GB) and the card's 80 GB, for the peak
+# reckoned before the run
+MESH2_SHAPES = ((2, 2), (2, 2, 2))
+FLAT_MESH_PEAK_BYTES = 45.36e9
+CARD_BYTES = 80e9
+RECORD_BYTES = 28  # int32 m-mer + int64 key, read id and stream
+# the checkpointed count's processes: 7 batches of 3072 x 128 (301,056 slots
+# each) of a 200 kb genome at 10x, K=31, M=7; rows divide by 2 and by 3
+CKPT_DATASET = dict(genome_len=200_000, read_len=100, coverage=10.0, seed=3, k=31, m=7,
+                    cutoff=1, max_read_len=128, rows=3072)
+CKPT_TIMEOUT = 300
+# bench-scaling's batch on the card (its default of 4096 reads times launches)
+BENCH_SCALING_READS = 1 << 20
 
 
 def emit(phase: str, **fields) -> None:
@@ -1783,7 +1803,7 @@ def phase_mesh_e2e(device, full, parity_runs):
                   max_memory_allocated_by_card=r_peak, launches=r_launches)
     if overflow or not ragged["kept_equal_full_e2e"] or r_launches["fast_scan"] != MESH_SHARDS:
         raise AssertionError(f"mesh_e2e: the ragged count differs: {ragged}")
-    del batch, kept
+    del kept
     torch.cuda.empty_cache()
 
     golden_reads = reads_io.load_reads_parity(str(GOLDEN / "input.txt"))
@@ -1843,7 +1863,296 @@ def phase_mesh_e2e(device, full, parity_runs):
          parity_big_run=big_run, multihost_dataset=MULTIHOST_DATASET,
          multihost=multihost, multihost_seconds=t_multihost)
     torch.cuda.empty_cache()
-    return mesh_k1, scan_tally
+    return mesh_k1, scan_tally, batch
+
+
+def mesh2_reckoning(n_slots, shape, slack=4.0):
+    """The two-level count's padded blocks at RECORD_BYTES a slot, reckoned
+    before the run: stage 1 ``n_ici`` blocks of ``ceil(n_local / n_ici *
+    slack)`` a shard, stage 2 ``n_slices`` of ``ceil(n_local / n_slices *
+    slack)``; the flat count's blocks; and the peak reckoned: the flat
+    count's measured peak with the stage-1 blocks beside it (the case where
+    no lane were freed before stage 2 allocated)."""
+    n = int(np.prod(shape))
+    n_local = n_slots // n
+    n_slices, n_ici = shape[0], n // shape[0]
+    stage1 = n * n_ici * int(np.ceil(n_local / n_ici * slack)) * RECORD_BYTES
+    stage2 = n * n_slices * int(np.ceil(n_local / n_slices * slack)) * RECORD_BYTES
+    flat = n * n * int(np.ceil(n_local / n * slack)) * RECORD_BYTES
+    return dict(stage1_block_bytes=stage1, stage2_block_bytes=stage2, flat_block_bytes=flat,
+                reckoned_peak_bytes=FLAT_MESH_PEAK_BYTES + stage1,
+                fits=FLAT_MESH_PEAK_BYTES + stage1 <= CARD_BYTES)
+
+
+def table_rows(sc, mesh):
+    """A sharded count as it must match row for row, with the rows that
+    hold no record folded: for every field and shard, the rows up to the
+    second row past the records (on the host: the records sort first, then
+    the one group of FILLS rows), whether every later row equals that last
+    one, and the shard's row count.  Two counts are equal row for row,
+    every field, exactly when these are equal and every flag is true."""
+    out = {}
+    for name in shard_count.ShardedCount._fields[:-1]:
+        for s, (x, valid) in enumerate(zip(getattr(sc, name), sc.valid)):
+            n = int(valid.sum()) + 1
+            out[name, s] = (x[:n + 1].cpu(), bool((x[n:] == x[n]).all()) if x.shape[0] > n else True,
+                            x.shape[0])
+    return out
+
+
+def mesh2_count(device, cards, batch, shape):
+    """The flat padded count of ``batch`` over prod(shape) shards, then the
+    two-level count over ``shape`` (stage walls kept), held to it row for
+    row, every field of every shard (``table_rows``); K1 == its plain
+    version on each shard's rows."""
+    n = int(np.prod(shape))
+    devices = cards if len(cards) >= n else [device]
+    flat_mesh = mesh_lib.make_mesh(n, devices=devices)
+    tl_mesh = mesh_lib.make_mesh(devices=devices, shape=shape)
+    cfg = ecoli_config()
+    kw = dict(k=cfg.k, m=cfg.m, parity=False, cutoff=cfg.abundance_cutoff)
+    reckoned = mesh2_reckoning(batch.codes.shape[0] * (cfg.max_read_len - cfg.k + 1), shape)
+    if not reckoned["fits"]:
+        raise AssertionError(f"mesh2_e2e: the reckoned peak does not fit the card: {reckoned}; "
+                             "halve the read set")
+    flat, f_wall, f_peak, f_launches = timed_mesh(cards, lambda: shard_count.sharded_count(
+        batch.codes, batch.lengths, batch.read_ids, mesh=flat_mesh, **kw))
+    f_overflow = flat_mesh.total(flat.overflow)
+    t0 = time.perf_counter()
+    held = table_rows(flat, flat_mesh)
+    del flat
+    torch.cuda.empty_cache()
+    fold_s = time.perf_counter() - t0
+    walls = {}
+    two, t_wall, t_peak, t_launches = timed_mesh(
+        cards, lambda: two_level.sharded_count_two_level(
+            batch.codes, batch.lengths, batch.read_ids, mesh=tl_mesh, walls=walls, **kw))
+    t_overflow = tl_mesh.total(two.overflow)
+    rows = two.mmer[0].shape[0]
+    kept = tl_mesh.total([x.sum() for x in two.keep])
+    t0 = time.perf_counter()
+    got = table_rows(two, tl_mesh)
+    del two
+    torch.cuda.empty_cache()
+    differ = [f"{name}[{s}]" for (name, s), (head, tail_same, length) in held.items()
+              if not (torch.equal(head, got[name, s][0]) and tail_same and got[name, s][1]
+                      and length == got[name, s][2])]
+    compare_s = time.perf_counter() - t0
+    del held, got
+    shard_scans = []
+    for s, (codes, lengths) in enumerate(zip(tl_mesh.shard_rows(batch.codes),
+                                             tl_mesh.shard_rows(batch.lengths))):
+        mism, err = compare_scan(codes, lengths, cfg.k, cfg.m)
+        shard_scans.append(dict(shard=s, shape=list(codes.shape), mismatches=mism,
+                                max_abs_err=err))
+        del codes, lengths
+    torch.cuda.empty_cache()
+    out = dict(
+        shape=list(shape), devices=[str(d) for d in devices], rows_a_shard=rows, kept=kept,
+        equal_row_for_row=not differ, differing=differ, **reckoned,
+        flat=dict(wall_seconds=f_wall, max_memory_allocated_by_card=f_peak, overflow=f_overflow,
+                  k1_launches=f_launches["fast_scan"], fold_seconds=fold_s),
+        two_level=dict(wall_seconds=t_wall, stage_seconds=walls,
+                       max_memory_allocated_by_card=t_peak, overflow=t_overflow,
+                       k1_launches=t_launches["fast_scan"], fold_and_compare_seconds=compare_s),
+        k1_on_shard_rows=shard_scans)
+    if (differ or f_overflow or t_overflow or f_launches["fast_scan"] != n
+            or t_launches["fast_scan"] != n
+            or any(x["mismatches"] for x in shard_scans)
+            or any(sort_kernel_launches(t_launches).values())):
+        raise AssertionError(f"mesh2_e2e: the two-level count over {shape}: {out}")
+    return out
+
+
+def mesh2_links(device, cards, full):
+    """The two-level links join over (2, 2) on full_e2e's kept keys ==
+    part_dbg's flat join over 4 shards, link for link."""
+    devices = cards if len(cards) >= 4 else [device]
+    kept = torch.from_numpy(full["kept"])
+    n = -(-kept.shape[0] // 4) * 4
+    kmer = torch.full((n,), SENTINEL, dtype=torch.int64)
+    kmer[:kept.shape[0]] = kept
+    valid = torch.arange(n) < kept.shape[0]
+    k = ecoli_config().k
+    out = {}
+    for name, mesh, fn in (
+            ("flat", mesh_lib.make_mesh(4, devices=devices),
+             part_dbg.partitioned_unitig_links_join),
+            ("two_level", mesh_lib.make_mesh(devices=devices, shape=(2, 2)),
+             two_level.partitioned_unitig_links_join_two_level)):
+        (links, ovf), wall, peak, _ = timed_mesh(
+            cards, lambda: fn(mesh.shard_rows(kmer), mesh.shard_rows(valid), k=k, mesh=mesh))
+        out[name] = dict(links=[x.cpu() for x in links], overflow=mesh.total(ovf),
+                         wall_seconds=wall, max_memory_allocated_by_card=peak)
+    equal = all(torch.equal(a, b) for a, b in zip(out["flat"].pop("links"),
+                                                  out["two_level"].pop("links")))
+    res = dict(kept_keys=int(kept.shape[0]), equal=equal, **out)
+    if not equal or out["flat"]["overflow"] or out["two_level"]["overflow"]:
+        raise AssertionError(f"mesh2_e2e: the two-level links join differs: {res}")
+    return res
+
+
+def run_tool(module, args, timeout):
+    """``python -m module *args`` from the repo root: (exit code, seconds,
+    stdout, stderr tail).  Killed at ``timeout``."""
+    root = pathlib.Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", module, *map(str, args)], cwd=str(root),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    return proc.returncode, time.perf_counter() - t0, out, err[-3000:]
+
+
+def ckpt_flags(ckpt_dir):
+    return ["--ckpt-dir", ckpt_dir, "--device", "cuda:0", "--backend", "gloo",
+            "--timeout", CKPT_TIMEOUT, *[arg for name, value in CKPT_DATASET.items()
+                                         for arg in (f"--{name.replace('_', '-')}", value)]]
+
+
+def mesh2_processes(tmp):
+    """(c) and (d), four chains of launches side by side: run_multihost.py
+    over 4 gloo processes on card 0; the checkpointed count over 2
+    processes killed after batch 2 (rank 1), then relaunched; the same
+    count uninterrupted; the elastic supervisor from 3 processes, rank 2
+    killed after batch 1.  Returns each chain's results; a launch that
+    fails as it should not fails the phase."""
+    mh_out = pathlib.Path(tmp) / "mh4.json"
+    dataset = [arg for name, value in MULTIHOST_DATASET.items()
+               for arg in (f"--{name.replace('_', '-')}", value)]
+
+    def multihost():
+        rc, wall, _, err = run_tool("genome_assembly_tpu_torch.tools.run_multihost",
+                                    ["--procs", 4, "--backend", "gloo", "--device", "cuda:0",
+                                     "--out", mh_out, "--timeout", MULTIHOST_TIMEOUT, *dataset],
+                                    MULTIHOST_TIMEOUT + 60)
+        if rc:
+            raise AssertionError(f"mesh2_e2e: run_multihost over 4 processes: exit {rc}\n{err}")
+        return dict(launch_seconds=wall, summary=json.loads(mh_out.read_text()))
+
+    module = "genome_assembly_tpu_torch.tools.run_multihost_ckpt"
+
+    def kill_and_resume():
+        ck = pathlib.Path(tmp) / "ck"
+        rc_k, wall_k, _, err_k = run_tool(
+            module, ["--procs", 2, *ckpt_flags(ck), "--die-after-batch", 2, "--die-rank", 1],
+            CKPT_TIMEOUT + 60)
+        killed_manifest = json.loads((ck / "manifest.json").read_text())
+        rc_r, wall_r, out_r, err_r = run_tool(module, ["--procs", 2, *ckpt_flags(ck)],
+                                              CKPT_TIMEOUT + 60)
+        if rc_k == 0 or "exit -9" not in err_k or rc_r:
+            raise AssertionError(f"mesh2_e2e: kill and resume: exits {rc_k}, {rc_r}\n"
+                                 f"{err_k}\n{err_r}")
+        return dict(killed_launch_seconds=wall_k, killed_manifest=killed_manifest,
+                    resumed_launch_seconds=wall_r,
+                    resumed=json.loads(out_r.strip().splitlines()[-1]))
+
+    def uninterrupted():
+        rc, wall, out, err = run_tool(
+            module, ["--procs", 2, *ckpt_flags(pathlib.Path(tmp) / "ck_clean")],
+            CKPT_TIMEOUT + 60)
+        if rc:
+            raise AssertionError(f"mesh2_e2e: the uninterrupted checkpointed count: exit {rc}\n"
+                                 f"{err}")
+        return dict(launch_seconds=wall, summary=json.loads(out.strip().splitlines()[-1]))
+
+    def elastic():
+        out = pathlib.Path(tmp) / "elastic.json"
+        flags = ckpt_flags(pathlib.Path(tmp) / "ck_elastic")
+        rc, wall, _, err = run_tool(
+            "genome_assembly_tpu_torch.tools.run_elastic",
+            ["--procs", 3, "--out", out, "--die-after-batch", 1, "--die-rank", 2, *flags],
+            2 * CKPT_TIMEOUT + 60)
+        if rc:
+            raise AssertionError(f"mesh2_e2e: the elastic supervisor: exit {rc}\n{err}")
+        return dict(launch_seconds=wall, **json.loads(out.read_text()))
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        runs = {name: pool.submit(fn) for name, fn in (
+            ("multihost", multihost), ("kill_and_resume", kill_and_resume),
+            ("uninterrupted", uninterrupted), ("elastic", elastic))}
+        runs = {name: run.result() for name, run in runs.items()}
+    runs["kill_and_resume"]["kill_costs_seconds"] = (
+        runs["kill_and_resume"]["killed_launch_seconds"]
+        + runs["kill_and_resume"]["resumed_launch_seconds"]
+        - runs["uninterrupted"]["launch_seconds"])
+    return runs
+
+
+def bench_scaling(routing):
+    """The CLI's bench-scaling on the card, 1, 2, 4 shards: its JSON lines."""
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = cli.main(["bench-scaling", "--devices", "4", "--routing", routing,
+                       "--batch-reads", str(BENCH_SCALING_READS)])
+    rows = [json.loads(line) for line in text.getvalue().splitlines()]
+    if rc or [r["shards"] for r in rows] != [1, 2, 4]:
+        raise AssertionError(f"mesh2_e2e: bench-scaling --routing {routing}: {rc}, {rows}")
+    return rows
+
+
+def phase_mesh2_e2e(device, full, batch):
+    """The second multi-device phase: (a) the two-level count of mesh_e2e's
+    batch (the ecoli reads as one batch) over (2, 2) and (2, 2, 2) == the
+    flat count of as many shards, row for row, every field, K1 once a shard
+    and == its plain version on each shard's rows; (b) the two-level links
+    join over (2, 2) on full_e2e's kept keys == the flat 4-shard join;
+    (c) run_multihost.py over 4 gloo processes on card 0, two_level_digest
+    == digest; (d) the checkpointed count killed and resumed, and the
+    elastic supervisor's 3 -> 2 worlds, each == the uninterrupted count;
+    (e) bench-scaling with two_level and padded routing.  Every overflow 0.
+    Returns the K1 launches of the two-level counts and K1's tally against
+    its plain version."""
+    cards = card_devices()
+    counts = [mesh2_count(device, cards, batch, shape) for shape in MESH2_SHAPES]
+    links = mesh2_links(device, cards, full)
+    bench = {routing: bench_scaling(routing) for routing in ("two_level", "padded")}
+    torch.cuda.empty_cache()
+
+    ref_mesh = mesh_lib.make_mesh(4, devices=[device])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = mesh2_processes(tmp)
+    procs_s = time.perf_counter() - t0
+    mh_ref = run_multihost.summarize(ref_mesh, **MULTIHOST_DATASET, two_level=mesh_lib.make_mesh(
+        devices=[device], shape=(2, 2)))
+    mh = procs["multihost"]["summary"]
+    batches = run_multihost_ckpt.batches_of(**CKPT_DATASET)
+    ckpt_mesh = mesh_lib.make_mesh(2, devices=[device])
+    ckpt_ref = run_multihost.table_digest(shard_count.sharded_count_batches(
+        batches, k=CKPT_DATASET["k"], m=CKPT_DATASET["m"], parity=False,
+        cutoff=CKPT_DATASET["cutoff"], mesh=ckpt_mesh), ckpt_mesh, CKPT_DATASET["k"],
+        CKPT_DATASET["m"])
+    kr, el, clean = procs["kill_and_resume"], procs["elastic"], procs["uninterrupted"]["summary"]
+    checks = dict(
+        multihost_two_level_digest_equal=mh["two_level_digest"] == mh["digest"],
+        multihost_equal_one_process=all(mh[key] == mh_ref[key] for key in (
+            "entries", "digest", "two_level_digest", "n_unitigs", "unitig_digest")),
+        multihost_overflow_0=mh["overflow"] == 0,
+        killed_at_batch_2=kr["killed_manifest"]["batches_done"] == 2,
+        resumed_from_2=kr["resumed"]["resumed_from"] == 2,
+        resumed_equal_uninterrupted=(kr["resumed"]["entries"], kr["resumed"]["digest"])
+        == ckpt_ref == (clean["entries"], clean["digest"]),
+        elastic_attempts=el["attempts"] == [3, 2],
+        elastic_resumed_from_1=el["summary"]["resumed_from"] == 1,
+        elastic_equal_uninterrupted=(el["summary"]["entries"], el["summary"]["digest"])
+        == ckpt_ref,
+        ckpt_overflow_0=kr["resumed"]["overflow"] == el["summary"]["overflow"] == 0,
+        at_least_6_batches=len(batches) >= 6)
+    emit("mesh2_e2e", preset="ecoli", reads=batch.n,
+         window_slots=batch.codes.shape[0] * (batch.codes.shape[1] - ecoli_config().k + 1),
+         counts=counts, links=links, bench_scaling=bench, processes=procs,
+         processes_seconds=procs_s, ckpt_dataset=CKPT_DATASET, ckpt_batches=len(batches),
+         ckpt_reference=list(ckpt_ref), checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"mesh2_e2e: {checks}")
+    torch.cuda.empty_cache()
+    tally = [x for c in counts for x in c["k1_on_shard_rows"]]
+    return (sum(c["two_level"]["k1_launches"] for c in counts),
+            (sum(x["mismatches"] for x in tally), max(x["max_abs_err"] for x in tally)))
 
 
 # --------------------------------------------------------------------------
@@ -3027,7 +3336,7 @@ def scan_bound(codes, lengths, k, m):
     return bound_fields([(n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_ALU_OPS_PER_S * 1e3)])
 
 
-def time_scan(device, batch, launches, tally, chr1_launches, mesh_launches):
+def time_scan(device, batch, launches, tally, chr1_launches, mesh_launches, mesh2_launches):
     """K1 and its plain version on one batch of the main path
     ([65536, 128], k=31, m=7, the reads of full_e2e), turn about; and at
     the super-k-mer count's expansion shape ([2^20, 55]: real record rows
@@ -3056,7 +3365,7 @@ def time_scan(device, batch, launches, tally, chr1_launches, mesh_launches):
         "replaces": "genome_assembly_tpu/ops/minimizer_pallas.py:25",
         "launches": launches, "launches_from": "full_e2e (hybrid_e2e launches it as often)",
         "launches_by_path": {"full_e2e": launches, "scale_chr1": chr1_launches,
-                             "mesh_e2e": mesh_launches},
+                             "mesh_e2e": mesh_launches, "mesh2_e2e": mesh2_launches},
         "max_abs_err": tally[1], "mismatches": tally[0],
         **times, "kernel_ms": times["ms"], **bound, "library_ms": None,
         "shape": list(KERNEL_SHAPE), "k": k, "m": m,
@@ -3722,9 +4031,12 @@ def main() -> int:
     tallies.update(phase_merge_check(device))
     hybrid_launches = phase_hybrid_e2e(device, full)
     torch.cuda.empty_cache()
-    mesh_launches, mesh_scan_tally = phase_mesh_e2e(device, full, parity_runs)
+    mesh_launches, mesh_scan_tally, mesh_batch = phase_mesh_e2e(device, full, parity_runs)
     scan_tally = (scan_tally[0] + mesh_scan_tally[0], max(scan_tally[1], mesh_scan_tally[1]))
     del parity_runs
+    mesh2_launches, mesh2_scan_tally = phase_mesh2_e2e(device, full, mesh_batch)
+    scan_tally = (scan_tally[0] + mesh2_scan_tally[0], max(scan_tally[1], mesh2_scan_tally[1]))
+    del mesh_batch
     phase_ooc_extension(device, full, args.coverage)
     phase_ooc_e2e(device)
     phase_parity_ooc_golden(device)
@@ -3741,7 +4053,7 @@ def main() -> int:
     merge_launches = phase_mergepath_entry_point(device, n_keys, real_keys)
     torch.cuda.empty_cache()
     kernels = [time_scan(device, first_batch, scan_launches, scan_tally, chr1_launches,
-                         mesh_launches)]
+                         mesh_launches, mesh2_launches)]
     kernels += time_sort_kernels(device, tallies, hybrid_launches, entry_launches, n_keys)
     torch.cuda.empty_cache()
     kernels += time_merge_kernels(device, tallies, merge_launches, n_keys, real_keys)

@@ -11,13 +11,18 @@
       [--plot reads.png] [--starts-out starts.txt]
   python -m genome_assembly_tpu_torch plot verbose.txt [--genome-file g.txt] \\
       [--starts-file starts.txt] --outdir plots
+  python -m genome_assembly_tpu_torch bench-scaling --devices 4 \\
+      [--routing padded|ragged|two_level] [--batch-reads 4096] [--cpu]
 
-``assemble`` and ``count`` run on the card unless ``--cpu`` is given.
+``assemble``, ``count`` and ``bench-scaling`` run on the card unless
+``--cpu`` is given (``bench-scaling``: a mesh of CPU shards; on the card,
+shards share a card where there are fewer cards than shards).
 ``--metrics`` appends JSONL records (utils/metrics.py), ``--trace`` writes
 a Chrome-trace JSON of the run, card activity included (utils/profiling.py),
 ``count --checkpoint`` the counted table in the JAX package's format
-(utils/checkpoint.py).  The JAX package's ``bench-scaling`` is not ported
-yet.
+(utils/checkpoint.py).  ``bench-scaling`` times the sharded count of one
+random batch over 1, 2, 4 ... shards and prints a JSON line a shard count
+(the JAX package's fields: shards, wall_s, windows_per_s, scaling_eff).
 """
 
 from __future__ import annotations
@@ -230,6 +235,61 @@ def cmd_plot(args) -> int:
     return 0
 
 
+def cmd_bench_scaling(args) -> int:
+    """The sharded count of one random batch (``--batch-reads`` reads of 128
+    bases, numpy seed 0) over 1, 2, 4 ... up to ``--devices`` shards: the
+    best of three walls after one call that builds and loads the kernels,
+    each closed by synchronising every card.  two_level routes over a
+    (2, n / 2) mesh from 2 shards on."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from genome_assembly_tpu_torch.parallel import mesh as mesh_lib
+    from genome_assembly_tpu_torch.parallel import shard_count, two_level
+
+    devices = ["cpu"] if args.cpu else None
+    rng = np.random.default_rng(0)
+    rows = args.batch_reads
+    codes = torch.from_numpy(rng.integers(0, 4, size=(rows, 128), dtype=np.uint8))
+    lengths = torch.full((rows,), 128, dtype=torch.int32)
+    read_ids = torch.arange(rows, dtype=torch.int64)
+    results = []
+    n = 1
+    while n <= args.devices:
+        if args.routing == "two_level" and n >= 2:
+            mesh = two_level.two_level_mesh(2, devices=devices, n_shards=n)
+            routing = "two_level"
+        else:
+            mesh = mesh_lib.make_mesh(n, devices=devices)
+            routing = args.routing if n > 1 else "padded"
+        cards = sorted({d for d in mesh.devices if d.type == "cuda"}, key=str)
+        batch = [x.to(mesh.devices[0]) for x in (codes, lengths, read_ids)]
+
+        def run() -> None:
+            shard_count.sharded_count(*batch, k=args.k, m=args.m, parity=False, cutoff=1,
+                                      mesh=mesh, routing=routing)
+            for d in cards:
+                torch.cuda.synchronize(d)
+
+        run()
+        t_best = None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            dt = time.perf_counter() - t0
+            t_best = dt if t_best is None else min(t_best, dt)
+        windows = rows * (128 - args.k + 1)
+        results.append({"shards": n, "wall_s": t_best, "windows_per_s": windows / t_best})
+        n *= 2
+    base = results[0]["windows_per_s"]
+    for r in results:
+        r["scaling_eff"] = r["windows_per_s"] / (base * r["shards"])
+        print(json.dumps(r), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="genome_assembly_tpu_torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -284,6 +344,18 @@ def main(argv=None) -> int:
                    help="read length for --starts-file placement windows")
     p.add_argument("--outdir", default="plots")
     p.set_defaults(fn=cmd_plot)
+
+    b = sub.add_parser("bench-scaling", help="shard-count scaling benchmark")
+    b.add_argument("--devices", type=int, default=8, help="the most shards to time")
+    b.add_argument("--cpu", "--cpu-devices", dest="cpu", action="store_true",
+                   help="a mesh of CPU shards")
+    b.add_argument("--batch-reads", type=int, default=4096)
+    b.add_argument("--k", type=int, default=21)
+    b.add_argument("--m", type=int, default=7)
+    b.add_argument("--routing", choices=["padded", "ragged", "two_level"], default="padded",
+                   help="record exchange (two_level: within a slice, then across two "
+                   "slices)")
+    b.set_defaults(fn=cmd_bench_scaling)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -22,8 +22,9 @@ process over ``torch.distributed``) both modes count over the mesh
 (parallel/shard_count.py): fast mode with one key-routed batch, then the
 routed link join and the sharded (or, past 2**31 states, the routed) jump
 over the mesh's row blocks of the kept keys, and the host materializer;
-parity mode with minimizer-routed batches feeding the same replay.  The
-JAX package's two-level routing is not ported yet.
+parity mode with minimizer-routed batches feeding the same replay.  As in
+the JAX package, the assemblers route flat; the two-level router
+(parallel/two_level.py) is ``shard_count.sharded_count(routing="two_level")``.
 
 Every entry point takes ``device`` and defaults to ``"cuda"``: asked for a
 card on a machine without one it raises, it does not carry on on the CPU.

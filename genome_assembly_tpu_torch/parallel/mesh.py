@@ -1,8 +1,12 @@
-"""A 1-D mesh of shards and its collectives.
+"""A mesh of shards, with named axes, and its collectives.
 
 The scaling design: read batches are split by row across the shards; the
 count table is partitioned by owner (minimizer or key hash), with records
-routed by an all-to-all exchange.  One axis covers both roles.
+routed by an all-to-all exchange.  A flat (1-D) mesh covers both roles with
+one axis.  A mesh of several axes, e.g. ``(n_slices, n_ici)`` or
+``(n_slices, x, y)``, numbers its shards row-major (``g = ds * n_ici + dd``)
+and exchanges along chosen axes: among the shards that share every other
+coordinate (parallel/two_level.py routes in two such stages).
 
 A ``ShardMesh`` has ``n_shards`` shards, the device of each, the shard ids
 this process owns (``local``) and, across processes, a
@@ -22,15 +26,37 @@ The mesh has two forms:
   process's own rank and the exchanges are ``torch.distributed``
   collectives (``all_to_all_single``, with split sizes for the ragged one)
   on the shard's own tensors, under NCCL or gloo alike (gloo takes card
-  tensors as they are: ``chip_smoke.py`` runs it so on an H100).
+  tensors as they are: ``chip_smoke.py`` runs it so on an H100).  An
+  exchange along some of the axes runs in the sub-group of the processes
+  that share the other coordinates (``axis_groups``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+SLICE_AXIS = "slices"
+SHARD_AXIS = "shards"
+
+
+def default_axis_names(ndim: int) -> Tuple[str, ...]:
+    """("shards",), ("slices", "shards") or ("slices", "x", "y")."""
+    names = {1: (SHARD_AXIS,), 2: (SLICE_AXIS, SHARD_AXIS), 3: (SLICE_AXIS, "x", "y")}
+    if ndim not in names:
+        raise ValueError(f"name the axes of a {ndim}-axis mesh")
+    return names[ndim]
+
+
+def axis_members(shape: Sequence[int], g: int, axes: Tuple[int, ...]) -> List[int]:
+    """The flat ids of the shards that share every coordinate of shard
+    ``g`` off ``axes``, row-major over ``axes`` (so ascending)."""
+    grid = np.arange(int(np.prod(shape))).reshape(tuple(shape))
+    coords = np.unravel_index(g, tuple(shape))
+    index = tuple(slice(None) if a in axes else coords[a] for a in range(len(shape)))
+    return grid[index].reshape(-1).tolist()
 
 
 class ShardMesh:
@@ -41,10 +67,16 @@ class ShardMesh:
     local: the shard ids this process owns, ascending.
     group: the ``torch.distributed`` process group of a distributed mesh
       (one shard a process), or None for a one-process mesh.
+    shape, axis_names: the axes (default one axis, ``("shards",)``); the
+      flat shard id is the row-major index of the coordinates.
+    axis_groups: in a distributed mesh of several axes, the sub-group of
+      this process for each proper subset of the axes (a sorted tuple of
+      axis indices), as ``distributed.global_mesh`` makes them.
     """
 
     def __init__(self, devices: Sequence, *, local: Optional[Sequence[int]] = None,
-                 group=None):
+                 group=None, shape: Optional[Sequence[int]] = None,
+                 axis_names: Optional[Sequence[str]] = None, axis_groups=None):
         self.devices = tuple(torch.device(d) for d in devices)
         self.n_shards = len(self.devices)
         if self.n_shards < 1:
@@ -53,11 +85,50 @@ class ShardMesh:
         self.group = group
         if group is not None and len(self.local) != 1:
             raise ValueError("a distributed mesh holds one shard a process")
+        self.shape = (self.n_shards,) if shape is None else tuple(int(a) for a in shape)
+        if int(np.prod(self.shape)) != self.n_shards:
+            raise ValueError(f"a mesh of shape {self.shape} has {int(np.prod(self.shape))} "
+                             f"shards, not {self.n_shards}")
+        self.axis_names = (default_axis_names(len(self.shape)) if axis_names is None
+                           else tuple(axis_names))
+        if len(self.axis_names) != len(self.shape):
+            raise ValueError(f"{len(self.axis_names)} axis names for {len(self.shape)} axes")
+        self.axis_groups = dict(axis_groups or {})
 
     def __repr__(self) -> str:
-        return (f"ShardMesh(n_shards={self.n_shards}, local={self.local}, "
+        return (f"ShardMesh(n_shards={self.n_shards}, shape={self.shape}, "
+                f"axis_names={self.axis_names}, local={self.local}, "
                 f"devices={[str(d) for d in self.devices]}, "
                 f"distributed={self.group is not None})")
+
+    # ------------------------------------------------------------------
+    # axes
+    # ------------------------------------------------------------------
+
+    def axes(self, axes=None) -> Tuple[int, ...]:
+        """Axis indices, sorted, of None (every axis), a name, an index or
+        a sequence of them."""
+        if axes is None:
+            return tuple(range(len(self.shape)))
+        if isinstance(axes, (str, int)):
+            axes = (axes,)
+        out = sorted({self.axis_names.index(a) if isinstance(a, str) else int(a)
+                      for a in axes})
+        if not out or out[0] < 0 or out[-1] >= len(self.shape):
+            raise ValueError(f"no axes {axes} in a mesh of axes {self.axis_names}")
+        return tuple(out)
+
+    def axis_size(self, axes=None) -> int:
+        return int(np.prod([self.shape[a] for a in self.axes(axes)]))
+
+    def members(self, g: int, axes=None) -> List[int]:
+        """The shards of shard ``g``'s group along ``axes``, row-major."""
+        return axis_members(self.shape, g, self.axes(axes))
+
+    def _process_group(self, axes: Tuple[int, ...]):
+        if len(axes) == len(self.shape):
+            return self.group
+        return self.axis_groups[axes]
 
     # ------------------------------------------------------------------
     # placing data
@@ -85,26 +156,67 @@ class ShardMesh:
     # collectives
     # ------------------------------------------------------------------
 
-    def all_to_all(self, blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Block ``j`` of every shard goes to shard ``j``.
+    def all_to_all(self, blocks: Sequence[torch.Tensor], axes=None) -> List[torch.Tensor]:
+        """Block ``j`` of every shard goes to the ``j``-th shard of its group
+        along ``axes`` (default: every axis, the whole mesh).
 
-        blocks: one ``[n_shards, cap, ...]`` tensor a local shard.  Returns
-        one ``[n_shards, cap, ...]`` tensor a local shard whose row ``i``
-        came from shard ``i``."""
+        blocks: one ``[group size, cap, ...]`` tensor a local shard.
+        Returns one such tensor a local shard whose row ``i`` came from the
+        ``i``-th shard of its group."""
+        axes = self.axes(axes)
         if self.group is not None:
             import torch.distributed as dist
 
             (b,) = blocks
             out = torch.empty_like(b)
-            dist.all_to_all_single(out, b.contiguous(), group=self.group)
+            dist.all_to_all_single(out, b.contiguous(), group=self._process_group(axes))
             return [out]
+        at = {s: i for i, s in enumerate(self.local)}
         out = []
         for j in self.local:
-            dst = torch.empty((self.n_shards, *blocks[0].shape[1:]),
+            group = self.members(j, axes)
+            pos = group.index(j)
+            dst = torch.empty((len(group), *blocks[0].shape[1:]),
                               dtype=blocks[0].dtype, device=self.devices[j])
-            for i, b in enumerate(blocks):
-                dst[i].copy_(b[j])
+            for i, src in enumerate(group):
+                dst[i].copy_(blocks[at[src]][pos])
             out.append(dst)
+        return out
+
+    def ppermute(self, xs: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]],
+                 axes=None) -> List[torch.Tensor]:
+        """Each ``(src, dst)`` pair of ``perm`` (positions in a group along
+        ``axes``) sends the ``src``-th shard's tensor to the ``dst``-th;
+        a shard that no pair sends to gets zeros.  xs: one tensor a local
+        shard, one shape on every shard."""
+        axes = self.axes(axes)
+        perm = [(int(a), int(b)) for a, b in perm]
+        if self.group is not None:
+            import torch.distributed as dist
+
+            (x,) = xs
+            (g,) = self.local
+            size = self.axis_size(axes)
+            pos = self.members(g, axes).index(g)
+            dst = [b for a, b in perm if a == pos]
+            src = [a for a, b in perm if b == pos]
+            flat = x.contiguous().reshape(-1)
+            n = flat.numel()
+            sent = [n if dst and i == dst[0] else 0 for i in range(size)]
+            got = [n if src and i == src[0] else 0 for i in range(size)]
+            out = flat.new_empty(sum(got))
+            dist.all_to_all_single(out, flat if dst else flat[:0], output_split_sizes=got,
+                                   input_split_sizes=sent, group=self._process_group(axes))
+            return [out.reshape(x.shape) if src else torch.zeros_like(x)]
+        at = {s: i for i, s in enumerate(self.local)}
+        out = []
+        for j in self.local:
+            group = self.members(j, axes)
+            src = [a for a, b in perm if b == group.index(j)]
+            if src:
+                out.append(xs[at[group[src[0]]]].to(self.devices[j], copy=True))
+            else:
+                out.append(torch.zeros_like(xs[at[j]]))
         return out
 
     def all_to_all_ragged(self, rows: Sequence[torch.Tensor],
@@ -192,7 +304,9 @@ def _check_devices(devices) -> List[torch.device]:
     return out
 
 
-def make_mesh(n_shards: Optional[int] = None, devices=None) -> ShardMesh:
+def make_mesh(n_shards: Optional[int] = None, devices=None, *,
+              shape: Optional[Sequence[int]] = None,
+              axis_names: Optional[Sequence[str]] = None) -> ShardMesh:
     """A one-process mesh of ``n_shards`` shards.
 
     devices: a device or a list of them.  By default every visible CUDA
@@ -200,8 +314,13 @@ def make_mesh(n_shards: Optional[int] = None, devices=None) -> ShardMesh:
     for, ``devices=["cpu"]``).  ``n_shards`` defaults to the number of
     devices; with fewer shards than devices the first ones are used, with
     more, consecutive shards share a device (shard ``s`` on device
-    ``s * len(devices) // n_shards``).
+    ``s * len(devices) // n_shards``).  shape, axis_names: the mesh's axes
+    (``n_shards`` is then their product; default one axis).
     """
+    if shape is not None:
+        if n_shards is not None and int(n_shards) != int(np.prod(shape)):
+            raise ValueError(f"{n_shards} shards do not make a mesh of shape {tuple(shape)}")
+        n_shards = int(np.prod(shape))
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -214,6 +333,7 @@ def make_mesh(n_shards: Optional[int] = None, devices=None) -> ShardMesh:
     n = len(devices) if n_shards is None else int(n_shards)
     if n < 1:
         raise ValueError(f"n_shards must be >= 1; got {n}")
-    if n <= len(devices):
-        return ShardMesh(devices[:n])
-    return ShardMesh([devices[s * len(devices) // n] for s in range(n)])
+    if n > len(devices):
+        devices = [devices[s * len(devices) // n] for s in range(n)]
+    return ShardMesh(devices[:n], shape=shape, axis_names=axis_names)
+

@@ -44,8 +44,6 @@ HASH_MULT = 2654435761
 # fill of each lane (m-mer, key, read id, stream) at a slot without a record
 FILLS = (MMER_SENTINEL, SENTINEL, SENTINEL, SENTINEL)
 
-NEXT_SLICE = "the second multi-device slice (ROADMAP.md queue 1 item 4)"
-
 
 def owner_of(mmer: torch.Tensor, n_shards: int) -> torch.Tensor:
     """Shard owning a minimizer: ``((mmer * HASH_MULT) mod 2^32 >> 8) % n``."""
@@ -100,12 +98,43 @@ def _check_route_by(route_by: str, parity: bool) -> None:
         )
 
 
+def _place(bucket_s: torch.Tensor, order: torch.Tensor, n_buckets: int, cap: int):
+    """Capacity blocks by bucket.  bucket_s, order: the records' buckets
+    sorted stably and the sort's permutation, so a record's slot in its
+    block is its rank among its bucket's records in input order; buckets
+    >= ``n_buckets`` hold no record.  Returns (source index and flat block
+    slot ``bucket * cap + slot`` of every record that fits, the count of
+    records that do not)."""
+    targets = torch.arange(n_buckets + 1, dtype=torch.int64, device=bucket_s.device)
+    starts = torch.searchsorted(bucket_s, targets, side="left")
+    slot = torch.arange(bucket_s.shape[0], device=bucket_s.device) - starts[bucket_s]
+    routed = bucket_s < n_buckets
+    overflow = ((slot >= cap) & routed).sum()
+    sel = torch.nonzero((slot < cap) & routed).reshape(-1)
+    return order[sel], bucket_s[sel] * cap + slot[sel], overflow
+
+
+def _blocks(lanes, dst, n_buckets: int, cap: int) -> List[torch.Tensor]:
+    """Each lane's values at their flat slots of ``[n_buckets, cap]``
+    blocks, FILLS elsewhere."""
+    blocks = []
+    for lane, fill in zip(lanes, FILLS):
+        buf = lane.new_full((n_buckets * cap,), fill)
+        buf[dst] = lane
+        blocks.append(buf.view(n_buckets, cap))
+    return blocks
+
+
 def _bucketize_records(codes, lengths, read_ids, stream_offset: int, *, k, m, parity,
-                       n_shards, cap, routing="padded", route_by="mmer"):
+                       n_shards, cap, routing="padded", route_by="mmer", n_ici=None):
     """One shard: scan, then owner-sorted staging; no collective.
 
+    n_ici: stage for the first step of two-level routing instead
+    (parallel/two_level.py): the bucket of a record is its owner's
+    coordinate within a slice, ``owner % n_ici``, of ``n_ici`` buckets.
+
     Returns a list that ``_exchange_staged`` consumes:
-      padded: [m-mer, key, read id, stream blocks [n_shards, cap], overflow]
+      padded: [m-mer, key, read id, stream blocks [buckets, cap], overflow]
       ragged: [owner [n] sorted, payload [n, 4] int64 in owner order, 0]
     """
     scan = minimizer.parity_scan if parity else minimizer.fast_scan
@@ -115,7 +144,10 @@ def _bucketize_records(codes, lengths, read_ids, stream_offset: int, *, k, m, pa
     mmer = recs.mmer.reshape(n)
     kmer = recs.kmer.reshape(n)
     dest = key_owner_of(kmer, n_shards) if route_by == "key" else owner_of(mmer, n_shards)
-    owner = torch.where(recs.valid.reshape(n), dest, n_shards)
+    n_buckets = n_shards if n_ici is None else n_ici
+    if n_ici is not None:
+        dest = dest % n_ici
+    owner = torch.where(recs.valid.reshape(n), dest, n_buckets)
     del dest, recs
     # sort by owner, stable: a record's slot in its block is its rank
     # among the records of its owner, in (read, window) order
@@ -127,29 +159,18 @@ def _bucketize_records(codes, lengths, read_ids, stream_offset: int, *, k, m, pa
         payload = torch.stack([mmer[order].to(torch.int64), kmer[order],
                                read_ids[order // n_win], order + stream_offset], dim=1)
         return [owner_s, payload, zero]
-    targets = torch.arange(n_shards + 1, dtype=torch.int64, device=codes.device)
-    starts = torch.searchsorted(owner_s, targets, side="left")
-    slot = torch.arange(n, device=codes.device) - starts[owner_s]
-    routed = owner_s < n_shards
-    overflow = ((slot >= cap) & routed).sum()
-    sel = torch.nonzero((slot < cap) & routed).reshape(-1)
-    src = order[sel]
-    dst = owner_s[sel] * cap + slot[sel]
-    del owner_s, order, slot, routed, sel
+    src, dst, overflow = _place(owner_s, order, n_buckets, cap)
+    del owner_s, order
     lanes = (mmer[src], kmer[src], read_ids[src // n_win], src + stream_offset)
-    blocks = []
-    for lane, fill in zip(lanes, FILLS):
-        buf = lane.new_full((n_shards * cap,), fill)
-        buf[dst] = lane
-        blocks.append(buf.view(n_shards, cap))
-    return [*blocks, overflow + zero]
+    return [*_blocks(lanes, dst, n_buckets, cap), overflow + zero]
 
 
-def _exchange_staged(staged: List[list], *, n_shards, cap, routing, mesh):
+def _exchange_staged(staged: List[list], *, n_shards, cap, routing, mesh, axes=None):
     """The collective half of the routing step.
 
     staged: ``_bucketize_records``' lists, one a local shard.  They are
     consumed: each lane's staging is dropped as soon as it is sent.
+    axes: the mesh axes a padded exchange runs along (default all).
     Returns one list [m-mer, key, read id, stream, overflow] a local
     shard: the records it received (FILLS-padded) and its overflow."""
     if routing == "ragged":
@@ -171,7 +192,7 @@ def _exchange_staged(staged: List[list], *, n_shards, cap, routing, mesh):
         for st in staged:
             blocks.append(st[lane])
             st[lane] = None
-        for dst, got in zip(out, mesh.all_to_all(blocks)):
+        for dst, got in zip(out, mesh.all_to_all(blocks, axes)):
             dst.append(got.reshape(-1))
         del blocks
     for dst, st in zip(out, staged):
@@ -244,9 +265,6 @@ def _check_routing(routing: str, route_by: str, parity: bool) -> None:
     _check_route_by(route_by, parity)
     if route_by == "key" and routing == "two_level":
         raise ValueError("two_level routing routes by minimizer only")
-    if routing == "two_level":
-        raise NotImplementedError(
-            f"routing='two_level' (parallel/two_level.py) is not ported yet: {NEXT_SLICE}")
 
 
 def sharded_count(
@@ -260,8 +278,17 @@ def sharded_count(
     takes its rows onto its device.  routing="ragged" exchanges exact
     record counts under one budget of n_local * slack records a receiver
     instead of a block a (source, destination) pair: the same memory bound,
-    immune to per-pair skew."""
+    immune to per-pair skew.  routing="two_level" routes over a mesh of two
+    or more axes, within each slice and then across slices
+    (parallel/two_level.py); its result equals routing="padded" over the
+    flat mesh of as many shards, row for row."""
     _check_routing(routing, route_by, parity)
+    if routing == "two_level":
+        from genome_assembly_tpu_torch.parallel import two_level
+
+        return two_level.sharded_count_two_level(codes, lengths, read_ids, k=k, m=m,
+                                                 parity=parity, cutoff=cutoff, mesh=mesh,
+                                                 slack=slack)
     n_shards = mesh.n_shards
     batch, max_len = codes.shape
     n_local = batch // n_shards * (max_len - k + 1)
@@ -275,6 +302,7 @@ def sharded_count(
 def sharded_count_batches(
     batches, *, k: int, m: int, parity: bool, cutoff: int, mesh, slack: float = 4.0,
     routing: str = "padded", route_by: str = "mmer", checkpoint_dir: str | None = None,
+    checkpoint_every: int = 1, on_checkpoint=None,
 ) -> ShardedCount:
     """Distributed count over several read batches (any total size).
 
@@ -284,27 +312,59 @@ def sharded_count_batches(
 
     batches: ``io.reads.ReadBatch`` es, all padded to one row count
     (divisible by the mesh size); read ids consecutive across batches.
-    checkpoint_dir (resumable count shards) is not ported yet.
+    checkpoint_dir: resumable count shards (utils/checkpoint.py, the JAX
+    package's files): the records each shard holds are saved every
+    ``checkpoint_every`` exchanged batches and once at the end.  A run that
+    finds a checkpoint there resumes after the batches it covers, on any
+    shard count (records are routed again by their owner hash on load).
+    on_checkpoint(batches_done): called after each save has committed.
     """
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            f"sharded_count_batches(checkpoint_dir=) is not ported yet: {NEXT_SLICE}")
     if routing not in ("padded", "ragged"):
         raise ValueError(f"unknown routing {routing!r}")
     _check_route_by(route_by, parity)
     n_shards = mesh.n_shards
     received, cap, n_local = [], None, None
+    meta, start_batch, done, saved = None, 0, 0, 0
+
+    def save():
+        nonlocal saved
+        from genome_assembly_tpu_torch.utils import checkpoint as ckpt
+
+        ckpt.save_count_shards(checkpoint_dir, [[part[i] for part in received]
+                                                for i in range(len(mesh.local))],
+                               done, meta, mesh=mesh)
+        saved = done
+        if on_checkpoint is not None:
+            on_checkpoint(done)
+
     for bi, b in enumerate(batches):
         codes, lengths, rids = _batch_tensors(b.codes, b.lengths, b.read_ids)
         if n_local is None:
             n_local = codes.shape[0] // n_shards * (codes.shape[1] - k + 1)
             cap = _routing_cap(n_local, n_shards, slack, routing)
+            if checkpoint_dir is not None:
+                from genome_assembly_tpu_torch.utils import checkpoint as ckpt
+
+                meta = {"k": k, "m": m, "parity": parity, "batch_rows": int(codes.shape[0]),
+                        "max_len": int(codes.shape[1]), "route_by": route_by}
+                loaded = ckpt.load_count_shards(checkpoint_dir, mesh=mesh, expect=meta)
+                if loaded is not None:
+                    part, start_batch = loaded
+                    received.append(part)
+                    done = saved = start_batch
+        if bi < start_batch:
+            continue  # its records came with the checkpoint
         # global stream order: batch-major, then shard, then local slot
         received.append(_route_records(
             codes, lengths, rids, bi * n_shards * n_local, k=k, m=m, parity=parity, mesh=mesh,
             cap=cap, routing=routing, route_by=route_by))
+        done += 1
+        if checkpoint_dir is not None and (done - start_batch) % max(checkpoint_every, 1) == 0:
+            save()
     if not received:
         raise ValueError("no batches")
+    if checkpoint_dir is not None and done > saved:
+        save()
     return _count_received(received, cutoff=cutoff, n_local=len(mesh.local))
 
 

@@ -15,13 +15,22 @@ Each worker joins the group (``parallel.distributed.init_multi_host``),
 takes the global mesh (one shard a process) and runs the flat routers on
 a generated read set: ``sharded_count`` with minimizer ownership and padded
 blocks, again with key ownership and the ragged exchange, and
-``FastAssembler.unitigs(reads, mesh=)``.  Rank 0 writes a JSON summary: the
+``FastAssembler.unitigs(reads, mesh=)``; then the two-level router
+(``routing="two_level"``) over the ranks as a ``(procs // 2, 2)`` mesh
+where ``procs`` is even, and as ``(procs // 4, 2, 2)`` where it is a
+multiple of 4 from 8 up: a slice is consecutive ranks, so both axes cross
+processes.  Rank 0 writes a JSON summary: the
 kept-entry count and a content hash over the sorted kept (mmer, kmer,
 count) triples (the JAX package's tools/run_multihost.py hashes the same
-triples) of each count, and the unitig count and a hash of the unitig
+triples) of each count (``two_level_digest``, ``two_level3_digest``: null
+where not run; a worker whose two-level hash differs from the flat one
+fails), and the unitig count and a hash of the unitig
 list.  ``summarize`` computes the same summary over
 any mesh, so a one-process mesh of as many shards gives the result to hold
 the workers' against.
+
+``run_workers`` is the launcher the other process tools share
+(``run_multihost_ckpt.py``, ``run_elastic.py``).
 
 ``--device cuda`` puts rank r on card ``r % device_count``; ``cuda:N``
 puts every rank on card N (gloo only: NCCL needs a card a rank).  The
@@ -60,34 +69,65 @@ def _digest(obj) -> str:
     return hashlib.sha256(json.dumps(obj).encode()).hexdigest()
 
 
+def table_digest(sc, mesh, k: int, m: int):
+    """(kept entries, hash of the sorted kept (mmer, kmer, count) triples)
+    of a sharded count."""
+    table = shard_count.sharded_to_host_dict(sc, k, m, mesh)
+    return len(table), _digest(sorted((mm, kk, len(v)) for (mm, kk), v in table.items()))
+
+
+def two_level_shapes(n: int):
+    """The two-level mesh shapes run over ``n`` shards: ``(n // 2, 2)``
+    where n is even, ``(n // 4, 2, 2)`` where it is a multiple of 4 from 8."""
+    return ((n // 2, 2) if n >= 2 and n % 2 == 0 else None,
+            (n // 4, 2, 2) if n >= 8 and n % 4 == 0 else None)
+
+
 def summarize(mesh, *, genome_len, read_len, coverage, seed, k, m, cutoff,
-              max_read_len) -> dict:
+              max_read_len, two_level=None, two_level3=None) -> dict:
     """The flat counts and the fast-mode unitigs of the generated read set
     over ``mesh``: the overflow of both counts, the kept entries and the
     hash of each count's table (the two must agree), the unitigs and the
-    hash of their list."""
+    hash of their list.  two_level, two_level3: meshes of as many shards
+    with 2 and 3 axes; the two-level count over each must hash as the flat
+    one (AssertionError otherwise)."""
     _, reads, _ = datagen.generate_coverage_reads(
         genome_len=genome_len, read_len=read_len, coverage=coverage, seed=seed,
         with_reverse=True)
     n = mesh.n_shards
     (b,) = reads_io.batch_reads(reads, max_read_len)
     b = reads_io.pad_batch(b, n * -(-b.n // n))
-    digests, overflow = {}, 0
+    tables, overflow = {}, 0
     for routing, route_by in (("padded", "mmer"), ("ragged", "key")):
         sc = shard_count.sharded_count(b.codes, b.lengths, b.read_ids, k=k, m=m, parity=False,
                                        cutoff=cutoff, mesh=mesh, routing=routing,
                                        route_by=route_by)
         overflow += mesh.total(sc.overflow)
-        table = shard_count.sharded_to_host_dict(sc, k, m, mesh)
+        tables[routing] = table_digest(sc, mesh, k, m)
         del sc
-        digests[routing] = _digest(sorted((mm, kk, len(v)) for (mm, kk), v in table.items()))
+    for name, tl_mesh in (("two_level", two_level), ("two_level3", two_level3)):
+        tables[name] = (None, None)
+        if tl_mesh is None:
+            continue
+        sc = shard_count.sharded_count(b.codes, b.lengths, b.read_ids, k=k, m=m, parity=False,
+                                       cutoff=cutoff, mesh=tl_mesh, routing="two_level")
+        tl_overflow = tl_mesh.total(sc.overflow)
+        got = table_digest(sc, tl_mesh, k, m)
+        del sc
+        if tl_overflow or got != tables["padded"]:
+            raise AssertionError(f"the {name} count over {tl_mesh.shape} differs from the "
+                                 f"flat one: {got}, overflow {tl_overflow}")
+        tables[name] = got
     cfg = PipelineConfig(k=k, m=m, parity=False, abundance_cutoff=cutoff,
                          max_read_len=max_read_len)
     device = mesh.devices[mesh.local[0]]
     unitigs, stats = FastAssembler(cfg, device=device).unitigs(reads, mesh=mesh)
-    return dict(shards=n, overflow=overflow, entries=len(table), digest=digests["padded"],
-                ragged_digest=digests["ragged"], n_unitigs=len(unitigs), unitig_digest=_digest(unitigs),
-                entries_post_prune=stats.entries_post_prune, phase_seconds=stats.wall_s)
+    return dict(shards=n, overflow=overflow, entries=tables["padded"][0],
+                digest=tables["padded"][1], ragged_digest=tables["ragged"][1],
+                two_level_digest=tables["two_level"][1],
+                two_level3_digest=tables["two_level3"][1], n_unitigs=len(unitigs),
+                unitig_digest=_digest(unitigs), entries_post_prune=stats.entries_post_prune,
+                phase_seconds=stats.wall_s)
 
 
 def _worker_device(spec: str, rank: int) -> torch.device:
@@ -108,9 +148,12 @@ def worker(args) -> int:
         device=device)
     try:
         mesh = distributed.global_mesh(device)
+        shape2, shape3 = two_level_shapes(world)
+        two_level = {name: distributed.global_mesh(device, shape=shape) if shape else None
+                     for name, shape in (("two_level", shape2), ("two_level3", shape3))}
         backend = dist.get_backend()
         summary = dict(processes=world, backend=backend, device=str(device),
-                       **summarize(mesh, **_dataset(args)))
+                       **summarize(mesh, **_dataset(args), **two_level))
         if rank == 0 and args.out:
             pathlib.Path(args.out).write_text(json.dumps(summary))
     finally:
@@ -128,46 +171,64 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+def run_workers(module: str, procs: int, worker_args, *, timeout: float):
+    """Start ``python -m module *worker_args(rank)`` for every rank, from the
+    repo root with it on PYTHONPATH, and wait.  A worker that fails (a
+    non-zero exit, a signal) or the ``timeout`` stops every worker still
+    running: none is left behind.  Returns (exit codes, the tail of each
+    worker's output, whether the timeout struck)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO_ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(procs)]
+    procs_ = [subprocess.Popen([sys.executable, "-m", module, *worker_args(r)], env=env,
+                               cwd=str(REPO_ROOT), stdout=log, stderr=subprocess.STDOUT)
+              for r, log in enumerate(logs)]
+    deadline = time.monotonic() + timeout
+    timed_out = False
+    try:
+        while any(p.poll() is None for p in procs_) and not any(p.returncode for p in procs_):
+            timed_out = time.monotonic() > deadline
+            if timed_out:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs_:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    tails = []
+    for log in logs:
+        log.seek(0)
+        tails.append(log.read()[-3000:])
+        log.close()
+    return [p.returncode for p in procs_], tails, timed_out
+
+
+def report_failure(rcs, tails, timed_out) -> int:
+    for r, (rc, tail) in enumerate(zip(rcs, tails)):
+        sys.stderr.write(f"--- worker {r} (exit {rc}) ---\n{tail}\n")
+    return 124 if timed_out else 1
+
+
 def launch(args) -> int:
     """Spawn the workers, wait (``--timeout`` seconds), print rank 0's
     summary.  A failed worker or the timeout stops every worker still
     running."""
     port = _free_port()
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(REPO_ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     with tempfile.TemporaryDirectory() as tmp:
         out = args.out or os.path.join(tmp, "summary.json")
-        base = [sys.executable, "-m", "genome_assembly_tpu_torch.tools.run_multihost",
-                "--procs", str(args.procs), "--port", str(port), "--device", args.device,
+        base = ["--procs", str(args.procs), "--port", str(port), "--device", args.device,
                 "--timeout", str(args.timeout), "--out", out]
         if args.backend:
             base += ["--backend", args.backend]
         for name in DATASET:
             base += [f"--{name.replace('_', '-')}", str(getattr(args, name))]
-        logs = [tempfile.TemporaryFile(mode="w+", dir=tmp) for _ in range(args.procs)]
-        procs = [subprocess.Popen(base + ["--worker", str(r)], env=env, stdout=log,
-                                  stderr=subprocess.STDOUT)
-                 for r, log in enumerate(logs)]
-        deadline = time.monotonic() + args.timeout
-        timed_out = False
-        try:
-            while any(p.poll() is None for p in procs) and not any(p.returncode for p in procs):
-                timed_out = time.monotonic() > deadline
-                if timed_out:
-                    break
-                time.sleep(0.1)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        rcs = [p.returncode for p in procs]
+        rcs, tails, timed_out = run_workers(
+            "genome_assembly_tpu_torch.tools.run_multihost", args.procs,
+            lambda r: base + ["--worker", str(r)], timeout=args.timeout)
         if any(rcs):
-            for r, log in enumerate(logs):
-                log.seek(0)
-                sys.stderr.write(f"--- worker {r} (exit {rcs[r]}) ---\n{log.read()[-3000:]}\n")
-            return 124 if timed_out else 1
+            return report_failure(rcs, tails, timed_out)
         print(pathlib.Path(out).read_text(), flush=True)
     return 0
 

@@ -21,7 +21,16 @@ the link array it was taken from).  This package's int64 state ids are
 saved as int32 (the JAX package's single-array jump holds fewer than 2^31
 states too) and read back as int64.
 
-Numpy and json only, plus torch for the fingerprint's two sums.
+Count shards (``save_count_shards``, ``load_count_shards``) are the records
+a distributed count holds after some batches: one ``shard_<g>.npz`` a
+global shard, written by the process that owns it, with the valid records
+only (``mmer``, ``khi``, ``klo`` uint32; ``rid``, ``stream`` uint32 where
+every value fits, int64 past 2^32 - 1; ``ovf`` int64), then
+``manifest.json`` (the commit point: format, shard count, batches done and
+the run's fields), all written through a temporary name and renamed.
+
+Numpy and json only, plus torch for the fingerprint's two sums and the
+count shards' tensors.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from genome_assembly_tpu_torch.common import MASK32
+from genome_assembly_tpu_torch.common import MASK32, MMER_SENTINEL
 from genome_assembly_tpu_torch.config import PipelineConfig
 from genome_assembly_tpu_torch.ops.count import CountedTable
 
@@ -168,3 +177,111 @@ def clear_jump_frontier(dirpath, lanes: int) -> None:
         p = d / name
         if p.exists():
             p.unlink()
+
+
+SHARDED_FORMAT = 1
+
+
+def _barrier(mesh) -> None:
+    if mesh.group is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=mesh.group)
+
+
+def _valid_rows(parts, lane: int) -> np.ndarray:
+    """One lane of a shard's record parts, rows with a record only, on the
+    host (int64)."""
+    out = [p[lane][p[0] != MMER_SENTINEL].to(torch.int64).cpu().numpy() for p in parts]
+    return np.concatenate(out) if out else np.zeros(0, dtype=np.int64)
+
+
+def save_count_shards(dirpath, shards, batches_done: int, meta: dict, *, mesh) -> None:
+    """Checkpoint the records a distributed count holds.
+
+    shards: one list a local shard (in ``mesh.local`` order) of record
+    parts, each ``[mmer, kmer, read id, stream, overflow]`` as
+    ``shard_count.sharded_count_batches`` accumulates them (FILLS rows are
+    dropped).  Each process writes its shards' files; after a barrier the
+    process of shard 0 writes the manifest, and a second barrier returns
+    only once it is committed.  meta: the run's fields (k, m, parity,
+    batch_rows, max_len, route_by), checked on load."""
+    from genome_assembly_tpu_torch import convert
+
+    d = pathlib.Path(dirpath)
+    d.mkdir(parents=True, exist_ok=True)
+    for g, parts in zip(mesh.local, shards):
+        hi, lo = convert.key_to_lanes(_valid_rows(parts, 1))
+        payload = {
+            "mmer": _valid_rows(parts, 0).astype(np.uint32), "khi": hi, "klo": lo,
+            "rid": fits_uint32(_valid_rows(parts, 2)),
+            "stream": fits_uint32(_valid_rows(parts, 3)),
+            "ovf": np.int64(sum(int(p[4]) for p in parts)),
+        }
+        tmp = d / f".shard_{g}.tmp.npz"
+        np.savez(tmp, **payload)
+        os.replace(tmp, d / f"shard_{g}.npz")
+    _barrier(mesh)
+    if 0 in mesh.local:
+        manifest = {"format": SHARDED_FORMAT, "n_shards": mesh.n_shards,
+                    "batches_done": int(batches_done), **meta}
+        tmp = d / ".manifest.tmp.json"
+        tmp.write_text(json.dumps(manifest))
+        os.replace(tmp, d / "manifest.json")
+    _barrier(mesh)
+
+
+def load_count_shards(dirpath, *, mesh, expect: dict):
+    """The count shards saved in ``dirpath`` for this mesh, or None when
+    there is no manifest.
+
+    Returns (one record part a local shard -- ``[mmer, kmer, read id,
+    stream, overflow]`` on the shard's device, every shard padded with
+    FILLS to the longest shard's rows, the overflow total on shard 0 --
+    and the batches done).  A field of ``expect`` that differs from the
+    manifest raises ValueError (an absent ``route_by`` is ``"mmer"``).
+    Saved on another shard count, every record is routed again on the host
+    by the manifest's owner hash."""
+    from genome_assembly_tpu_torch import convert
+    from genome_assembly_tpu_torch.parallel import shard_count
+
+    d = pathlib.Path(dirpath)
+    mpath = d / "manifest.json"
+    if not mpath.exists():
+        return None
+    manifest = json.loads(mpath.read_text())
+    if manifest["format"] != SHARDED_FORMAT:
+        raise ValueError(f"unsupported sharded checkpoint {manifest}")
+    for key, val in expect.items():
+        have = manifest.get(key, "mmer" if key == "route_by" else None)
+        if have != val:
+            raise ValueError(f"checkpoint {d} was written by a different run: "
+                             f"{key}={have!r} != {val!r}")
+    parts, ovf_total = [], 0
+    for g in range(manifest["n_shards"]):
+        data = np.load(d / f"shard_{g}.npz")
+        parts.append([
+            torch.from_numpy(data["mmer"].astype(np.int32)),
+            torch.from_numpy(convert.lanes_to_key(data["khi"], data["klo"])),
+            torch.from_numpy(data["rid"].astype(np.int64)),
+            torch.from_numpy(data["stream"].astype(np.int64)),
+        ])
+        ovf_total += int(data["ovf"])
+    if manifest["n_shards"] != mesh.n_shards:
+        cat = [torch.cat(lane) for lane in zip(*parts)]
+        if manifest.get("route_by", "mmer") == "key":
+            owner = shard_count.key_owner_of(cat[1], mesh.n_shards)
+        else:
+            owner = shard_count.owner_of(cat[0], mesh.n_shards)
+        parts = [[lane[owner == g] for lane in cat] for g in range(mesh.n_shards)]
+    width = max(1, max(p[0].shape[0] for p in parts))
+    out = []
+    for g in mesh.local:
+        lanes = []
+        for lane, fill in zip(parts[g], shard_count.FILLS):
+            buf = lane.new_full((width,), fill)
+            buf[:lane.shape[0]] = lane
+            lanes.append(buf.to(mesh.devices[g]))
+        ovf = torch.tensor(ovf_total if g == 0 else 0, dtype=torch.int64)
+        out.append(lanes + [ovf.to(mesh.devices[g])])
+    return out, int(manifest["batches_done"])

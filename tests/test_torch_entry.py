@@ -60,3 +60,40 @@ def test_entry_runs_on_the_card_unless_asked():
 def test_dryrun_multichip_on_cpu_shards(capsys):
     tentry.dryrun_multichip(4)
     assert "dryrun_multichip ok: 4 CPU shards" in capsys.readouterr().out
+
+
+def test_dryrun_multichip_on_eight_cpu_shards(capsys):
+    """The 8-shard dry run adds what the JAX package's adds: the two-level
+    count over (2, 4) and (2, 2, 2) == the flat one, the halo exchange, and
+    a checkpointed count resumed on half the shards."""
+    tentry.dryrun_multichip(8)
+    out = capsys.readouterr().out
+    assert "dryrun_multichip ok: 8 CPU shards" in out
+    assert "two-level over [(2, 4), (2, 2, 2)] == flat" in out
+    assert "236 haloed windows" in out and "resumed on 4 shards" in out
+
+
+@pytest.mark.parametrize("routing", ["padded", "ragged", "two_level"])
+def test_bench_scaling_prints_the_jax_fields(capsys, routing):
+    """``bench-scaling --cpu``: one JSON line a shard count, 1, 2, 4, with
+    the JAX package's fields (``cli.cmd_bench_scaling`` there)."""
+    import json
+
+    from genome_assembly_tpu_torch import cli
+
+    assert cli.main(["bench-scaling", "--devices", "4", "--routing", routing, "--cpu",
+                     "--batch-reads", "256"]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["shards"] for r in rows] == [1, 2, 4]
+    assert all(set(r) == {"shards", "wall_s", "windows_per_s", "scaling_eff"} for r in rows)
+    assert rows[0]["scaling_eff"] == 1.0
+    assert all(r["wall_s"] > 0 and r["windows_per_s"] == 256 * (128 - 21 + 1) / r["wall_s"]
+               for r in rows)
+
+
+def test_bench_scaling_runs_on_the_card_unless_asked():
+    from genome_assembly_tpu_torch import cli
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["bench-scaling", "--devices", "2"])

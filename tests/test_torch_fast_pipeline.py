@@ -12,6 +12,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from genome_assembly_tpu.config import PipelineConfig as JConfig
 from genome_assembly_tpu.io import datagen as jdatagen
@@ -247,8 +248,8 @@ def test_outofcore_everything_pruned_matches_jax():
     "method", ["unitigs", "unitigs_with_coverage", "unitigs_with_read_ids"])
 def test_mesh_branch_waits(method):
     """The mesh branch runs (a CPU mesh of 4 shards gives the single-device
-    unitigs); what still waits for the next multi-device slice is the
-    two-level routing."""
+    unitigs); the two-level routing, which no pipeline calls, counts the
+    same reads over a (2, 2) mesh as the flat router does, row for row."""
     from genome_assembly_tpu_torch.io import reads as treads
     from genome_assembly_tpu_torch.parallel import mesh as tmesh
     from genome_assembly_tpu_torch.parallel import shard_count
@@ -259,9 +260,13 @@ def test_mesh_branch_waits(method):
     assert sorted(getattr(asm, method)(reads, mesh=mesh)[0]) == sorted(
         getattr(asm, method)(reads)[0])
     (b,) = treads.batch_reads(reads[:8], kw["max_read_len"])
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        shard_count.sharded_count(b.codes, b.lengths, b.read_ids, k=kw["k"], m=kw["m"],
-                                  parity=False, cutoff=1, mesh=mesh, routing="two_level")
+    count = dict(k=kw["k"], m=kw["m"], parity=False, cutoff=1)
+    flat = shard_count.sharded_count(b.codes, b.lengths, b.read_ids, mesh=mesh, **count)
+    two = shard_count.sharded_count(b.codes, b.lengths, b.read_ids, routing="two_level",
+                                    mesh=tmesh.make_mesh(devices=["cpu"], shape=(2, 2)),
+                                    **count)
+    for name in shard_count.ShardedCount._fields:
+        assert all(torch.equal(x, y) for x, y in zip(getattr(flat, name), getattr(two, name)))
 
 
 def test_constructor_checks_match_jax():

@@ -20,6 +20,7 @@ import functools
 import os
 import pathlib
 import subprocess
+import tempfile
 import sys
 
 import numpy as np
@@ -355,8 +356,9 @@ def test_outofcore_nonacgt_equals_in_core():
 # -- what is not ported raises ---------------------------------------------
 
 def test_mesh_raises_not_implemented():
-    """The mesh count runs (a CPU mesh of 4 shards gives the in-core lines);
-    its count-shard checkpoints wait for the next multi-device slice."""
+    """The mesh count runs (a CPU mesh of 4 shards gives the in-core lines),
+    and with count-shard checkpoints its table is the one without; what is
+    not ported still raises."""
     from genome_assembly_tpu_torch.io import reads as treads
     from genome_assembly_tpu_torch.parallel import mesh as tmesh
     from genome_assembly_tpu_torch.parallel import shard_count
@@ -367,9 +369,13 @@ def test_mesh_raises_not_implemented():
     mesh = tmesh.make_mesh(4, devices=["cpu"])
     assert incore.assemble(reads, mesh=mesh)[0] == incore.assemble(reads)[0]
     batches = treads.batch_reads(reads, 32, 64, parity_chars=True)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        shard_count.sharded_count_batches(batches, k=6, m=3, parity=True, cutoff=-1,
-                                          mesh=mesh, checkpoint_dir="count_shards")
+    count = dict(k=6, m=3, parity=True, cutoff=-1, mesh=mesh)
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = shard_count.sharded_count_batches(batches, checkpoint_dir=tmp, **count)
+        assert (pathlib.Path(tmp) / "manifest.json").exists()
+    assert (shard_count.sharded_to_host_dict(saved, 6, 3, mesh)
+            == shard_count.sharded_to_host_dict(
+                shard_count.sharded_count_batches(batches, **count), 6, 3, mesh))
     with pytest.raises(ValueError):
         incore.assemble(reads, engine="rust")
     with pytest.raises(ValueError):

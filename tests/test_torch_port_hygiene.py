@@ -481,3 +481,50 @@ print("OK")
 """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "OK"
+
+
+NEW_MULTI_DEVICE_MODULES = ("parallel/two_level.py", "parallel/halo.py",
+                            "tools/run_multihost_ckpt.py", "tools/run_elastic.py")
+
+
+def test_second_multi_device_modules_import_no_jax():
+    """The two-level router, the halo, the checkpointed runner and the
+    elastic supervisor name no JAX import, and importing them (in a fresh
+    process) pulls in nothing of JAX or the JAX package."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|genome_assembly_tpu)(\.|\s|$)")
+    for rel in NEW_MULTI_DEVICE_MODULES:
+        path = REPO_ROOT / "genome_assembly_tpu_torch" / rel
+        assert [line for line in path.read_text().splitlines() if pattern.match(line)] == [], rel
+    mods = [f"genome_assembly_tpu_torch.{rel[:-3].replace('/', '.')}"
+            for rel in NEW_MULTI_DEVICE_MODULES]
+    r = _run(f"""
+names = all_modules()
+for n in {mods!r}:
+    assert n in names, n
+    importlib.import_module(n)
+assert jax_side() == [], jax_side()
+print("OK")
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "OK"
+
+
+@pytest.mark.parametrize("call", [
+    "two_level.two_level_mesh(2)",
+    "two_level.two_level_mesh3(2, 2, 2)",
+])
+def test_two_level_meshes_default_to_the_card(call):
+    r = _run(f"""
+import os
+import torch
+assert not torch.cuda.is_available()
+from genome_assembly_tpu_torch.parallel import two_level
+try:
+    out = {call}
+except RuntimeError as e:
+    print("RAISED", e)
+else:
+    print("RAN", out)
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("RAISED"), r.stdout

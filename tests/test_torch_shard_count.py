@@ -139,11 +139,11 @@ def test_refusals():
         tsc.sharded_count(b.codes, b.lengths, b.read_ids, parity=True, route_by="key", **kw)
     with pytest.raises(ValueError, match="unknown routing"):
         tsc.sharded_count(b.codes, b.lengths, b.read_ids, parity=False, routing="flat", **kw)
-    with pytest.raises(NotImplementedError, match="second multi-device slice"):
+    with pytest.raises(ValueError, match="slices"):
         tsc.sharded_count(b.codes, b.lengths, b.read_ids, parity=False, routing="two_level",
                           **kw)
-    with pytest.raises(NotImplementedError, match="second multi-device slice"):
-        tsc.sharded_count_batches([b], parity=False, checkpoint_dir="ckpt", **kw)
+    with pytest.raises(ValueError, match="unknown routing"):
+        tsc.sharded_count_batches([b], parity=False, routing="two_level", **kw)
     with pytest.raises(ValueError, match="divide"):
         tsc.sharded_count(b.codes[:6], b.lengths[:6], b.read_ids[:6], parity=False, **kw)
 
