@@ -49,8 +49,15 @@ bucketed materializer) and its chr1 rehearsal at full size, 250 Mb x 30x,
 once a shard; the ragged count of the same reads; ``ParityAssembler`` over
 the mesh on the goldens' input and BASELINE.md's big run; and
 ``tools/run_multihost.py`` over several processes (NCCL, and gloo on one
-card), held against the one-process mesh; and prints one JSON object per
-phase.  Exits non-zero if there is no CUDA device, if the
+card), held against the one-process mesh, launched beside ``mesh2_e2e``'s
+process checks; holds K5, the lane gather of the JAX primitive probe, against
+its plain version and ``torch.gather`` (``kernel_check``) and runs the port's
+probe (``prims``); holds the communication model's exchange matrices to the
+sharded count, the links join and the routed jump on the ecoli reads and
+measures the rates behind its constants (``comm_model``); runs the runner's
+``--ext-mode bulk|part`` at the ecoli preset against each other
+(``ext_modes``); sets the parked-links model's budget beside chr1's measured
+links wall (``scale_chr1``); and prints one JSON object per phase.  Exits non-zero if there is no CUDA device, if the
 package cannot be imported (run it from the root of a checkout) or if any
 phase fails.  Imports nothing of JAX and nothing of the JAX package.  A
 second run in the same checkout reuses the built libraries and their
@@ -102,18 +109,23 @@ try:
     from genome_assembly_tpu_torch.ops import bitonic_sort
     from genome_assembly_tpu_torch.ops import count as count_ops
     from genome_assembly_tpu_torch.ops import dbg
+    from genome_assembly_tpu_torch.ops import lane_gather
+    from genome_assembly_tpu_torch.ops import lane_gather_cuda
     from genome_assembly_tpu_torch.ops import mergepath_cuda
     from genome_assembly_tpu_torch.ops import mergepath_sort
     from genome_assembly_tpu_torch.ops import minimizer
     from genome_assembly_tpu_torch.ops import minimizer_cuda
     from genome_assembly_tpu_torch.ops import outofcore
     from genome_assembly_tpu_torch.ops import superkmer
+    from genome_assembly_tpu_torch.parallel import comm_model
     from genome_assembly_tpu_torch.parallel import mesh as mesh_lib
     from genome_assembly_tpu_torch.parallel import part_dbg
     from genome_assembly_tpu_torch.parallel import shard_count
     from genome_assembly_tpu_torch.parallel import two_level
     from genome_assembly_tpu_torch.parity import nonacgt
     from genome_assembly_tpu_torch.parity import table as parity_table
+    from genome_assembly_tpu_torch.tools import bench_prims
+    from genome_assembly_tpu_torch.tools import bench_scaling_model
     from genome_assembly_tpu_torch.tools import run_multihost
     from genome_assembly_tpu_torch.tools import run_multihost_ckpt
     from genome_assembly_tpu_torch.tools import run_scale
@@ -174,6 +186,10 @@ SCALE_CHR1_ARGS = ["--preset", "chr1", "--super", "--park-keys", "--park-links",
                    "--materialize"]
 CHR1_SLOTS = 7_360_217_088
 CHR1_BATCH = 131072
+# its parked links' plan (every chr1 run's link_pass events): 30 chunks of 2^23
+# nodes, 12 partitions
+CHR1_LINK_CHUNKS = 30
+CHR1_LINK_PARTITIONS = 12
 # the SUB_COUNT_SLOTS that forces the ecoli super partitions into more
 # subranges than the default's (4 partitions of about 4.6 M records: 8
 # chunks of 2^20, 209.7 M expanded slots; 2 subranges at 192 << 20, 5 here)
@@ -281,6 +297,7 @@ def phase_env():
 SCAN_KERNELS = ("fast_scan_kernel",)
 SORT_KERNELS = ("sort_rows_kernel", "chunk_sort_kernel", "big_ce_kernel", "finish_kernel")
 MERGE_KERNELS = ("local_merge_kernel", "merge_pass_kernel", "merge_splits_kernel")
+GATHER_KERNELS = ("lane_gather_kernel",)
 # redesigned for registers: a spill would undo the design
 NO_SPILL_KERNELS = ("fast_scan_kernel", "finish_kernel")
 
@@ -295,9 +312,12 @@ def ptxas_report(log: str, kernels) -> dict:
         if m:
             current = next((k for k in kernels if k in m.group(1)), None)
             if current:
-                instance = re.search(r"^ILi(\d+)E", m.group(1).split(current, 1)[1])
+                rest = m.group(1).split(current, 1)[1]
+                instance = re.search(r"^ILi(\d+)E", rest)
                 if instance:
                     current += f"<{instance.group(1)}>"
+                elif rest.startswith("I"):  # the mangled template arguments
+                    current += f"<{rest[1:rest.index('E')]}>"
                 report[current] = {"static_shared_bytes": 0}
         elif current and "spill stores" in line:
             stores, loads = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
@@ -321,14 +341,16 @@ def phase_build():
     minimizer_cuda._library()
     lib = bitonic_cuda._library()
     mergepath_cuda._library()
-    if sorted(libs) != ["bitonic", "fast_scan", "mergepath"]:
-        raise AssertionError(f"expected three CUDA sources, built {sorted(libs)}")
+    lane_gather_cuda._library()
+    if sorted(libs) != ["bitonic", "fast_scan", "lane_gather", "mergepath"]:
+        raise AssertionError(f"expected four CUDA sources, built {sorted(libs)}")
     # build_log holds what nvcc printed whether it built now or an earlier
     # run did (the log is kept beside each library)
     report = ptxas_report(csrc_build.build_log.get("fast_scan", ""), SCAN_KERNELS)
     report.update(ptxas_report(csrc_build.build_log.get("bitonic", ""), SORT_KERNELS))
     report.update(ptxas_report(csrc_build.build_log.get("mergepath", ""), MERGE_KERNELS))
-    every = SCAN_KERNELS + SORT_KERNELS + MERGE_KERNELS
+    report.update(ptxas_report(csrc_build.build_log.get("lane_gather", ""), GATHER_KERNELS))
+    every = SCAN_KERNELS + SORT_KERNELS + MERGE_KERNELS + GATHER_KERNELS
     if sorted({name.split("<")[0] for name in report}) != sorted(every):
         raise AssertionError(f"ptxas reported {sorted(report)}, expected {every}")
     # what ptxas does not see is the DYNAMIC shared memory: 4.25 bytes a base
@@ -353,7 +375,9 @@ def phase_build():
          finish_shape_at_max_chunk=bitonic_cuda.finish_shape(bitonic_cuda.MAX_SHARED_KEYS),
          max_shared_keys=bitonic_cuda.MAX_SHARED_KEYS,
          max_merge_chunk_keys=mergepath_cuda.MAX_CHUNK_KEYS,
-         max_merge_tile_keys=mergepath_cuda.MAX_TILE_KEYS)
+         max_merge_tile_keys=mergepath_cuda.MAX_TILE_KEYS,
+         lane_gather_max_staged_cols={"int32": lane_gather_cuda.max_staged_cols(4),
+                                      "int64": lane_gather_cuda.max_staged_cols(8)})
     if any(name.split("<")[0] in NO_SPILL_KERNELS for name in spills):
         raise AssertionError(f"spills in {sorted(spills)}")
 
@@ -467,11 +491,96 @@ def phase_kernel_check(device):
             bad()
         except (ValueError, TypeError):
             refused += 1
+    gather = check_lane_gather(rng, device)
     emit("kernel_check", tolerance=0, mismatches=total, max_abs_err=worst,
-         refused_bad_inputs=refused, cases=report)
+         refused_bad_inputs=refused, cases=report, lane_gather=gather)
     if total or refused != 6:
         raise AssertionError(f"kernel_check failed: {total} mismatches, {refused}/6 refusals")
-    return total, worst
+    if gather["mismatches"] or gather["refused_bad_inputs"] != len(LANE_GATHER_REFUSALS):
+        raise AssertionError(f"kernel_check failed for K5: {gather}")
+    return (total, worst), (gather["mismatches"], gather["max_abs_err"])
+
+
+# K5's shapes: the probe's two blocks, the size it is timed at, rows past the
+# widest staged row (direct loads), ragged widths; every pattern of indices
+LANE_GATHER_SHAPES = [((256, 128), torch.int32), ((256, 1024), torch.int32),
+                      ((65536, 1024), torch.int32), ((65536, 1024), torch.int64),
+                      ((1000, 37), torch.int32), ((3, 1), torch.int64),
+                      ((7, 12288), torch.int32), ((7, 12289), torch.int32),
+                      ((9, 6144), torch.int64), ((9, 6145), torch.int64),
+                      ((64, 20000), torch.int64), ((16, 100000), torch.int32)]
+LANE_GATHER_PATTERNS = ("random", "zero", "last", "identity")
+# what the wrapper and the dispatcher must refuse (x, idx) on the card
+LANE_GATHER_REFUSALS = ("cpu", "int32 values int64 indices", "int64 values int32 indices",
+                        "float values", "non-contiguous", "shapes differ", "one axis",
+                        "index -1", "index == cols")
+
+
+def lane_gather_input(gen, shape, dtype, pattern, device):
+    rows, cols = shape
+    info = torch.iinfo(dtype)
+    x = torch.randint(info.min, info.max, shape, dtype=dtype, device=device, generator=gen)
+    if pattern == "random":
+        idx = torch.randint(0, cols, shape, dtype=dtype, device=device, generator=gen)
+    elif pattern == "zero":
+        idx = torch.zeros(shape, dtype=dtype, device=device)
+    elif pattern == "last":
+        idx = torch.full(shape, cols - 1, dtype=dtype, device=device)
+    else:
+        idx = torch.arange(cols, dtype=dtype, device=device).expand(rows, cols).contiguous()
+    return x, idx
+
+
+def check_lane_gather(rng, device):
+    """K5 bit-exact against its plain version and torch.gather at every
+    LANE_GATHER_SHAPES x LANE_GATHER_PATTERNS, through the dispatcher; an
+    index outside its row gives 0 from the bare wrapper; the refusals."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    cases, total, worst = [], 0, 0.0
+    for shape, dtype in LANE_GATHER_SHAPES:
+        for pattern in LANE_GATHER_PATTERNS:
+            x, idx = lane_gather_input(gen, shape, dtype, pattern, device)
+            got = lane_gather.lane_gather(x, idx)
+            mism = 0
+            for want in (lane_gather.lane_gather_plain(x, idx), torch.gather(x, 1, idx.long())):
+                diff = got != want
+                n = int(diff.sum())
+                if n:
+                    worst = max(worst, float((got[diff].double() - want[diff].double()).abs().max()))
+                mism += n
+            total += mism
+            cases.append({"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                          "indices": pattern, "mismatches": mism})
+    x, idx = lane_gather_input(gen, (4, 100), torch.int64, "random", device)
+    idx[1, 7], idx[2, 9] = -1, 100
+    out = lane_gather_cuda.lane_gather_cuda(x, idx)
+    plain = lane_gather.lane_gather_plain(x, idx.clamp(0, 99))
+    inside = torch.ones_like(idx, dtype=torch.bool)
+    inside[1, 7] = inside[2, 9] = False
+    outside_zero = bool((out[~inside] == 0).all()) and bool(torch.equal(out[inside], plain[inside]))
+    x32, i32 = lane_gather_input(gen, (8, 64), torch.int32, "random", device)
+    bad_calls = {
+        "cpu": lambda: lane_gather_cuda.lane_gather_cuda(x32.cpu(), i32.cpu()),
+        "int32 values int64 indices": lambda: lane_gather.lane_gather(x32, i32.long()),
+        "int64 values int32 indices": lambda: lane_gather.lane_gather(x32.long(), i32),
+        "float values": lambda: lane_gather.lane_gather(x32.float(), i32),
+        "non-contiguous": lambda: lane_gather_cuda.lane_gather_cuda(x32[:, ::2], i32[:, ::2]),
+        "shapes differ": lambda: lane_gather.lane_gather(x32, i32[:4]),
+        "one axis": lambda: lane_gather.lane_gather(x32.reshape(-1), i32.reshape(-1)),
+        "index -1": lambda: lane_gather.lane_gather(x32, i32 - i32.max() - 1),
+        "index == cols": lambda: lane_gather.lane_gather(x32, torch.full_like(i32, 64)),
+    }
+    refused = []
+    for name in LANE_GATHER_REFUSALS:
+        try:
+            bad_calls[name]()
+        except (ValueError, TypeError):
+            refused.append(name)
+    torch.cuda.synchronize()
+    return {"tolerance": 0, "mismatches": total + (0 if outside_zero else 1),
+            "max_abs_err": worst, "outside_index_gives_0": outside_zero,
+            "refused_bad_inputs": len(refused), "refused": refused, "cases": cases}
 
 
 def random_keys(gen, n, device, sentinel_share=0.0):
@@ -1165,6 +1274,7 @@ def phase_small_e2e(device):
 
 def reset_launch_counts():
     minimizer_cuda.launch_count = 0
+    lane_gather_cuda.launch_count = 0
     for counts in (bitonic_cuda.launch_count, mergepath_cuda.launch_count):
         for name in counts:
             counts[name] = 0
@@ -1172,7 +1282,7 @@ def reset_launch_counts():
 
 def read_launch_counts():
     return {"fast_scan": minimizer_cuda.launch_count, **bitonic_cuda.launch_count,
-            **mergepath_cuda.launch_count}
+            **mergepath_cuda.launch_count, "lane_gather": lane_gather_cuda.launch_count}
 
 
 def hybrid_pass_counts(n, lib_chunk, chunk):
@@ -1843,9 +1953,15 @@ def phase_mesh_e2e(device, full, parity_runs):
             and big_run["dirty_ragged_equal_parity_dirty"]):
         raise AssertionError(f"mesh_e2e: BASELINE.md's big run over the mesh differs: {big_run}")
 
+    # mesh2_e2e's process launches start beside this phase's: neither times them
     t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ThreadPoolExecutor(1) as pool:
+        mesh2_procs = pool.submit(mesh2_processes, tmp)
+        launched = run_multihost_launches()
+        mesh2_procs = mesh2_procs.result()
+    t_launches = time.perf_counter() - t0
     multihost = []
-    for (procs, backend, spec), got in run_multihost_launches():
+    for (procs, backend, spec), got in launched:
         ref_mesh = mesh_lib.make_mesh(procs, devices=cards if spec == "cuda" else [spec])
         ref = run_multihost.summarize(ref_mesh, **MULTIHOST_DATASET)
         same = {key: got[key] == ref[key] for key in (
@@ -1855,15 +1971,15 @@ def phase_mesh_e2e(device, full, parity_runs):
         if (not all(same.values()) or got["overflow"] or got["processes"] != procs
                 or got["ragged_digest"] != got["digest"]):
             raise AssertionError(f"mesh_e2e: run_multihost differs: {multihost[-1]}")
-    t_multihost = time.perf_counter() - t0
     emit("mesh_e2e", n_shards=MESH_SHARDS, devices=[str(d) for d in devices],
          preset="ecoli", reads=len(reads), window_slots=full["fields"]["window_slots"],
          k1_launches=mesh_k1, k1_on_shard_rows=shard_scans, padded=padded, ragged=ragged,
          parity_goldens=goldens,
          parity_big_run=big_run, multihost_dataset=MULTIHOST_DATASET,
-         multihost=multihost, multihost_seconds=t_multihost)
+         multihost=multihost, process_launches_seconds=t_launches,
+         process_launches_with="mesh2_e2e's, side by side")
     torch.cuda.empty_cache()
-    return mesh_k1, scan_tally, batch
+    return mesh_k1, scan_tally, batch, mesh2_procs
 
 
 def mesh2_reckoning(n_slots, shape, slack=4.0):
@@ -2094,7 +2210,7 @@ def bench_scaling(routing):
     return rows
 
 
-def phase_mesh2_e2e(device, full, batch):
+def phase_mesh2_e2e(device, full, batch, procs):
     """The second multi-device phase: (a) the two-level count of mesh_e2e's
     batch (the ecoli reads as one batch) over (2, 2) and (2, 2, 2) == the
     flat count of as many shards, row for row, every field, K1 once a shard
@@ -2104,7 +2220,8 @@ def phase_mesh2_e2e(device, full, batch):
     == digest; (d) the checkpointed count killed and resumed, and the
     elastic supervisor's 3 -> 2 worlds, each == the uninterrupted count;
     (e) bench-scaling with two_level and padded routing.  Every overflow 0.
-    Returns the K1 launches of the two-level counts and K1's tally against
+    ``procs``: ``mesh2_processes``' results ((c) and (d)), launched beside
+    mesh_e2e's processes.  Returns the K1 launches of the two-level counts and K1's tally against
     its plain version."""
     cards = card_devices()
     counts = [mesh2_count(device, cards, batch, shape) for shape in MESH2_SHAPES]
@@ -2113,10 +2230,6 @@ def phase_mesh2_e2e(device, full, batch):
     torch.cuda.empty_cache()
 
     ref_mesh = mesh_lib.make_mesh(4, devices=[device])
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = mesh2_processes(tmp)
-    procs_s = time.perf_counter() - t0
     mh_ref = run_multihost.summarize(ref_mesh, **MULTIHOST_DATASET, two_level=mesh_lib.make_mesh(
         devices=[device], shape=(2, 2)))
     mh = procs["multihost"]["summary"]
@@ -2145,7 +2258,7 @@ def phase_mesh2_e2e(device, full, batch):
     emit("mesh2_e2e", preset="ecoli", reads=batch.n,
          window_slots=batch.codes.shape[0] * (batch.codes.shape[1] - ecoli_config().k + 1),
          counts=counts, links=links, bench_scaling=bench, processes=procs,
-         processes_seconds=procs_s, ckpt_dataset=CKPT_DATASET, ckpt_batches=len(batches),
+         processes_launched_in="mesh_e2e", ckpt_dataset=CKPT_DATASET, ckpt_batches=len(batches),
          ckpt_reference=list(ckpt_ref), checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"mesh2_e2e: {checks}")
@@ -2153,6 +2266,323 @@ def phase_mesh2_e2e(device, full, batch):
     tally = [x for c in counts for x in c["k1_on_shard_rows"]]
     return (sum(c["two_level"]["k1_launches"] for c in counts),
             (sum(x["mismatches"] for x in tally), max(x["max_abs_err"] for x in tally)))
+
+
+# --------------------------------------------------------------------------
+# the primitive probe, the communication model, the runner's ext modes
+# --------------------------------------------------------------------------
+
+def phase_prims(device):
+    """The port's tools/bench_prims.py in process, on the card: its lines
+    printed as it goes; a lane gather that differs raises there.  Returns
+    K5's launches in it (the counts set to 0 just before, read just after)."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    lines = bench_prims.main([], emit=lambda line: emit(
+        "prims", probe=line["phase"], **{f: v for f, v in line.items() if f != "phase"}))
+    torch.cuda.synchronize()
+    launches = read_launch_counts()
+    emit("prims_done", seconds=time.perf_counter() - t0, launches=launches,
+         probes=[line["phase"] for line in lines])
+    if not launches["lane_gather"] or any(
+            n for name, n in launches.items() if name not in ("lane_gather",)):
+        raise AssertionError(f"prims: launches {launches}, want K5 and no other kernel")
+    return launches["lane_gather"]
+
+
+# the link bandwidths the model is priced with (required arguments: one card
+# cannot measure them): NVLink 4 of an H100 SXM, 450 GB/s each way (NVIDIA's
+# data sheet), and a 400 Gb/s network port a card (NDR InfiniBand)
+NVLINK_BYTES_PER_S = 450e9
+NETWORK_BYTES_PER_S = 50e9
+COPY_BYTES = 1 << 30
+
+
+def measured_rates(device, full, batch):
+    """The single-card rates behind comm_model's H100_* constants, each with
+    its source: the count of mesh_e2e's ecoli batch, full_e2e's links wall,
+    and timings here on the ecoli kept keys (CUDA events, warm medians; host
+    clock for the launch overhead and the copies)."""
+    k = ECOLI["k"]
+    sec = full["fields"]["phase_seconds"]
+    codes = torch.from_numpy(batch.codes).to(device)
+    lengths = torch.from_numpy(batch.lengths).to(device)
+    windows = int((lengths.long() - k + 1).clamp(min=0).sum())
+
+    def count():
+        recs = minimizer.fast_scan(codes, lengths, k=k, m=ECOLI["m"])
+        return count_ops.kept_keys_sorted(count_ops.count_keys(recs, cutoff=ECOLI["cutoff"]))
+    runs = timed_ms_runs(count, reps=5)
+    del codes, lengths
+    torch.cuda.empty_cache()
+    kept = torch.from_numpy(full["kept"]).to(device)
+    n = kept.shape[0]
+    rates = {
+        "count_records_per_s": dict(
+            value=windows / (statistics.median(runs) * 1e-3),
+            per_run=[windows / (ms * 1e-3) for ms in runs],
+            full_e2e_host_walls=full["fields"]["kmers_counted_per_s"],
+            source=f"valid windows ({windows}) / fast_scan + count_keys + kept_keys_sorted "
+                   f"of mesh_e2e's ecoli batch {list(batch.codes.shape)} on one card, "
+                   "CUDA events, median of 5 warm runs"),
+        "link_records_per_s": dict(value=4 * n / sec["links"],
+                                   source="full_e2e: 4 x kept keys / links"),
+    }
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    links = dbg.build_unitig_links_join(kept, valid, k=k)
+    table, _ = dbg._jump_init(links, lanes=3)
+    ms = timed_ms(lambda: dbg._jump_rows(table, table))
+    rates["jump_states_per_s"] = dict(value=links.shape[0] / (ms * 1e-3),
+                                      source="one doubling round (_jump_rows, 3 lanes) over "
+                                             f"full_e2e's {links.shape[0]} states")
+    del table
+    # one chunk of the parked link build at chr1's plan: 2^23 nodes (the ecoli
+    # keys padded as build_unitig_links_parked pads its last chunk), 12 partitions
+    chunk = 1 << 23
+    kc = torch.full((chunk,), SENTINEL, dtype=torch.int64, device=device)
+    kc[:n] = kept
+    vc = torch.arange(chunk, device=device) < n
+    cap_bp, group = outofcore.range_group_plan(CHR1_LINK_CHUNKS, 4 * chunk,
+                                               partitions=CHR1_LINK_PARTITIONS,
+                                               bytes_per_record=12,
+                                               budget_bytes=dbg.LINK_GROUP_BUDGET_BYTES,
+                                               sigma_scale=2.9)
+
+    def extract():
+        key, pay = dbg._chunk_boundary_records(kc, vc, 0, k=k)
+        return outofcore.extract_partition_range3(key, pay, 0, partitions=CHR1_LINK_PARTITIONS,
+                                                  group_size=group, cap_bp=cap_bp)
+    ms = timed_ms(extract, reps=5)
+    rates["extract_rows_per_s"] = dict(value=4 * chunk / (ms * 1e-3),
+                                       source=f"boundary records + extraction of one chunk of "
+                                              f"{chunk} nodes, group {group} of "
+                                              f"{CHR1_LINK_PARTITIONS} partitions")
+    key, pay = dbg._chunk_boundary_records(kept, valid, 0, k=k)
+    ms = timed_ms(lambda: dbg._partition_edges(key, pay), reps=5)
+    rates["join_rows_per_s"] = dict(value=key.shape[0] / (ms * 1e-3),
+                                    source=f"sort-join of full_e2e's {key.shape[0]} link records "
+                                           "as one partition")
+    src, dst = dbg._partition_edges(key, pay)
+    next_state = torch.full((2 * n + 1,), -1, dtype=torch.int64, device=device)
+    ms = timed_ms(lambda: dbg._scatter_edges(next_state, src, dst), reps=5)
+    rates["scatter_rows_per_s"] = dict(value=src.shape[0] / (ms * 1e-3),
+                                       source=f"edge scatter of {src.shape[0]} rows")
+    del key, pay, src, dst, next_state, kc, vc, links
+    # the host's cost of a launch: 2000 small launches, then one synchronise
+    x = torch.zeros(1, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        x.add_(1)
+    rates["launch_s"] = dict(value=(time.perf_counter() - t0) / 2000,
+                             source="host seconds of one launch, 2000 in a row")
+    torch.cuda.synchronize()
+    # copies of 1 GiB: pageable numpy (the parked link build's) and pinned
+    host = np.ones(COPY_BYTES // 8, dtype=np.int64)
+    pinned = torch.empty(COPY_BYTES // 8, dtype=torch.int64).pin_memory()
+    on_card = torch.empty(COPY_BYTES // 8, dtype=torch.int64, device=device)
+
+    def host_timed(fn, reps=3):
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times[1:])
+    for name, fn, what in (
+            ("upload_bytes_per_s", lambda: torch.from_numpy(host).to(device),
+             "pageable numpy -> card (.to)"),
+            ("readback_bytes_per_s", lambda: on_card.cpu(), "card -> pageable (.cpu())"),
+            ("pinned_upload_bytes_per_s", lambda: on_card.copy_(pinned, non_blocking=True),
+             "pinned -> card"),
+            ("pinned_readback_bytes_per_s", lambda: pinned.copy_(on_card, non_blocking=True),
+             "card -> pinned")):
+        rates[name] = dict(value=COPY_BYTES / host_timed(fn), source=f"1 GiB, {what}")
+    del host, pinned, on_card, kept, valid
+    torch.cuda.empty_cache()
+    return rates
+
+
+def phase_comm_model(device, full, batch):
+    """comm_model on the card.  The count matrix of mesh_e2e's ecoli batch
+    over 4 shards (both routings): its column sums == the records each shard
+    received in the padded ``sharded_count``, its row sums == each shard's
+    valid windows (from the read lengths); the links matrix of full_e2e's
+    kept keys: row sums == 4 x each shard's nodes; the jump matrices of
+    their links, whose peak is the routed jump's exact capacity (a slack of
+    that many requests a pair runs clean, one fewer overflows); the rates
+    behind the H100_* constants; bench_scaling_model on its defaults."""
+    t_phase = time.perf_counter()
+    k, m = ECOLI["k"], ECOLI["m"]
+    n_shards = MESH_SHARDS
+    cards = card_devices()
+    devices = cards if len(cards) > 1 else [device]
+    mesh = mesh_lib.make_mesh(n_shards, devices=devices)
+    lengths = torch.from_numpy(batch.lengths.astype(np.int64))
+    windows = (lengths - k + 1).clamp(min=0).reshape(n_shards, -1).sum(dim=1).numpy()
+    out, checks = {}, {}
+    for route_by in ("mmer", "key"):
+        mat, t_mat, mat_peak = timed_call(lambda: comm_model.count_exchange_matrix(
+            batch.codes, batch.lengths, k=k, m=m, n_shards=n_shards, route_by=route_by,
+            device=device))
+        torch.cuda.empty_cache()
+        sc, t_sc, _ = timed_call(lambda: shard_count.sharded_count(
+            batch.codes, batch.lengths, batch.read_ids, k=k, m=m, parity=False, cutoff=1,
+            mesh=mesh, route_by=route_by))
+        received = [int(v.sum()) for v in sc.valid]
+        overflow = mesh.total(sc.overflow)
+        del sc
+        torch.cuda.empty_cache()
+        out[f"count_{route_by}"] = dict(matrix=mat.tolist(), seconds=t_mat, peak_bytes=mat_peak,
+                                        sharded_count_seconds=t_sc, received=received)
+        checks[f"count_{route_by}_columns_equal_received"] = (
+            overflow == 0 and mat.sum(axis=0).tolist() == received)
+        checks[f"count_{route_by}_rows_equal_windows"] = mat.sum(axis=1).tolist() == windows.tolist()
+    kept = torch.from_numpy(full["kept"])
+    n = -(-kept.shape[0] // n_shards) * n_shards
+    kmer = torch.full((n,), SENTINEL, dtype=torch.int64)
+    kmer[:kept.shape[0]] = kept
+    kmer, valid = kmer.to(device), (torch.arange(n) < kept.shape[0]).to(device)
+    lmat, t_lmat, _ = timed_call(lambda: comm_model.links_exchange_matrix(
+        kmer, valid, k=k, n_shards=n_shards))
+    nodes = valid.reshape(n_shards, -1).sum(dim=1).cpu().numpy()
+    checks["links_rows_equal_4_nodes"] = (lmat.sum(axis=1) == 4 * nodes).all() and \
+        int(lmat.sum()) == 4 * int(kept.shape[0])
+    links = dbg.build_unitig_links_join(kmer, valid, k=k)
+    (pred, rounds, final), t_jmat, _ = timed_call(lambda: comm_model.jump_request_matrices(
+        links, n_shards=n_shards))
+    peak = max(int(x.max()) for x in [pred, final, *rounds])
+    rows2 = links.shape[0] // n_shards
+    jump_mesh = mesh_lib.make_mesh(n_shards, devices=devices)
+    shards = jump_mesh.shard_rows(links)
+    overflows = {}
+    for cap in (peak, peak - 1):
+        _, ovf = part_dbg.partitioned_pointer_jump(shards, mesh=jump_mesh,
+                                                   slack=cap * n_shards / rows2)
+        overflows[cap] = jump_mesh.total(ovf)
+    checks["jump_peak_is_the_exact_capacity"] = overflows[peak] == 0 < overflows[peak - 1]
+    checks["jump_rounds"] = len(rounds) == part_dbg.jump_rounds(links.shape[0])
+    out["links"] = dict(matrix=lmat.tolist(), seconds=t_lmat, kept_keys=int(kept.shape[0]))
+    out["jump"] = dict(states=int(links.shape[0]), rounds=len(rounds), seconds=t_jmat,
+                       pred_requests=int(pred.sum()),
+                       round_requests=[int(x.sum()) for x in rounds],
+                       final_requests=int(final.sum()), peak_pair_requests=peak,
+                       overflow_at_peak=overflows[peak], overflow_below=overflows[peak - 1])
+    del kmer, valid, links, shards
+    torch.cuda.empty_cache()
+    rates = measured_rates(device, full, batch)
+    emit("comm_model_rates", card=nvidia_smi_line(), rates=rates)
+    t0 = time.perf_counter()
+    model = bench_scaling_model.main(
+        ["--link-bytes-per-s", str(NVLINK_BYTES_PER_S),
+         "--network-bytes-per-s", str(NETWORK_BYTES_PER_S)],
+        emit=lambda line: emit("bench_scaling_model", **line))
+    out["bench_scaling_model"] = dict(seconds=time.perf_counter() - t0, rows=len(model),
+                                      link_bytes_per_s=NVLINK_BYTES_PER_S,
+                                      network_bytes_per_s=NETWORK_BYTES_PER_S)
+    checks["bench_scaling_model_rows"] = [r["shards"] for r in model] == [8, 16, 64, 256]
+    checks = {name: bool(v) for name, v in checks.items()}
+    emit("comm_model", n_shards=n_shards, reads=batch.n, **out, checks=checks,
+         seconds=time.perf_counter() - t_phase)
+    if not all(checks.values()):
+        raise AssertionError(f"comm_model: {checks}")
+
+
+EXT_MODE_ARGS = ["--preset", SCALE_CHECK_PRESET, "--materialize"]
+
+
+def phase_ext_modes(device):
+    """run_scale.main in process at the ecoli preset with --ext-mode bulk and
+    part (wide is part's alias): part gives bulk's linear unitigs, cyclic
+    states, longest chain and materialized strings (count, total bp),
+    overflows 0."""
+    t_phase = time.perf_counter()
+    runs = {}
+    for mode in ("bulk", "part"):
+        events = []
+        torch.cuda.empty_cache()
+        rc, k1, _, wall = counted(lambda: run_scale.main(
+            EXT_MODE_ARGS + ["--ext-mode", mode], emit_event=events.append))
+        ev = {e["event"]: e for e in events}
+        runs[mode] = dict(
+            exit_code=rc, wall_seconds=wall, k1_launches=k1,
+            extension={f: ev["extension"][f] for f in (
+                "wall_s", "linear_unitigs", "cyclic_states", "longest_chain",
+                "peak_device_bytes")},
+            materialize={f: ev["materialize"][f] for f in ("unitigs", "total_bp", "longest_bp",
+                                                           "wall_s")})
+        if mode != "bulk":
+            runs[mode].update(links={f: ev["links"][f] for f in (
+                "wall_s", "mode", "overflow", "peak_device_bytes")},
+                jump={f: ev["jump"][f] for f in (
+                    "wall_s", "mode", "overflow", "jump_rounds", "peak_device_bytes")})
+    graph = ("linear_unitigs", "cyclic_states", "longest_chain")
+    strings = ("unitigs", "total_bp", "longest_bp")
+    checks = {}
+    for mode in ("part",):
+        r, b = runs[mode], runs["bulk"]
+        checks[f"{mode}_graph_equal_bulk"] = all(
+            r["extension"][f] == b["extension"][f] for f in graph)
+        checks[f"{mode}_strings_equal_bulk"] = all(
+            r["materialize"][f] == b["materialize"][f] for f in strings)
+        checks[f"{mode}_overflow_0"] = r["links"]["overflow"] == r["jump"]["overflow"] == 0
+        checks[f"{mode}_reported_as_{mode}"] = r["links"]["mode"] == r["jump"]["mode"] == mode
+    checks["exit_codes"] = all(r["exit_code"] == 0 for r in runs.values())
+    emit("ext_modes", args=EXT_MODE_ARGS, runs=runs, checks=checks,
+         seconds=time.perf_counter() - t_phase)
+    if not all(checks.values()):
+        raise AssertionError(f"ext_modes: {checks}")
+
+
+# clock cycles of the spin that holds the stream while the probe shapes'
+# launches are queued behind it (about 10 ms at the H100's clocks, far longer
+# than the host takes to queue 50 launches)
+SPIN_CYCLES = 20_000_000
+
+
+def time_lane_gather(device, launches, tally):
+    """K5 at [65536, 1024] int32 (and int64 beside it) and at the probe's
+    shapes, turn about with its plain version; torch.gather (int64 indices:
+    the library takes no other) as the library call.  At the probe's shapes
+    the kernel and the library are also timed queued behind a spin
+    (``device_ms``, ``library_device_ms``): the card's work alone, where
+    ``ms`` and ``library_ms`` are bound by the host's launch path.  Bound:
+    bytes, x and idx read once and out written once."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+
+    def one(shape, dtype, kernel_calls, queued=False):
+        x, idx = lane_gather_input(gen, shape, dtype, "random", device)
+        idx64 = idx.long()
+        kernel = lambda: lane_gather_cuda.lane_gather_cuda(x, idx)  # noqa: E731
+        library = lambda: torch.gather(x, 1, idx64)  # noqa: E731
+        times = turn_about(kernel, lambda: lane_gather.lane_gather_plain(x, idx),
+                           kernel_calls=kernel_calls)
+        times["library_ms"] = timed_ms(library, calls=kernel_calls)
+        if queued:
+            for name, fn in (("device_ms", kernel), ("library_device_ms", library)):
+                times[name] = statistics.median(timed_ms_runs(
+                    fn, calls=kernel_calls, spin_cycles=SPIN_CYCLES))
+        n_bytes = 3 * x.numel() * x.element_size()
+        times.update(shape=list(shape), dtype=str(dtype).split(".")[-1],
+                     bound_ms=n_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+                     bound_bytes_ms=n_bytes / PEAK_BYTES_PER_S * 1e3, bound_operations_ms=0.0)
+        return times
+
+    main = one((65536, 1024), torch.int32, 10)
+    at_int64 = one((65536, 1024), torch.int64, 10)
+    probes = [one((256, cols), torch.int32, 50, queued=True) for cols in (128, 1024)]
+    return {
+        "name": "lane_gather", "route": "cuda",
+        "source": "genome_assembly_tpu_torch/csrc/lane_gather.cu",
+        "replaces": "tools/bench_prims.py:145",
+        "launches": launches, "launches_from": "prims (tools/bench_prims.py on the card)",
+        "max_abs_err": tally[1], "mismatches": tally[0],
+        **main, "kernel_ms": main["ms"], "at_int64": at_int64, "at_probe_shapes": probes,
+    }
 
 
 # --------------------------------------------------------------------------
@@ -2682,12 +3112,17 @@ def phase_scale_chr1(device):
         longest_bp=mat["longest_bp"] == ext["longest_chain"] + (k - 1),
         distinct=sc["kept"] <= sc["distinct"] <= cfg["genome_len"] - k + 1,
         k1_launches=k1 == want_k1,
-        no_sort_kernel=not any(sort_kernel_launches(launches).values()))
+        no_sort_kernel=not any(sort_kernel_launches(launches).values()),
+        links_budget_emitted="links_budget" in ev)
     jump_rounds = [e for e in events if e["event"] == "jump_round"]
     link_passes = [e for e in events if e["event"] == "link_pass"]
     # the link staging cap and the (chunk, partition) shares that passed it
     link_over = [c for e in link_passes for c in e["overflowed_chunks"]]
     healed_links = [e["p"] for e in events if e["event"] == "link_reextract"]
+    budget = ev.get("links_budget", {})
+    checks["links_budget_plan_equals_link_passes"] = (
+        budget.get("n_passes") == len(link_passes)
+        and all(e["chunks"] == budget.get("n_chunks") for e in link_passes))
     link_staging = dict(cap_bp=link_passes[0]["cap_bp"], chunks=link_passes[0]["chunks"],
                         overflowed_chunk_partitions=sum(link_over),
                         partitions_overflowed=sum(c > 0 for c in link_over),
@@ -2704,6 +3139,10 @@ def phase_scale_chr1(device):
          batch_steps_ms=steps, part_saves=len(part_saves),
          part_save_seconds=sum(part_saves), link_staging=link_staging,
          link_partitions=ev["links_parked"]["partitions"], link_passes=len(link_passes),
+         links_budget=budget,
+         links_model_vs_measured=dict(model_t_total_s=budget.get("t_total_s"),
+                                      measured_links_s=ev["links"]["wall_s"],
+                                      measured_self_heal_partitions=len(healed_links)),
          link_pass_seconds=[e["wall_s"] for e in link_passes],
          jump_rounds=len(jump_rounds), jump_round_seconds=sum(e["wall_s"] for e in jump_rounds),
          extension={f: ext[f] for f in ("linear_unitigs", "cyclic_states", "longest_chain")},
@@ -3211,10 +3650,12 @@ def phase_parity_scale(device):
     torch.cuda.empty_cache()
 
 
-def timed_ms(fn, reps=9, warm=2, calls=1):
-    """Median ms of one fn() over `reps` event pairs.  With `calls` > 1 each
-    pair spans that many calls back to back, so that a kernel shorter than
-    its wrapper's host work is timed on the card and not on the host."""
+def timed_ms_runs(fn, reps=9, warm=2, calls=1, spin_cycles=0):
+    """ms of one fn() in each of `reps` event pairs.  With `calls` > 1 each
+    pair spans that many calls back to back.  With `spin_cycles`, a spin
+    kernel of that many clock cycles holds the stream before each pair, so
+    the host queues the calls ahead of the card and the events time the
+    card's work alone, not the host's launch path."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -3222,13 +3663,22 @@ def timed_ms(fn, reps=9, warm=2, calls=1):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if spin_cycles:
+            torch.cuda._sleep(spin_cycles)
         a.record()
         for _ in range(calls):
             fn()
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / calls)
-    return statistics.median(times)
+    return times
+
+
+def timed_ms(fn, reps=9, warm=2, calls=1):
+    """Median ms of one fn() over `reps` event pairs.  With `calls` > 1 each
+    pair spans that many calls back to back, so that a kernel shorter than
+    its wrapper's host work is timed on the card and not on the host."""
+    return statistics.median(timed_ms_runs(fn, reps=reps, warm=warm, calls=calls))
 
 
 def turn_about(kernel, plain, *, kernel_reps=9, plain_reps=5, warm=2, kernel_calls=1):
@@ -4020,7 +4470,8 @@ def main() -> int:
         phase_against(device, args.against)
         return 0
     phase_build()
-    scan_tally = phase_kernel_check(device)
+    scan_tally, gather_tally = phase_kernel_check(device)
+    prims_launches = phase_prims(device)
     phase_small_e2e(device)
     phase_parity_golden(device)
     parity_runs = phase_parity_e2e_and_dirty(device)
@@ -4031,11 +4482,13 @@ def main() -> int:
     tallies.update(phase_merge_check(device))
     hybrid_launches = phase_hybrid_e2e(device, full)
     torch.cuda.empty_cache()
-    mesh_launches, mesh_scan_tally, mesh_batch = phase_mesh_e2e(device, full, parity_runs)
+    mesh_launches, mesh_scan_tally, mesh_batch, mesh2_procs = phase_mesh_e2e(
+        device, full, parity_runs)
     scan_tally = (scan_tally[0] + mesh_scan_tally[0], max(scan_tally[1], mesh_scan_tally[1]))
     del parity_runs
-    mesh2_launches, mesh2_scan_tally = phase_mesh2_e2e(device, full, mesh_batch)
+    mesh2_launches, mesh2_scan_tally = phase_mesh2_e2e(device, full, mesh_batch, mesh2_procs)
     scan_tally = (scan_tally[0] + mesh2_scan_tally[0], max(scan_tally[1], mesh2_scan_tally[1]))
+    phase_comm_model(device, full, mesh_batch)
     del mesh_batch
     phase_ooc_extension(device, full, args.coverage)
     phase_ooc_e2e(device)
@@ -4043,6 +4496,8 @@ def main() -> int:
     phase_parity_ooc_scale(device)
     torch.cuda.empty_cache()
     phase_scale_checks(device)
+    phase_ext_modes(device)
+    torch.cuda.empty_cache()
     chr1_launches = phase_scale_chr1(device)
     n_keys = full["fields"]["window_slots"]
     first_batch, scan_launches = full["first_batch"], full["launches"]["fast_scan"]
@@ -4059,6 +4514,7 @@ def main() -> int:
     kernels += time_merge_kernels(device, tallies, merge_launches, n_keys, real_keys)
     del real_keys
     torch.cuda.empty_cache()
+    kernels.append(time_lane_gather(device, prims_launches, gather_tally))
     phase_chunk_choice(device, n_keys)
     torch.cuda.empty_cache()
     phase_tile_choice(device, n_keys)

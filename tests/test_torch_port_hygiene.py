@@ -51,6 +51,9 @@ for mod in ("mesh", "distributed", "ragged", "shard_count", "part_dbg", "shard_d
 assert pkg.__name__ + ".tools.run_multihost" in names
 for mod in ("entry", "utils.metrics", "utils.profiling", "utils.checkpoint", "utils.plots"):
     assert f"{pkg.__name__}.{mod}" in names, mod
+for mod in ("ops.lane_gather", "ops.lane_gather_cuda", "parallel.comm_model",
+            "tools.bench_prims", "tools.bench_scaling_model"):
+    assert f"{pkg.__name__}.{mod}" in names, mod
 for n in names:
     importlib.import_module(n)
 assert jax_side() == [], jax_side()
@@ -134,6 +137,34 @@ print("OK")
     assert r.stdout.strip() == "OK"
 
 
+def test_lane_gather_binding_is_neither_imported_nor_built_at_package_import():
+    r = _run("""
+import genome_assembly_tpu_torch.tools.bench_prims
+import genome_assembly_tpu_torch.parallel.comm_model
+import genome_assembly_tpu_torch.tools.bench_scaling_model
+from genome_assembly_tpu_torch.ops import lane_gather
+assert "genome_assembly_tpu_torch.ops.lane_gather_cuda" not in sys.modules
+assert "genome_assembly_tpu_torch.csrc.build" not in sys.modules
+# a CPU gather goes through the plain version and imports no binding
+import torch
+x = torch.arange(12, dtype=torch.int32).view(3, 4)
+idx = torch.tensor([[3, 2, 1, 0]] * 3, dtype=torch.int32)
+assert torch.equal(lane_gather.lane_gather(x, idx), x.flip(1))
+assert "genome_assembly_tpu_torch.ops.lane_gather_cuda" not in sys.modules
+from genome_assembly_tpu_torch.ops import lane_gather_cuda
+from genome_assembly_tpu_torch.csrc import build
+assert lane_gather_cuda._lib is None and build._loaded == {}
+assert lane_gather_cuda.launch_count == 0
+try:
+    lane_gather_cuda.lane_gather_cuda(x, idx)
+except ValueError as e:
+    print("RAISED", e)
+assert lane_gather_cuda._lib is None and lane_gather_cuda.launch_count == 0
+""")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("RAISED") and "CUDA" in r.stdout
+
+
 @pytest.mark.parametrize("call", [
     "local_merge_cuda(torch.zeros(64, dtype=torch.int64), [4, 8], chunk=8)",
     "merge_pass_cuda(torch.zeros(64, dtype=torch.int64), torch.zeros(8, dtype=torch.int64), "
@@ -161,7 +192,7 @@ def test_every_cuda_source_has_a_binding_and_no_library_sort():
     ops = REPO_ROOT / "genome_assembly_tpu_torch" / "ops"
     bindings = "".join(p.read_text() for p in ops.glob("*_cuda.py"))
     sources = sorted(csrc.glob("*.cu"))
-    assert [s.stem for s in sources] == ["bitonic", "fast_scan", "mergepath"]
+    assert [s.stem for s in sources] == ["bitonic", "fast_scan", "lane_gather", "mergepath"]
     for source in sources:
         assert f'build.load("{source.stem}")' in bindings
         text = source.read_text()
@@ -182,6 +213,8 @@ def test_every_cuda_source_has_a_binding_and_no_library_sort():
         "sort_rows_kernel", "chunk_sort_kernel", "finish_kernel", "big_ce_kernel"]
     scan = (csrc / "fast_scan.cu").read_text()
     assert re.findall(r"^(\w+_kernel)\(", scan, flags=re.M) == ["fast_scan_kernel"]
+    gather = (csrc / "lane_gather.cu").read_text()
+    assert re.findall(r"^(\w+_kernel)\(", gather, flags=re.M) == ["lane_gather_kernel"]
     # the scan kernel writes `valid` itself; finish takes keys a thread, not threads
     assert "valid_out" in scan.split('extern "C" int fast_scan_launch(', 1)[1].split(")", 1)[0]
     finish = bitonic.split('extern "C" int finish_launch(', 1)[1].split(")", 1)[0]
@@ -315,6 +348,9 @@ else:
     "cli.main(['count', 'tests/golden/input.txt', '--k', '6', '--m', '3'])",
     "cli.main(['assemble', 'tests/golden/input.txt', '--k', '6', '--m', '3', '--metrics', "
     "os.devnull])",
+    "bench_prims.main([])",
+    "bench_scaling_model.main(['--link-bytes-per-s', '1e9', '--network-bytes-per-s', '1e9', "
+    "'--reads', '64', '--shards', '2'])",
 ])
 def test_new_entry_points_default_to_the_card_and_raise_without_one(call):
     r = _run(f"""
@@ -323,6 +359,7 @@ import torch
 assert not torch.cuda.is_available()
 from genome_assembly_tpu_torch import cli, entry
 from genome_assembly_tpu_torch.io import reads, stream
+from genome_assembly_tpu_torch.tools import bench_prims, bench_scaling_model
 batches = reads.batch_reads(["ACGTTGCATGCCGATAGCTAGCTAGGATCGATCGA"] * 4, 64, 2)
 try:
     out = {call}

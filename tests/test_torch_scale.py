@@ -97,6 +97,53 @@ def test_configurations_agree_with_in_core(in_core, extra):
         assert "links_outofcore" in ev
 
 
+def test_partitioned_extension_equals_bulk(in_core):
+    """--ext-mode part (part_dbg's routed join and jump on a one-shard
+    mesh): bulk's graph stats and strings, both overflows 0."""
+    ev = _run("--materialize", "--ext-mode", "part")
+    _invariants(ev)
+    assert ev["links"]["mode"] == ev["jump"]["mode"] == "part"
+    assert ev["links"]["overflow"] == ev["jump"]["overflow"] == 0
+    for name, fields in (("extension", ("linear_unitigs", "cyclic_states", "longest_chain")),
+                         ("materialize", ("unitigs", "total_bp", "longest_bp"))):
+        assert {f: ev[name][f] for f in fields} == {f: in_core[name][f] for f in fields}
+
+
+def test_ext_mode_wide_is_another_name_of_part(monkeypatch):
+    """--ext-mode wide runs part's engine: the port's int64 ids are the JAX
+    package's wide form, so there is no second engine to select."""
+    class Dispatched(Exception):
+        pass
+
+    def partitioned(*args, **kwargs):
+        raise Dispatched
+
+    monkeypatch.setattr(run_scale, "_partitioned_extension", partitioned)
+    with pytest.raises(Dispatched):
+        run_scale.main(["--preset", "small", "--cpu", "--ext-mode", "wide"],
+                       emit_event=lambda e: None)
+
+
+def test_parked_links_emit_the_model_budget_of_the_link_passes():
+    """--park-keys --park-links: a ``links_budget`` event before the build,
+    whose plan (passes, chunks a sweep, partitions) is what the link build's
+    ``link_pass`` / ``link_partition`` events then report."""
+    events = []
+    assert run_scale.main(["--preset", "small", "--cpu", "--park-keys", "--park-links",
+                           "--link-partitions", "3", "--link-chunk", "65536"],
+                          emit_event=events.append) == 0
+    kinds = [e["event"] for e in events]
+    assert kinds.index("links_parked") < kinds.index("links_budget") < kinds.index("link_pass")
+    budget = events[kinds.index("links_budget")]
+    passes = [e for e in events if e["event"] == "link_pass"]
+    parts = [e for e in events if e["event"] == "link_partition"]
+    assert budget["partitions"] == len(parts) == 3
+    assert budget["n_passes"] == len(passes) >= 1
+    assert all(p["chunks"] == budget["n_chunks"] and p["cap_bp"] == budget["cap_bp"]
+               for p in passes)
+    assert budget["chunk_nodes"] == 65536 and budget["t_total_s"] > 0
+
+
 def test_virtual_genome_run_meets_the_invariants():
     ev = _run("--materialize", "--virtual-genome")
     _invariants(ev)
