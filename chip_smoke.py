@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # every phase, needs one CUDA device
     python3 chip_smoke.py --against DIR
-                                     # only: K1, K3c and K4a of this tree and of
-                                     # the copy of csrc/ in DIR (another
-                                     # commit's), in turns
+                                     # only: K1, K3c, K4a and K5 of this tree
+                                     # and of the copy of csrc/ in DIR
+                                     # (another commit's), in turns
 
 Builds the port's CUDA kernels from genome_assembly_tpu_torch/csrc/, holds
 each kernel against its plain tensor version on the card (bit-exact: all
@@ -341,7 +341,7 @@ def phase_build():
     minimizer_cuda._library()
     lib = bitonic_cuda._library()
     mergepath_cuda._library()
-    lane_gather_cuda._library()
+    lane_gather_cuda._load()
     if sorted(libs) != ["bitonic", "fast_scan", "lane_gather", "mergepath"]:
         raise AssertionError(f"expected four CUDA sources, built {sorted(libs)}")
     # build_log holds what nvcc printed whether it built now or an earlier
@@ -367,7 +367,11 @@ def phase_build():
         if lib.finish_shared_launch_bytes(chunk, per_thread) != shared_bytes:
             raise AssertionError(f"finish_shape({chunk}) and finish_launch disagree on shared memory")
     emit("build", seconds=time.perf_counter() - t0,
-         libraries=sorted(str(p.name) for p in libs.values()), ptxas=report,
+         nvcc_seconds=dict(csrc_build.build_seconds),
+         libraries=sorted(str(p.name) for p in libs.values()),
+         operator_libraries=sorted(stem for stem in libs if csrc_build.operator_source(
+             csrc_build.CSRC_DIR / f"{stem}.cu") is not None),
+         ptxas=report,
          replay_engine=engine_lib.name,
          kernels_with_spills=sorted(spills),
          scan_dynamic_shared_bytes_per_base=4.25, finish_dynamic_shared_bytes_per_key=8.5,
@@ -496,7 +500,8 @@ def phase_kernel_check(device):
          refused_bad_inputs=refused, cases=report, lane_gather=gather)
     if total or refused != 6:
         raise AssertionError(f"kernel_check failed: {total} mismatches, {refused}/6 refusals")
-    if gather["mismatches"] or gather["refused_bad_inputs"] != len(LANE_GATHER_REFUSALS):
+    if (gather["mismatches"] or gather["refused_bad_inputs"] != len(LANE_GATHER_REFUSALS)
+            or gather["refusals_launched"]):
         raise AssertionError(f"kernel_check failed for K5: {gather}")
     return (total, worst), (gather["mismatches"], gather["max_abs_err"])
 
@@ -572,15 +577,18 @@ def check_lane_gather(rng, device):
         "index == cols": lambda: lane_gather.lane_gather(x32, torch.full_like(i32, 64)),
     }
     refused = []
+    launched = lane_gather_cuda.launch_count()
     for name in LANE_GATHER_REFUSALS:
         try:
             bad_calls[name]()
         except (ValueError, TypeError):
             refused.append(name)
+    refusals_launched = lane_gather_cuda.launch_count() - launched
     torch.cuda.synchronize()
     return {"tolerance": 0, "mismatches": total + (0 if outside_zero else 1),
             "max_abs_err": worst, "outside_index_gives_0": outside_zero,
-            "refused_bad_inputs": len(refused), "refused": refused, "cases": cases}
+            "refused_bad_inputs": len(refused), "refused": refused,
+            "refusals_launched": refusals_launched, "cases": cases}
 
 
 def random_keys(gen, n, device, sentinel_share=0.0):
@@ -1274,7 +1282,7 @@ def phase_small_e2e(device):
 
 def reset_launch_counts():
     minimizer_cuda.launch_count = 0
-    lane_gather_cuda.launch_count = 0
+    lane_gather_cuda.reset_launch_count()
     for counts in (bitonic_cuda.launch_count, mergepath_cuda.launch_count):
         for name in counts:
             counts[name] = 0
@@ -1282,7 +1290,7 @@ def reset_launch_counts():
 
 def read_launch_counts():
     return {"fast_scan": minimizer_cuda.launch_count, **bitonic_cuda.launch_count,
-            **mergepath_cuda.launch_count, "lane_gather": lane_gather_cuda.launch_count}
+            **mergepath_cuda.launch_count, "lane_gather": lane_gather_cuda.launch_count()}
 
 
 def hybrid_pass_counts(n, lib_chunk, chunk):
@@ -2543,13 +2551,40 @@ def phase_ext_modes(device):
 SPIN_CYCLES = 20_000_000
 
 
+HOST_ROUNDS = 21
+
+
+def host_us(fns, calls, rounds=HOST_ROUNDS, warm=2):
+    """{name: median µs of the host's own work for one call of fns[name]}.
+    A block is `calls` calls of one fn queued behind a spin of SPIN_CYCLES
+    (so the card never holds the host back) with no synchronise inside,
+    timed by the host clock from its first call to the return of its last
+    and divided by `calls`.  Each of `rounds` rounds times one block of
+    every fn in turn, so the host's slow spells fall on all of them."""
+    for fn in fns.values():
+        for _ in range(warm):
+            fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            torch.cuda._sleep(SPIN_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times[name].append((time.perf_counter() - t0) * 1e6 / calls)
+            torch.cuda.synchronize()
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def time_lane_gather(device, launches, tally):
     """K5 at [65536, 1024] int32 (and int64 beside it) and at the probe's
     shapes, turn about with its plain version; torch.gather (int64 indices:
     the library takes no other) as the library call.  At the probe's shapes
     the kernel and the library are also timed queued behind a spin
     (``device_ms``, ``library_device_ms``): the card's work alone, where
-    ``ms`` and ``library_ms`` are bound by the host's launch path.  Bound:
+    ``ms`` and ``library_ms`` are bound by the host's launch path; and the
+    host's own work a call (``host_us``, ``library_host_us``).  Bound:
     bytes, x and idx read once and out written once."""
     gen = torch.Generator(device=device)
     gen.manual_seed(13)
@@ -2566,6 +2601,9 @@ def time_lane_gather(device, launches, tally):
             for name, fn in (("device_ms", kernel), ("library_device_ms", library)):
                 times[name] = statistics.median(timed_ms_runs(
                     fn, calls=kernel_calls, spin_cycles=SPIN_CYCLES))
+            host = host_us({"wrapper": kernel, "library": library}, kernel_calls)
+            times.update(host_us=host["wrapper"], library_host_us=host["library"],
+                         host_rounds=HOST_ROUNDS)
         n_bytes = 3 * x.numel() * x.element_size()
         times.update(shape=list(shape), dtype=str(dtype).split(".")[-1],
                      bound_ms=n_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -2578,6 +2616,8 @@ def time_lane_gather(device, launches, tally):
     return {
         "name": "lane_gather", "route": "cuda",
         "source": "genome_assembly_tpu_torch/csrc/lane_gather.cu",
+        "host_path": "torch operator ga_torch::lane_gather",
+        "host_source": "genome_assembly_tpu_torch/csrc/lane_gather_op.cpp",
         "replaces": "tools/bench_prims.py:145",
         "launches": launches, "launches_from": "prims (tools/bench_prims.py on the card)",
         "max_abs_err": tally[1], "mismatches": tally[0],
@@ -4336,13 +4376,18 @@ def phase_rows_choice(device):
 def load_libraries(csrc_dir):
     """{stem: library} built from the sources in `csrc_dir`, beside this
     tree's in the build directory (a library is named by its sources'
-    hash), with the argument types of the three launchers timed against
-    another commit's."""
+    hash), with the argument types of the launchers timed against another
+    commit's: those of K1, K3c and K4a, and K5's where its source is a plain
+    C library (before its launch became a torch operator)."""
     before = csrc_build.CSRC_DIR, dict(csrc_build._loaded)
     csrc_build.CSRC_DIR = pathlib.Path(csrc_dir).resolve()
     csrc_build._loaded.clear()
+    stems = ["fast_scan", "bitonic", "mergepath"]
+    gather_source = csrc_build.CSRC_DIR / "lane_gather.cu"
+    if gather_source.exists() and csrc_build.operator_source(gather_source) is None:
+        stems.append("lane_gather")
     try:
-        libs = {stem: csrc_build.load(stem) for stem in ("fast_scan", "bitonic", "mergepath")}
+        libs = {stem: csrc_build.load(stem) for stem in stems}
     finally:
         csrc_build.CSRC_DIR, loaded = before
         csrc_build._loaded.clear()
@@ -4355,6 +4400,8 @@ def load_libraries(csrc_dir):
         [ptr] * (5 if scan_writes_valid else 4) + [i32] * 4 + [ptr])
     libs["bitonic"].finish_launch.argtypes = [ptr, ptr, i64, i32, u64, i32, ptr]
     libs["mergepath"].local_merge_launch.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr]
+    if "lane_gather" in libs:
+        libs["lane_gather"].lane_gather_launch.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, ptr]
     # the last int of finish_launch was the threads of a block before it was
     # the keys a thread (the stage-by-stage kernel ran 1024 threads a block)
     finish_per_thread = bitonic_cuda.finish_shape(bitonic_cuda.MAX_SHARED_KEYS)[1]
@@ -4363,16 +4410,47 @@ def load_libraries(csrc_dir):
     return libs, scan_writes_valid, finish_last
 
 
+def ctypes_lane_gather(lib):
+    """K5 through a plain C library, with the host path the port had before
+    its launch became a torch operator: the checks, the output, the data
+    pointers and the raw stream in Python, the arguments converted by ctypes,
+    and a launcher that takes the card and sets it and reads its
+    multiprocessors itself."""
+    def gather(x, idx):
+        lane_gather.check(x, idx)
+        if not x.is_cuda:
+            raise ValueError("lane_gather needs CUDA tensors")
+        if not (x.is_contiguous() and idx.is_contiguous()):
+            raise ValueError("lane_gather needs contiguous tensors")
+        rows, cols = x.shape
+        card = x.device.index
+        out = torch.empty_like(x)
+        err = lib.lane_gather_launch(x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols,
+                                     x.element_size(), card,
+                                     torch._C._cuda_getCurrentRawStream(card))
+        if err != 0:
+            raise RuntimeError(f"lane_gather kernel launch failed: cudaError {err}")
+        return out
+    return gather
+
+
 def phase_against(device, other_csrc):
-    """K1, K3c and K4a of this tree beside those of another copy of csrc/
+    """K1, K3c, K4a and K5 of this tree beside those of another copy of csrc/
     (another commit's, say ``git archive <commit> genome_assembly_tpu_torch/csrc``
-    unpacked somewhere), on one card in one process, each launched through its
-    C launcher: K1 on the first batch of the ecoli reads, K3c on 2^28 keys at
+    unpacked somewhere), on one card in one process, in the order other,
+    this, this, other.  K1, K3c and K4a are launched through their C
+    launchers: K1 on the first batch of the ecoli reads, K3c on 2^28 keys at
     level 2^28 in chunks of 2^14, K4a on 2^28 keys in chunks of 2^14 from
-    single keys and from runs of 2^10, in the order other, this, this, other.
-    Every result is held: K1's m-mers and keys (and `valid`, where the
-    launcher writes it) against fast_scan_plain, K3c against finish_plain, K4a
-    against the library's sort of every chunk."""
+    single keys and from runs of 2^10.  K5 is launched as a user calls it:
+    this tree's through its torch operator, the other's (where its source
+    is a plain C library) through ``ctypes_lane_gather``, at the probe's
+    shapes and at [65536, 1024] int32, with ``ms``, ``device_ms`` and
+    ``host_us`` as ``time_lane_gather`` takes them, and this tree's host
+    time split (the OpOverload, the C++ callable under it, and the
+    ``empty_like`` inside it) timed in the same rounds.  Every result is held:
+    K1's m-mers and keys (and `valid`, where the launcher writes it) against
+    fast_scan_plain, K3c against finish_plain, K4a against the library's
+    sort of every chunk, K5 against torch.gather."""
     libs = {"other": load_libraries(other_csrc), "this": load_libraries(csrc_build.CSRC_DIR)}
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     t, runs = Tally(), []
@@ -4445,7 +4523,43 @@ def phase_against(device, other_csrc):
 
         turns("local_merge", local_merge, lambda name: t.hold(out, want), n_keys=key.shape[0],
               chunk=chunk, base_run=base_run)
-    emit("against", other_csrc=str(other_csrc), runs=runs, **t.report())
+    del key, out, want, state
+
+    # K5
+    other_gather = libs["other"][0].get("lane_gather")
+    gathers = {"this": lane_gather_cuda.lane_gather_cuda}
+    if other_gather is not None:
+        gathers["other"] = ctypes_lane_gather(other_gather)
+    gather_host_us = []
+    for shape, calls in (((256, 128), 50), ((256, 1024), 50), ((65536, 1024), 10)):
+        x, idx = lane_gather_input(gen, shape, torch.int32, "random", device)
+        want = torch.gather(x, 1, idx.long())
+        for name in ("other", "this", "this", "other"):
+            if name not in gathers:
+                continue
+            fn = gathers[name]
+            t.hold(fn(x, idx), want)
+            run = lambda: fn(x, idx)  # noqa: E731
+            runs.append({
+                "kernel": "lane_gather", "csrc": name, "shape": list(shape),
+                "host_path": "torch operator" if name == "this" else "ctypes",
+                "ms": timed_ms(run, calls=calls),
+                "device_ms": statistics.median(timed_ms_runs(run, calls=calls,
+                                                             spin_cycles=SPIN_CYCLES))})
+        # where this tree's host time goes: the wrapper (a Python frame)
+        # calls the OpOverload (a Python frame), which calls the C++ callable
+        # (arguments boxed, the dispatcher, the operator's host path, in
+        # which empty_like is one more dispatch and the allocator)
+        op = torch.ops.ga_torch.lane_gather.default
+        split = {"op_overload": lambda: op(x, idx), "cpp_callable": lambda: op._op(x, idx),
+                 "empty_like": lambda: torch.empty_like(x)}
+        gather_host_us.append({"shape": list(shape), "rounds": HOST_ROUNDS, **host_us(
+            {**{name: (lambda fn=fn: fn(x, idx)) for name, fn in gathers.items()}, **split},
+            calls)})
+    emit("against", other_csrc=str(other_csrc), runs=runs, lane_gather_host_us=gather_host_us,
+         lane_gather_other="ctypes" if other_gather is not None else
+         "not run: the other tree's K5 is an operator library too (one a process)",
+         **t.report())
     if t.mismatches:
         raise AssertionError(f"against: {t.mismatches} mismatches")
 
@@ -4456,8 +4570,9 @@ def main() -> int:
                     help="coverage of the ecoli read set of full_e2e and hybrid_e2e "
                          "(the preset's is 50)")
     ap.add_argument("--against", metavar="DIR",
-                    help="only time fast_scan, finish and local_merge of this tree against "
-                         "those of the copy of genome_assembly_tpu_torch/csrc/ in DIR, in turns")
+                    help="only time fast_scan, finish, local_merge and lane_gather of this tree "
+                         "against those of the copy of genome_assembly_tpu_torch/csrc/ in DIR, "
+                         "in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",

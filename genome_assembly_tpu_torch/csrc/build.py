@@ -5,13 +5,24 @@ Every ``*.cu`` here has a plain C interface (no PyTorch headers), so one
 same time.  Libraries go to ``genome_assembly_tpu_torch/build/`` (not
 tracked by git), named by the hash of their source and of every header
 (``*.cuh``) of this directory, so an edited source or header is rebuilt and
-an unchanged one is reused.  They are loaded with ctypes.  What nvcc printed
-(ptxas's registers, shared memory and spills: every build asks for them) is
-kept beside each library as ``lib<stem>-<hash>.log`` and read back into
-``build_log`` when the library is reused.
+an unchanged one is reused.  What nvcc printed (ptxas's registers, shared
+memory and spills: every build asks for them) is kept beside each library as
+``lib<stem>-<hash>.log`` and read back into ``build_log`` when the library
+is reused.
 
-Nothing here runs at import: the first kernel launch calls ``load``.
-A failed build raises; there is no other route to the kernel's function.
+Two routes:
+
+* a source alone is a plain C library, loaded with ctypes (``load``);
+* a source with a torch host file beside it, ``<stem>_op.cpp``, is a torch
+  operator library: the same nvcc call compiles both files, the ``.cpp``
+  against torch's headers with torch's C++ ABI, and links torch's libraries
+  (``load_operators``, which calls ``torch.ops.load_library`` once a
+  process).  Its name also hashes the ``.cpp`` and torch's and CUDA's
+  versions, so a torch upgrade rebuilds it.
+
+Nothing here runs at import: the first kernel launch calls ``load`` or
+``load_operators``.  A failed build raises; there is no other route to the
+kernel's function.
 """
 
 from __future__ import annotations
@@ -22,7 +33,10 @@ import os
 import pathlib
 import shutil
 import subprocess
-from typing import Dict
+import time
+from typing import Dict, List, Optional
+
+import torch
 
 CSRC_DIR = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR.parent / "build"
@@ -31,11 +45,18 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
+# what an operator library links besides its inputs
+OPERATOR_LIBS = ["-lc10", "-lc10_cuda", "-ltorch", "-ltorch_cpu", "-ltorch_cuda", "-lcudart"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# {source stem: operator library loaded into torch.ops}
+_operators: Dict[str, pathlib.Path] = {}
 
 # {source stem: what nvcc printed when it built the library in use}
 build_log: Dict[str, str] = {}
+# {source stem: seconds from the start of this process's build until its nvcc
+# ended (all start together); only the sources this process built}
+build_seconds: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -56,15 +77,60 @@ def nvcc_path() -> str:
     )
 
 
+def operator_source(source: pathlib.Path) -> Optional[pathlib.Path]:
+    """The torch host file of ``source`` (``<stem>_op.cpp`` beside it), if it
+    has one: then the source is built as a torch operator library."""
+    host = source.with_name(f"{source.stem}_op.cpp")
+    return host if host.exists() else None
+
+
+def operator_flags(nvcc: str) -> List[str]:
+    """What an operator library adds to ``NVCC_FLAGS`` before its inputs:
+    torch's C++ ABI, torch's headers and CUDA's."""
+    from torch.utils import cpp_extension
+
+    cuda_include = pathlib.Path(nvcc).resolve().parent.parent / "include"
+    return [f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+            *(f"-I{d}" for d in cpp_extension.include_paths()), f"-I{cuda_include}"]
+
+
+def operator_link_flags(nvcc: str) -> List[str]:
+    """What an operator library links after its inputs: torch's libraries,
+    found at run time through an rpath, and the shared CUDA runtime torch
+    uses."""
+    from torch.utils import cpp_extension
+
+    cuda_lib = pathlib.Path(nvcc).resolve().parent.parent / "lib64"
+    dirs = [*cpp_extension.library_paths(), str(cuda_lib)]
+    rpaths = [arg for d in dirs for arg in ("-Xlinker", f"-rpath,{d}")]
+    return ["-cudart", "shared", *(f"-L{d}" for d in dirs), *rpaths, *OPERATOR_LIBS]
+
+
 def _library_path(source: pathlib.Path) -> pathlib.Path:
     """Where the library of ``source`` goes: named by the hash of the source,
     of every header beside it (any source may include any of them) and of the
-    compiler's flags."""
+    compiler's flags; for an operator library also of its host file and of
+    torch's version, CUDA version and C++ ABI."""
     digest = hashlib.sha1(source.read_bytes())
     for header in sorted(source.parent.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
+    host = operator_source(source)
+    if host is not None:
+        digest.update(host.read_bytes())
+        digest.update(f"{torch.__version__} {torch.version.cuda} "
+                      f"{torch._C._GLIBCXX_USE_CXX11_ABI} {' '.join(OPERATOR_LIBS)}".encode())
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:12]}.so"
+
+
+def nvcc_command(nvcc: str, source: pathlib.Path, output: pathlib.Path) -> List[str]:
+    """The one nvcc call that builds ``source`` (and its torch host file, if
+    it has one) into ``output``."""
+    host = operator_source(source)
+    if host is None:
+        return [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(output), str(source)]
+    return [nvcc, *NVCC_FLAGS, *operator_flags(nvcc), "-Xptxas", "-v", "-o", str(output),
+            str(source), str(host), *operator_link_flags(nvcc)]
 
 
 def _log_path(library: pathlib.Path) -> pathlib.Path:
@@ -83,9 +149,10 @@ def build_all(verbose: bool = False) -> Dict[str, pathlib.Path]:
         nvcc = nvcc_path()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = []
+        t0 = time.perf_counter()
         for s in todo:
             tmp = targets[s.stem].with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(s)]
+            cmd = nvcc_command(nvcc, s, tmp)
             procs.append(
                 (s, tmp, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -94,6 +161,7 @@ def build_all(verbose: bool = False) -> Dict[str, pathlib.Path]:
         failures = []
         for s, tmp, p in procs:
             out, _ = p.communicate()
+            build_seconds[s.stem] = time.perf_counter() - t0
             if p.returncode != 0:
                 failures.append(f"{s.name}: nvcc exited {p.returncode}\n{out}")
                 continue
@@ -112,13 +180,33 @@ def build_all(verbose: bool = False) -> Dict[str, pathlib.Path]:
     return targets
 
 
+def _target(name: str, operators: bool) -> pathlib.Path:
+    source = CSRC_DIR / f"{name}.cu"
+    if not source.exists():
+        raise KeyError(f"no CUDA source {name}.cu in {CSRC_DIR}")
+    if (operator_source(source) is not None) != operators:
+        raise KeyError(f"{name}.cu in {CSRC_DIR} is " + (
+            "no operator library" if operators else "an operator library: use load_operators"))
+    return build_all()[name]
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The library built from ``<name>.cu``, building it first if needed."""
+    """The plain C library built from ``<name>.cu``, building it first if
+    needed."""
     lib = _loaded.get(name)
     if lib is None:
-        targets = build_all()
-        if name not in targets:
-            raise KeyError(f"no CUDA source {name}.cu in {CSRC_DIR}")
-        lib = ctypes.CDLL(str(targets[name]))
+        lib = ctypes.CDLL(str(_target(name, operators=False)))
         _loaded[name] = lib
     return lib
+
+
+def load_operators(name: str) -> pathlib.Path:
+    """Load the operator library built from ``<name>.cu`` and
+    ``<name>_op.cpp`` into ``torch.ops``, building it first if needed; once
+    a process (a second load would register its operators again)."""
+    path = _operators.get(name)
+    if path is None:
+        path = _target(name, operators=True)
+        torch.ops.load_library(str(path))
+        _operators[name] = path
+    return path

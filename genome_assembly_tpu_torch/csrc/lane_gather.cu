@@ -114,32 +114,20 @@ extern "C" long long lane_gather_max_staged_cols(int elem_bytes) {
   return elem_bytes > 0 ? kMaxStagedBytes / elem_bytes : 0;
 }
 
-// out[r, c] = x[r, idx[r, c]] over [rows, cols] contiguous arrays on card
-// `device`; elem_bytes 4 (int32 values, int32 indices) or 8 (int64 values,
-// int64 indices); `stream` a stream of that card.  The calling thread's
-// current card is made `device` for the launch and restored after it.
-// Returns a cudaError_t (0: launched).
+// out[r, c] = x[r, idx[r, c]] over [rows, cols] contiguous arrays on the
+// calling thread's current card, which has `sms` multiprocessors; elem_bytes
+// 4 (int32 values, int32 indices) or 8 (int64 values, int64 indices);
+// `stream` a stream of that card.  The caller (lane_gather_op.cpp) makes the
+// card current and reads its multiprocessors once.  Returns a cudaError_t
+// (0: launched).
 extern "C" int lane_gather_launch(const void* x, const void* idx, void* out, long long rows,
-                                  int cols, int elem_bytes, int device, void* stream) {
-  if (rows < 1 || cols < 1 || (elem_bytes != 4 && elem_bytes != 8)) {
+                                  int cols, int elem_bytes, int sms, void* stream) {
+  if (rows < 1 || cols < 1 || sms < 1 || (elem_bytes != 4 && elem_bytes != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int current = 0;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
-  int sms = 0;
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    err = elem_bytes == 4
-        ? launch<int32_t, int32_t>(x, idx, out, rows, cols, sms, st)
-        : launch<long long, long long>(x, idx, out, rows, cols, sms, st);
-  }
-  if (current != device) {
-    const cudaError_t back = cudaSetDevice(current);
-    if (err == cudaSuccess) err = back;
-  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = elem_bytes == 4
+      ? launch<int32_t, int32_t>(x, idx, out, rows, cols, sms, st)
+      : launch<long long, long long>(x, idx, out, rows, cols, sms, st);
   return static_cast<int>(err);
 }

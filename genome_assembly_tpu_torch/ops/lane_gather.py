@@ -3,9 +3,10 @@
 The JAX package computes it in one TPU kernel, the ``gk`` probe of its
 ``tools/bench_prims.py`` (``take_along_axis`` along the rows of a block in
 VMEM); no pipeline of either package uses it.  ``lane_gather`` sends a CUDA
-tensor to the hand-written kernel (ops/lane_gather_cuda.py,
-csrc/lane_gather.cu) and a CPU tensor to ``lane_gather_plain``; there is no
-other route and no fallback between the two.
+tensor to the hand-written kernel (ops/lane_gather_cuda.py, a torch
+operator built from csrc/lane_gather.cu and csrc/lane_gather_op.cpp) and a
+CPU tensor to ``lane_gather_plain``; there is no other route and no fallback
+between the two.
 
 Takes 32-bit values with int32 indices (the probe's uint32 bits held in
 int32) or int64 values with int64 indices (the port's keys), both
@@ -61,5 +62,5 @@ def lane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         from genome_assembly_tpu_torch.ops import lane_gather_cuda
 
-        return lane_gather_cuda.lane_gather_cuda(x, idx, checked=True)
+        return lane_gather_cuda.lane_gather_cuda(x, idx)
     return lane_gather_plain(x, idx)

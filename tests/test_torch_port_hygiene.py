@@ -139,27 +139,41 @@ print("OK")
 
 def test_lane_gather_binding_is_neither_imported_nor_built_at_package_import():
     r = _run("""
+import torch
+
+def operators():
+    # what is registered under the operator library's namespace, and the
+    # libraries torch.ops has loaded
+    return ([n for n in torch._C._dispatch_get_all_op_names() if n.startswith("ga_torch::")],
+            sorted(torch.ops.loaded_libraries))
+
 import genome_assembly_tpu_torch.tools.bench_prims
 import genome_assembly_tpu_torch.parallel.comm_model
 import genome_assembly_tpu_torch.tools.bench_scaling_model
 from genome_assembly_tpu_torch.ops import lane_gather
 assert "genome_assembly_tpu_torch.ops.lane_gather_cuda" not in sys.modules
 assert "genome_assembly_tpu_torch.csrc.build" not in sys.modules
+assert operators() == ([], []), operators()
 # a CPU gather goes through the plain version and imports no binding
-import torch
 x = torch.arange(12, dtype=torch.int32).view(3, 4)
 idx = torch.tensor([[3, 2, 1, 0]] * 3, dtype=torch.int32)
 assert torch.equal(lane_gather.lane_gather(x, idx), x.flip(1))
 assert "genome_assembly_tpu_torch.ops.lane_gather_cuda" not in sys.modules
 from genome_assembly_tpu_torch.ops import lane_gather_cuda
 from genome_assembly_tpu_torch.csrc import build
-assert lane_gather_cuda._lib is None and build._loaded == {}
-assert lane_gather_cuda.launch_count == 0
+assert lane_gather_cuda._op is None and build._loaded == {} and build._operators == {}
+assert lane_gather_cuda.launch_count() == 0
 try:
     lane_gather_cuda.lane_gather_cuda(x, idx)
 except ValueError as e:
     print("RAISED", e)
-assert lane_gather_cuda._lib is None and lane_gather_cuda.launch_count == 0
+# refused before anything was built or loaded
+assert lane_gather_cuda._op is None and lane_gather_cuda.launch_count() == 0
+assert build._operators == {} and operators() == ([], []), operators()
+# importing every other module of the package loads no operator library either
+for n in all_modules():
+    importlib.import_module(n)
+assert build._operators == {} and operators() == ([], []), operators()
 """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("RAISED") and "CUDA" in r.stdout
@@ -193,18 +207,43 @@ def test_every_cuda_source_has_a_binding_and_no_library_sort():
     bindings = "".join(p.read_text() for p in ops.glob("*_cuda.py"))
     sources = sorted(csrc.glob("*.cu"))
     assert [s.stem for s in sources] == ["bitonic", "fast_scan", "lane_gather", "mergepath"]
+    # a torch host file beside a source makes it an operator library
+    assert sorted(p.name for p in csrc.glob("*.cpp")) == ["lane_gather_op.cpp"]
     for source in sources:
-        assert f'build.load("{source.stem}")' in bindings
+        host = csrc / f"{source.stem}_op.cpp"
+        if host.exists():
+            assert f'build.load_operators("{source.stem}")' in bindings
+            assert f'build.load("{source.stem}")' not in bindings
+            callers = host.read_text()
+        else:
+            assert f'build.load("{source.stem}")' in bindings
+            callers = bindings
         text = source.read_text()
         assert "__global__" in text
         assert not re.search(r"\b(cub|thrust)::|#include\s*<(cub|thrust)/", text)
-        # every kernel of the source is launched by a C function the binding names
+        # every kernel of the source is launched by a C function that the
+        # binding names, or that the torch host file calls
         kernels = re.findall(r"^(\w+_kernel)\(", text, flags=re.M)
         assert kernels
         for kernel in kernels:
             launcher = kernel.replace("_kernel", "_launch")
             assert re.search(rf'extern "C" int {launcher}\(', text), launcher
-            assert f"lib.{launcher}" in bindings or f".{launcher}(" in bindings, launcher
+            if host.exists():  # declared there, then called
+                assert len(re.findall(rf"\b{launcher}\(", callers)) >= 2, launcher
+            else:
+                assert f"lib.{launcher}" in callers or f".{launcher}(" in callers, launcher
+    # K5's host file: a CUDA kernel and a CPU kernel that refuses, refusals
+    # raised as ValueError and TypeError, and no ctypes left in its binding
+    op = (csrc / "lane_gather_op.cpp").read_text()
+    assert "TORCH_LIBRARY(ga_torch, m)" in op
+    assert 'm.def("lane_gather(Tensor x, Tensor idx) -> Tensor")' in op
+    assert re.search(r"TORCH_LIBRARY_IMPL\(ga_torch, CUDA, m\)", op)
+    assert re.search(r"TORCH_LIBRARY_IMPL\(ga_torch, CPU, m\)", op)
+    assert "TORCH_CHECK_VALUE" in op and "TORCH_CHECK_TYPE" in op
+    assert "CUDAGuard" in op and "getCurrentCUDAStream" in op
+    gather_binding = (ops / "lane_gather_cuda.py").read_text()
+    assert "ctypes" not in gather_binding
+    assert "torch.ops.ga_torch.lane_gather.default" in gather_binding
     merge = (csrc / "mergepath.cu").read_text()
     assert re.findall(r"^(\w+_kernel)\(", merge, flags=re.M) == [
         "local_merge_kernel", "merge_pass_kernel", "merge_splits_kernel"]
@@ -472,6 +511,121 @@ def test_build_reuses_a_library_and_still_fills_the_build_log(tmp_path, monkeypa
     assert (nvcc.parent / "calls").read_text().split() == calls  # nothing compiled again
     assert sorted(build.build_log) == stems
     assert all("Used 12 registers" in build.build_log[stem] for stem in stems)
+
+
+_RECORDING_NVCC = """#!{python}
+# stands in for nvcc: writes the -o file and keeps its argv, one file a call
+import json, os, pathlib, sys
+pathlib.Path(sys.argv[sys.argv.index("-o") + 1]).write_text("library")
+(pathlib.Path(sys.argv[0]).parent / f"argv.{{os.getpid()}}.json").write_text(json.dumps(sys.argv))
+"""
+
+# the flags and the name of a plain C library before the operator route came
+PLAIN_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC"]
+
+
+def _plain_library_name(source):
+    import hashlib
+
+    digest = hashlib.sha1(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(PLAIN_FLAGS).encode())
+    return f"lib{source.stem}-{digest.hexdigest()[:12]}.so"
+
+
+def test_operator_route_builds_the_host_file_against_torch(tmp_path, monkeypatch):
+    """lane_gather.cu has a torch host file, so one nvcc call builds both
+    into an operator library: torch's ABI, headers and libraries (with an
+    rpath) on its command, torch's version in its name.  The three plain C
+    sources keep their commands and names byte for byte."""
+    import json
+
+    import torch
+    from torch.utils import cpp_extension
+
+    from genome_assembly_tpu_torch.csrc import build
+
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(_RECORDING_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "build_log", {})
+    monkeypatch.setattr(build, "build_seconds", {})
+
+    targets = build.build_all()
+    argvs = [json.loads(p.read_text()) for p in nvcc.parent.glob("argv.*.json")]
+    by_source = {pathlib.Path(next(a for a in argv if a.endswith(".cu"))).stem: argv
+                 for argv in argvs}
+    assert sorted(by_source) == ["bitonic", "fast_scan", "lane_gather", "mergepath"]
+    assert sorted(build.build_seconds) == sorted(by_source)
+
+    for stem in ("bitonic", "fast_scan", "mergepath"):
+        source = build.CSRC_DIR / f"{stem}.cu"
+        assert build.operator_source(source) is None
+        assert targets[stem].name == _plain_library_name(source)
+        tmp = targets[stem].with_suffix(f".tmp{os.getpid()}.so")
+        assert by_source[stem] == [str(nvcc), *PLAIN_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+                                   str(source)]
+
+    source = build.CSRC_DIR / "lane_gather.cu"
+    host = build.CSRC_DIR / "lane_gather_op.cpp"
+    assert build.operator_source(source) == host
+    argv = by_source["lane_gather"]
+    assert argv[0] == str(nvcc) and argv[1:1 + len(PLAIN_FLAGS)] == PLAIN_FLAGS
+    assert argv.count(str(source)) == 1 and argv.count(str(host)) == 1
+    inputs_end = argv.index(str(host)) + 1
+    assert argv.index(str(source)) + 1 == argv.index(str(host))
+    assert f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}" in argv
+    assert f"-I{tmp_path / 'cuda' / 'include'}" in argv
+    for d in cpp_extension.include_paths():
+        assert f"-I{d}" in argv, d
+    pairs = list(zip(argv, argv[1:]))
+    for d in cpp_extension.library_paths():
+        assert f"-L{d}" in argv[inputs_end:], d
+        assert ("-Xlinker", f"-rpath,{d}") in pairs, d
+    libs = ["-lc10", "-lc10_cuda", "-ltorch", "-ltorch_cpu", "-ltorch_cuda", "-lcudart"]
+    assert [a for a in argv[inputs_end:] if a.startswith("-l")] == libs
+    assert ("-Xptxas", "-v") in pairs  # the kernel's registers still reach the log
+
+    # torch's version, and the host file, name the operator library
+    name = targets["lane_gather"].name
+    monkeypatch.setattr(torch, "__version__", "0.0.0+another")
+    assert build._library_path(source).name != name
+    assert all(build._library_path(build.CSRC_DIR / f"{stem}.cu") == targets[stem]
+               for stem in ("bitonic", "fast_scan", "mergepath"))
+    monkeypatch.undo()
+    import shutil
+
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, copy, ignore=shutil.ignore_patterns("__pycache__"))
+    assert build._library_path(copy / "lane_gather.cu").name == name
+    (copy / "lane_gather_op.cpp").write_text(host.read_text() + "\n// edited\n")
+    assert build._library_path(copy / "lane_gather.cu").name != name
+
+
+def test_each_library_loads_only_by_its_own_route():
+    """A plain C library is no operator library and the other way round:
+    asking for the wrong route raises before anything is built."""
+    r = _run("""
+from genome_assembly_tpu_torch.csrc import build
+for call in (lambda: build.load("lane_gather"), lambda: build.load_operators("bitonic"),
+             lambda: build.load_operators("no_such_source")):
+    try:
+        call()
+    except KeyError as e:
+        print("RAISED", e)
+    else:
+        raise AssertionError("no error")
+assert build._loaded == {} and build._operators == {} and build.build_log == {}
+""")
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert len(lines) == 3 and all(line.startswith("RAISED") for line in lines)
+    assert "load_operators" in lines[0] and "no operator library" in lines[1]
 
 
 def test_chip_smoke_alone_names_the_missing_package(tmp_path):
