@@ -1,0 +1,6 @@
+"""Mean seconds an assembly spends in the program's ``count`` phase
+(``PhaseStats.wall_s``); None where the path has no such phase."""
+
+
+def read(observed):
+    return observed.mean_wall("count")
