@@ -3305,9 +3305,9 @@ def phase_parity_ooc_scale(device):
     same["big_dirty_host_table"] = host_tables_equal(ooc_host, in_host)
     same["big_dirty_streams"] = len(ooc_streams) == len(in_streams) and np.array_equal(
         np.concatenate(ooc_streams), np.concatenate(in_streams))
-    (ooc_groups, ooc_gstats, _), t_dirty, dirty_peak = timed_call(
+    (ooc_groups, ooc_gstats), t_dirty, dirty_peak = timed_call(
         lambda: forced._nonacgt_groups(dirty_ids))
-    in_groups, in_gstats, _ = big_in._nonacgt_groups(dirty_ids)
+    in_groups, in_gstats = big_in._nonacgt_groups(dirty_ids)
     same["big_dirty_string_groups"] = ooc_groups == in_groups
     no_kernel_launched("parity_ooc_scale")
     torch.cuda.empty_cache()
@@ -3600,7 +3600,7 @@ def phase_parity_e2e_and_dirty(device):
     # a corrupted window occurs once and is pruned, so raw bytes rarely
     # reach a unitig; what the exception path needs is dirty reads
     d_lines, d_stats = runs["dirty_lines"]
-    (card_groups, card_stats, _), (cpu_groups, cpu_stats, _) = (
+    (card_groups, card_stats), (cpu_groups, cpu_stats) = (
         runs["card_groups"], runs["cpu_groups"])
     n_dirty_ids = len(nonacgt.dirty_read_ids(dirty_ids))
     same = (card_groups == cpu_groups, counters(card_stats) == counters(cpu_stats),

@@ -17,12 +17,18 @@
 ``assemble``, ``count`` and ``bench-scaling`` run on the card unless
 ``--cpu`` is given (``bench-scaling``: a mesh of CPU shards; on the card,
 shards share a card where there are fewer cards than shards).
-``--metrics`` appends JSONL records (utils/metrics.py), ``--trace`` writes
-a Chrome-trace JSON of the run, card activity included (utils/profiling.py),
-``count --checkpoint`` the counted table in the JAX package's format
-(utils/checkpoint.py).  ``bench-scaling`` times the sharded count of one
-random batch over 1, 2, 4 ... shards and prints a JSON line a shard count
-(the JAX package's fields: shards, wall_s, windows_per_s, scaling_eff).
+``--metrics`` appends JSONL records (utils/metrics.py): ``assemble`` and
+``count`` write one record a run, the JAX package's fields followed by the
+run's own record of itself (``PhaseStats``): ``phase_s``, the seconds of
+each phase; ``spans_s``, the seconds of each timed step in a phase
+(``<phase>.<step>``); ``counts``, its counters (``h2d_bytes``,
+``d2h_bytes``).  ``--trace`` writes a Chrome-trace JSON of the run, card
+activity included (utils/profiling.py: the phases, their steps and the
+load as ranges), ``count --checkpoint`` the counted table in the JAX
+package's format (utils/checkpoint.py).  ``bench-scaling`` times the
+sharded count of one random batch over 1, 2, 4 ... shards and prints a
+JSON line a shard count (the JAX package's fields: shards, wall_s,
+windows_per_s, scaling_eff).
 """
 
 from __future__ import annotations
@@ -81,6 +87,13 @@ def _make_config(args):
     )
 
 
+def _record_run(extra: dict, stats) -> None:
+    """The run's own record of itself into a ``--metrics`` record."""
+    extra["phase_s"] = dict(stats.wall_s)
+    extra["spans_s"] = dict(stats.spans_s)
+    extra["counts"] = dict(stats.counts)
+
+
 def cmd_assemble(args) -> int:
     from genome_assembly_tpu_torch.io import reads as reads_io
     from genome_assembly_tpu_torch.models.pipeline import FastAssembler, ParityAssembler
@@ -105,6 +118,7 @@ def cmd_assemble(args) -> int:
                 extra["entries_pre_prune"] = stats.entries_pre_prune
                 extra["n_reads"] = stats.n_reads
                 extra["n_windows"] = stats.n_windows
+                _record_run(extra, stats)
             return 0
         asm = FastAssembler(cfg, device=device)
         with log.phase("assemble", mode="fast", k=cfg.k, m=cfg.m) as extra, \
@@ -138,6 +152,7 @@ def cmd_assemble(args) -> int:
             extra["entries_post_prune"] = stats.entries_post_prune
             extra["n_unitigs"] = stats.entries_post_extension
             extra["n_windows"] = stats.n_windows
+            _record_run(extra, stats)
     return 0
 
 
@@ -161,6 +176,7 @@ def cmd_count(args) -> int:
         extra["n_windows"] = stats.n_windows
         extra["entries_pre_prune"] = stats.entries_pre_prune
         extra["entries_post_prune"] = stats.entries_post_prune
+        _record_run(extra, stats)
     if args.checkpoint:
         save_counted_table(args.checkpoint, counted, cfg, phase="post-count")
         print(f"checkpoint written: {args.checkpoint}", file=sys.stderr)

@@ -1,4 +1,6 @@
-"""Read loading and batching (host only, numpy).
+"""Read loading and batching, on the host in numpy.  ``batch_reads`` times
+its two steps as spans of the run in progress (``utils/profiling.span``):
+``encode`` and ``scatter`` of the ``batch`` phase.
 
 Parity mode reproduces the reference driver's input handling exactly:
 ``fgets(read, READ_LENGTH=101, file)`` reads at most 100 characters per
@@ -16,6 +18,7 @@ from typing import Iterator, List, Sequence
 import numpy as np
 
 from genome_assembly_tpu_torch.ops import encode
+from genome_assembly_tpu_torch.utils import profiling
 
 _ACGT = frozenset("ACGT")
 
@@ -136,15 +139,17 @@ def batch_reads(
     fast-mode table that accepts lowercase bases.
 
     Each batch is encoded in one table lookup over the joined bytes of its
-    reads and scattered into the padded rows.
+    reads (span ``encode``, with the length check up front) and scattered
+    into the padded rows (span ``scatter``).
     """
     ids = np.arange(start_id, start_id + len(reads), dtype=np.uint32)
-    for r in reads:
-        if len(r) > max_len:
-            raise ValueError(
-                f"read of length {len(r)} exceeds max_read_len={max_len}; "
-                "use the long-sequence chunking path"
-            )
+    with profiling.span("encode"):
+        for r in reads:
+            if len(r) > max_len:
+                raise ValueError(
+                    f"read of length {len(r)} exceeds max_read_len={max_len}; "
+                    "use the long-sequence chunking path"
+                )
     if batch_size is None:
         batch_size = max(1, len(reads))
     table = encode._ASCII_TO_CODE_REF if parity_chars else encode._ASCII_TO_CODE
@@ -155,16 +160,19 @@ def batch_reads(
         if not chunk:
             break
         n = len(chunk)
-        lengths = np.fromiter(map(len, chunk), dtype=np.int32, count=n)
-        flat = np.frombuffer("".join(chunk).encode(charset), dtype=np.uint8)
-        if flat.size != int(lengths.sum()):
-            raise ValueError("reads must be single-byte characters")
-        starts = np.zeros(n, dtype=np.int64)
-        np.cumsum(lengths[:-1], out=starts[1:])
-        row = np.repeat(np.arange(n, dtype=np.int64), lengths)
-        col = np.arange(flat.size, dtype=np.int64) - np.repeat(starts, lengths)
-        codes = np.zeros((n, max_len), dtype=np.uint8)
-        codes[row, col] = table[flat]
+        with profiling.span("encode"):
+            lengths = np.fromiter(map(len, chunk), dtype=np.int32, count=n)
+            flat = np.frombuffer("".join(chunk).encode(charset), dtype=np.uint8)
+            if flat.size != int(lengths.sum()):
+                raise ValueError("reads must be single-byte characters")
+            values = table[flat]
+        with profiling.span("scatter"):
+            starts = np.zeros(n, dtype=np.int64)
+            np.cumsum(lengths[:-1], out=starts[1:])
+            row = np.repeat(np.arange(n, dtype=np.int64), lengths)
+            col = np.arange(flat.size, dtype=np.int64) - np.repeat(starts, lengths)
+            codes = np.zeros((n, max_len), dtype=np.uint8)
+            codes[row, col] = values
         batches.append(ReadBatch(codes, lengths, ids[ofs : ofs + n]))
     return batches
 

@@ -13,10 +13,16 @@ has completed) and copied on a side stream; the consumer's stream waits on
 that copy's event before it uses the batch, and each delivered tensor is
 recorded on the consumer's stream, so the caching allocator does not hand
 its memory back while the consumer still reads it.
+
+The worker runs in the caller's context, so the run in progress
+(``utils/profiling``) counts what it stages: ``h2d_bytes``, every batch's
+bytes, on a card and on the CPU alike.  The consumer's wait for a staged
+batch is the span ``wait`` of the phase in progress.
 """
 
 from __future__ import annotations
 
+import contextvars
 import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional, Sequence
@@ -24,6 +30,7 @@ from typing import Callable, Iterable, Iterator, Optional, Sequence
 import torch
 
 from genome_assembly_tpu_torch import convert
+from genome_assembly_tpu_torch.utils import profiling
 
 
 class DeviceFeeder:
@@ -81,7 +88,8 @@ class DeviceFeeder:
                 # DONE must actually arrive (a dropped marker deadlocks the
                 # consumer)
                 put(DeviceFeeder._DONE)
-        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread = threading.Thread(target=contextvars.copy_context().run, args=(work,),
+                                        daemon=True)
         self._thread.start()
 
     def _drain(self) -> None:
@@ -111,7 +119,8 @@ class DeviceFeeder:
 
     def __iter__(self) -> Iterator:
         while True:
-            item = self._q.get()
+            with profiling.span("wait"):
+                item = self._q.get()
             if item is self._DONE:
                 self._thread.join()
                 if self._errors:
@@ -149,7 +158,7 @@ class _PinnedRing:
         return slot
 
     def __call__(self, batch):
-        host = convert.read_batch_to_torch(batch)
+        host = _host_batch(batch)
         n, width = host[0].shape
         *pinned, event = self._slot(n, width)
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
@@ -160,6 +169,14 @@ class _PinnedRing:
                 out.append(torch.empty_like(buf, device=self.device).copy_(buf, non_blocking=True))
             event.record(self.stream)
         return tuple(out), event
+
+
+def _host_batch(batch):
+    """A read batch as CPU tensors (``convert.read_batch_to_torch``), its
+    bytes counted as ``h2d_bytes``: what staging it copies to the device."""
+    host = convert.read_batch_to_torch(batch)
+    profiling.count("h2d_bytes", sum(t.nbytes for t in host))
+    return host
 
 
 def _receive(staged):
@@ -181,7 +198,7 @@ def batch_stager(device="cuda", depth: int = 1):
     Raises on a CUDA device where there is none."""
     device = torch.device(device)
     if device.type != "cuda":
-        return convert.read_batch_to_torch, None
+        return _host_batch, None
     if not torch.cuda.is_available():
         raise RuntimeError("feed_read_batches was asked for a CUDA device and this machine "
                            "has none; pass device='cpu' to run on the CPU")

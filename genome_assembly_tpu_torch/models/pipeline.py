@@ -34,7 +34,6 @@ A mesh names its own devices.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,10 +58,18 @@ from genome_assembly_tpu_torch.utils.plots import parse_verbose_table
 
 @dataclasses.dataclass
 class PhaseStats:
-    """Per-phase observability counters.
+    """What one run observed of itself.
 
-    wall_s holds the host-clock seconds of each phase of the last run;
-    device phases are closed with a synchronize when they ran on a card.
+    wall_s: the host-clock seconds of each phase of the run; device phases
+    are closed with a synchronize when they ran on a card.
+    spans_s: the host seconds of each timed step inside a phase, keyed
+    ``<phase>.<step>`` (``utils/profiling.span``).  A step adds no
+    synchronize: its device work is counted in the step that first waits
+    for it, and a phase's steps need not cover all of it.
+    counts: the run's counters (``utils/profiling.count``): ``h2d_bytes``,
+    the bytes handed to the device (read batches, kept keys back on the
+    card), and ``d2h_bytes``, the bytes of every read-back larger than a
+    scalar.
     """
 
     n_reads: int = 0
@@ -71,39 +78,8 @@ class PhaseStats:
     entries_post_prune: int = 0
     entries_post_extension: int = 0
     wall_s: Dict[str, float] = dataclasses.field(default_factory=dict)
-
-
-class _PhaseClock:
-    """Times the phases of one run into ``stats.wall_s``: ``start(name)``
-    ends the phase in progress and begins ``name``, ``stop()`` ends the
-    last.  Ending a phase first synchronizes every CUDA device the clock
-    was given, so its seconds hold its device work.  Each phase is also
-    one range of its name in a trace (``utils/profiling.annotate``)."""
-
-    def __init__(self, stats: PhaseStats, *devices: torch.device, phase: Optional[str] = None):
-        self.stats = stats
-        self.devices = {torch.device(d) for d in devices}
-        self.name = self.range = None
-        if phase is not None:
-            self.start(phase)
-
-    def start(self, name: str) -> None:
-        self.stop()
-        self.range = profiling.annotate(name)
-        self.range.__enter__()
-        self.name = name
-        self.t = time.perf_counter()
-
-    def stop(self) -> None:
-        if self.name is None:
-            return
-        for device in self.devices:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        self.stats.wall_s[self.name] = self.stats.wall_s.get(self.name, 0.0) + now - self.t
-        self.range.__exit__(None, None, None)
-        self.name = self.range = None
+    spans_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def _check_device(device, who: str) -> torch.device:
@@ -116,7 +92,7 @@ def _check_device(device, who: str) -> torch.device:
     return device
 
 
-def _extension_graph(kmer, valid, *, k: int, clock: _PhaseClock,
+def _extension_graph(kmer, valid, *, k: int, clock: profiling.PhaseClock,
                      link_budget: Optional[int] = None,
                      bulk_jump_states: Optional[int] = None):
     """Links + jump, as the clock's phases ``links`` and ``jump`` (the
@@ -154,9 +130,11 @@ def _batch_source(batches, device, fn):
     stage, receive = stream_io.batch_stager(device)
 
     def records(b):
-        staged = stage(batches[b])
-        codes, lengths, rids = staged if receive is None else receive(staged)
-        return fn(b, codes, lengths, rids)
+        with profiling.span("stage"):
+            staged = stage(batches[b])
+            codes, lengths, rids = staged if receive is None else receive(staged)
+        with profiling.span("scan"):
+            return fn(b, codes, lengths, rids)
     return records
 
 
@@ -192,43 +170,42 @@ class CountPipeline:
         """
         cfg = self.config
         stats = PhaseStats(n_reads=len(reads))
-        clock = _PhaseClock(stats, self.device, phase="batch")
-        batches = reads_io.batch_reads(
-            reads, cfg.max_read_len, cfg.batch_reads, start_id=start_id,
-            parity_chars=cfg.parity,
-        )
-        if not batches:
-            raise ValueError("no reads")
-        # every batch but a lone one has the same number of rows, so the
-        # stream index of a slot is its row in the whole set times n_win
-        if len(batches) > 1:
-            batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
-        clock.start("scan")
-        n_windows = torch.zeros((), dtype=torch.int64, device=self.device)
-        scanned = []
-        with stream_io.feed_read_batches(batches, self.device) as feeder:
-            for codes, lengths, rids in feeder:
-                recs = self.scan(codes, lengths)
-                n_windows += recs.valid.sum()
-                scanned.append((recs, rids))
-        clock.start("count")
-        cutoff = cfg.abundance_cutoff if len(scanned) == 1 else -1
-        rows_x_win = cfg.batch_reads * cfg.windows_per_read
-        per_batch = [
-            count_ops.count_and_prune(recs, rids, cutoff=cutoff,
-                                      stream_offset=bi * rows_x_win)
-            for bi, (recs, rids) in enumerate(scanned)
-        ]
-        del scanned
-        if len(per_batch) == 1:
-            counted = per_batch[0]
-        else:
-            counted = count_ops.merge_sorted_tables(per_batch, cutoff=cfg.abundance_cutoff)
-        del per_batch
-        stats.n_windows = int(n_windows)
-        stats.entries_pre_prune = int(counted.n_entries)
-        stats.entries_post_prune = int(counted.n_kept)
-        clock.stop()
+        with profiling.PhaseClock(stats, self.device, phase="batch") as clock:
+            batches = reads_io.batch_reads(
+                reads, cfg.max_read_len, cfg.batch_reads, start_id=start_id,
+                parity_chars=cfg.parity,
+            )
+            if not batches:
+                raise ValueError("no reads")
+            # every batch but a lone one has the same number of rows, so the
+            # stream index of a slot is its row in the whole set times n_win
+            if len(batches) > 1:
+                batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
+            clock.start("scan")
+            n_windows = torch.zeros((), dtype=torch.int64, device=self.device)
+            scanned = []
+            with stream_io.feed_read_batches(batches, self.device) as feeder:
+                for codes, lengths, rids in feeder:
+                    recs = self.scan(codes, lengths)
+                    n_windows += recs.valid.sum()
+                    scanned.append((recs, rids))
+            clock.start("count")
+            cutoff = cfg.abundance_cutoff if len(scanned) == 1 else -1
+            rows_x_win = cfg.batch_reads * cfg.windows_per_read
+            per_batch = [
+                count_ops.count_and_prune(recs, rids, cutoff=cutoff,
+                                          stream_offset=bi * rows_x_win)
+                for bi, (recs, rids) in enumerate(scanned)
+            ]
+            del scanned
+            if len(per_batch) == 1:
+                counted = per_batch[0]
+            else:
+                counted = count_ops.merge_sorted_tables(per_batch, cutoff=cfg.abundance_cutoff)
+            del per_batch
+            stats.n_windows = int(n_windows)
+            stats.entries_pre_prune = int(counted.n_entries)
+            stats.entries_post_prune = int(counted.n_kept)
         return counted, stats
 
 
@@ -249,7 +226,8 @@ class FastAssembler:
         self.counter = CountPipeline(self.config, self.device)
 
     def load(self, path: str) -> List[str]:
-        return reads_io.load_reads_fast(path)
+        with profiling.span("load"):
+            return reads_io.load_reads_fast(path)
 
     def unitigs_from_sequences(
         self, sequences: Sequence[str]
@@ -281,24 +259,23 @@ class FastAssembler:
         if total_slots * 8 > cfg.outofcore_bytes:
             return self._unitigs_outofcore(reads, total_slots)
         stats = PhaseStats(n_reads=len(reads))
-        clock = _PhaseClock(stats, self.device)
-        combined, _ = self._flat_fast_records(reads, stats, clock)
-        clock.start("count")
-        kc = count_ops.count_keys(
-            combined, cutoff=cfg.abundance_cutoff, hybrid_sort=cfg.hybrid_sort
-        )
-        stats.entries_pre_prune = int((kc.group_start & kc.valid).sum())
-        stats.entries_post_prune = int(kc.keep.sum())
-        kmer, valid = count_ops.kept_keys_sorted(kc)
-        del kc, combined
-        # the kept keys sit at the front of the padded table: the graph is
-        # built over them alone (same node ids, so the same unitigs)
-        n_nodes = stats.entries_post_prune
-        kmer, valid = kmer[:n_nodes], valid[:n_nodes]
-        graph = _extension_graph(kmer, valid, k=cfg.k, clock=clock)
-        clock.start("materialize")
-        out = dbg.materialize_unitigs(kmer, valid, graph, cfg.k)
-        clock.stop()
+        with profiling.PhaseClock(stats, self.device) as clock:
+            combined, _ = self._flat_fast_records(reads, stats, clock)
+            clock.start("count")
+            kc = count_ops.count_keys(
+                combined, cutoff=cfg.abundance_cutoff, hybrid_sort=cfg.hybrid_sort
+            )
+            stats.entries_pre_prune = int((kc.group_start & kc.valid).sum())
+            stats.entries_post_prune = int(kc.keep.sum())
+            kmer, valid = count_ops.kept_keys_sorted(kc)
+            del kc, combined
+            # the kept keys sit at the front of the padded table: the graph is
+            # built over them alone (same node ids, so the same unitigs)
+            n_nodes = stats.entries_post_prune
+            kmer, valid = kmer[:n_nodes], valid[:n_nodes]
+            graph = _extension_graph(kmer, valid, k=cfg.k, clock=clock)
+            clock.start("materialize")
+            out = dbg.materialize_unitigs(kmer, valid, graph, cfg.k)
         stats.entries_post_extension = len(out)
         return out, stats
 
@@ -311,34 +288,34 @@ class FastAssembler:
         ``n_windows`` is the window slots, as in the JAX package's branch."""
         cfg = self.config
         stats = PhaseStats(n_reads=len(reads))
-        clock = _PhaseClock(stats, self.device, phase="batch")
-        batches = reads_io.batch_reads(reads, cfg.max_read_len, cfg.batch_reads)
-        if len(batches) > 1:
-            batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
-        clock.start("count")
-        batch_keys = _batch_source(
-            batches, self.device,
-            lambda b, codes, lengths, rids: self.counter.scan(codes, lengths).kmer.reshape(-1))
-        partitions = max(1, int(np.ceil(total_slots * 8 / (cfg.outofcore_bytes / 3))))
-        pc = outofcore.partitioned_count(
-            batch_keys, len(batches), partitions=partitions,
-            cutoff=cfg.abundance_cutoff, hybrid_sort=cfg.hybrid_sort)
-        stats.n_windows = total_slots
-        stats.entries_pre_prune = pc.n_distinct
-        stats.entries_post_prune = pc.n_kept
-        kmer, valid = pc.kmer, pc.valid
-        del pc
-        graph = _extension_graph(
-            kmer, valid, k=cfg.k, clock=clock, link_budget=cfg.link_budget_bytes,
-            bulk_jump_states=cfg.bulk_jump_states)
-        clock.start("materialize")
-        out, _, _ = dbg.materialize_unitigs_device(kmer, valid, graph, cfg.k)
-        clock.stop()
+        with profiling.PhaseClock(stats, self.device, phase="batch") as clock:
+            batches = reads_io.batch_reads(reads, cfg.max_read_len, cfg.batch_reads)
+            if len(batches) > 1:
+                batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
+            clock.start("count")
+            batch_keys = _batch_source(
+                batches, self.device,
+                lambda b, codes, lengths, rids:
+                    self.counter.scan(codes, lengths).kmer.reshape(-1))
+            partitions = max(1, int(np.ceil(total_slots * 8 / (cfg.outofcore_bytes / 3))))
+            pc = outofcore.partitioned_count(
+                batch_keys, len(batches), partitions=partitions,
+                cutoff=cfg.abundance_cutoff, hybrid_sort=cfg.hybrid_sort)
+            stats.n_windows = total_slots
+            stats.entries_pre_prune = pc.n_distinct
+            stats.entries_post_prune = pc.n_kept
+            kmer, valid = pc.kmer, pc.valid
+            del pc
+            graph = _extension_graph(
+                kmer, valid, k=cfg.k, clock=clock, link_budget=cfg.link_budget_bytes,
+                bulk_jump_states=cfg.bulk_jump_states)
+            clock.start("materialize")
+            out, _, _ = dbg.materialize_unitigs_device(kmer, valid, graph, cfg.k)
         stats.entries_post_extension = len(out)
         return out, stats
 
     def _flat_fast_records(self, reads: Sequence[str], stats: PhaseStats,
-                           clock: _PhaseClock, with_rids: bool = False):
+                           clock: profiling.PhaseClock, with_rids: bool = False):
         """Batch the reads, scan all batches and flatten their records.
 
         Returns (records, rid_flat): rid_flat is None unless with_rids.
@@ -388,24 +365,23 @@ class FastAssembler:
         if mesh is not None:
             return self._unitigs_cov_sharded(reads, mesh)
         stats = PhaseStats(n_reads=len(reads))
-        clock = _PhaseClock(stats, self.device)
-        combined, _ = self._flat_fast_records(reads, stats, clock)
-        clock.start("count")
-        kc = count_ops.count_keys(
-            combined, cutoff=cfg.abundance_cutoff, hybrid_sort=cfg.hybrid_sort
-        )
-        stats.entries_pre_prune = int((kc.group_start & kc.valid).sum())
-        stats.entries_post_prune = int(kc.keep.sum())
-        kmer, valid, counts = count_ops.kept_keys_sorted_with_counts(kc)
-        del kc, combined
-        n_nodes = stats.entries_post_prune
-        kmer, valid, counts = kmer[:n_nodes], valid[:n_nodes], counts[:n_nodes]
-        graph = _extension_graph(kmer, valid, k=cfg.k, clock=clock)
-        clock.start("materialize")
-        out, occ_sum, n_kmers = dbg.materialize_unitigs_cov(
-            kmer, valid, graph, cfg.k, counts
-        )
-        clock.stop()
+        with profiling.PhaseClock(stats, self.device) as clock:
+            combined, _ = self._flat_fast_records(reads, stats, clock)
+            clock.start("count")
+            kc = count_ops.count_keys(
+                combined, cutoff=cfg.abundance_cutoff, hybrid_sort=cfg.hybrid_sort
+            )
+            stats.entries_pre_prune = int((kc.group_start & kc.valid).sum())
+            stats.entries_post_prune = int(kc.keep.sum())
+            kmer, valid, counts = count_ops.kept_keys_sorted_with_counts(kc)
+            del kc, combined
+            n_nodes = stats.entries_post_prune
+            kmer, valid, counts = kmer[:n_nodes], valid[:n_nodes], counts[:n_nodes]
+            graph = _extension_graph(kmer, valid, k=cfg.k, clock=clock)
+            clock.start("materialize")
+            out, occ_sum, n_kmers = dbg.materialize_unitigs_cov(
+                kmer, valid, graph, cfg.k, counts
+            )
         stats.entries_post_extension = len(out)
         return out, occ_sum, n_kmers, stats
 
@@ -424,30 +400,30 @@ class FastAssembler:
         if mesh is not None:
             return self._unitigs_rids_sharded(reads, mesh)
         stats = PhaseStats(n_reads=len(reads))
-        clock = _PhaseClock(stats, self.device)
-        combined, rid_flat = self._flat_fast_records(
-            reads, stats, clock, with_rids=True
-        )
-        clock.start("count")
-        krc = count_ops.count_keys_rids(
-            combined, rid_flat, cutoff=cfg.abundance_cutoff
-        )
-        stats.entries_pre_prune = int((krc.group_start & krc.valid).sum())
-        # host-side CSR over kept groups (exact sizes, no padding)
-        keep = krc.keep.cpu().numpy()
-        rid_s = krc.read_id.cpu().numpy().astype(np.uint32)
-        starts = np.flatnonzero(keep)
-        counts = krc.count.cpu().numpy()[starts].astype(np.int64)
-        stats.entries_post_prune = len(starts)
-        offsets = np.zeros(len(starts) + 1, dtype=np.int64)
-        np.cumsum(counts, out=offsets[1:])
-        # flat occurrence indices: group g's occupy rid_s[starts[g] + j]
-        within = np.arange(offsets[-1], dtype=np.int64) - np.repeat(
-            offsets[:-1], counts
-        )
-        values = rid_s[np.repeat(starts, counts) + within]
-        kmer = krc.kmer.cpu().numpy()[starts]
-        return self._assemble_with_read_ids(kmer, offsets, values, stats, clock)
+        with profiling.PhaseClock(stats, self.device) as clock:
+            combined, rid_flat = self._flat_fast_records(
+                reads, stats, clock, with_rids=True
+            )
+            clock.start("count")
+            krc = count_ops.count_keys_rids(
+                combined, rid_flat, cutoff=cfg.abundance_cutoff
+            )
+            stats.entries_pre_prune = int((krc.group_start & krc.valid).sum())
+            # host-side CSR over kept groups (exact sizes, no padding)
+            keep = krc.keep.cpu().numpy()
+            rid_s = krc.read_id.cpu().numpy().astype(np.uint32)
+            starts = np.flatnonzero(keep)
+            counts = krc.count.cpu().numpy()[starts].astype(np.int64)
+            stats.entries_post_prune = len(starts)
+            offsets = np.zeros(len(starts) + 1, dtype=np.int64)
+            np.cumsum(counts, out=offsets[1:])
+            # flat occurrence indices: group g's occupy rid_s[starts[g] + j]
+            within = np.arange(offsets[-1], dtype=np.int64) - np.repeat(
+                offsets[:-1], counts
+            )
+            values = rid_s[np.repeat(starts, counts) + within]
+            kmer = krc.kmer.cpu().numpy()[starts]
+            return self._assemble_with_read_ids(kmer, offsets, values, stats, clock)
 
     def _assemble_with_read_ids(self, kmer, offsets, values, stats, clock):
         """Shared tail of the read-id channel: build the dBG over the kept
@@ -498,7 +474,7 @@ class FastAssembler:
     # ------------------------------------------------------------------
 
     def _sharded_count(self, reads: Sequence[str], mesh, stats: PhaseStats,
-                       clock: _PhaseClock) -> shard_count.ShardedCount:
+                       clock: profiling.PhaseClock) -> shard_count.ShardedCount:
         """All reads as one batch, counted over the mesh with key ownership
         (minimizer mass is heavy-tailed and skews shard loads at high shard
         counts); the clock's phases ``batch`` and ``count`` (left running)."""
@@ -518,17 +494,16 @@ class FastAssembler:
             [(g & v).sum() for g, v in zip(sc.group_start, sc.valid)])
         return sc
 
-    def _sharded_graph(self, reads: Sequence[str], mesh, *, with_counts: bool):
+    def _sharded_graph(self, reads: Sequence[str], mesh, stats: PhaseStats,
+                       clock: profiling.PhaseClock, *, with_counts: bool):
         """The mesh path up to the compacted graph.
 
         The graph is built over the kept keys padded to a multiple of the
         mesh size, as the JAX package builds it (node ids, so the unitig
         order, follow the pad).  Returns host (kmer, valid, counts or None,
-        graph, wide, stats, clock); ``wall_s``: batch, count, links, jump (the
-        jump's phase left running)."""
+        graph, wide); the clock's phases batch, count, links, jump (the
+        jump's left running)."""
         cfg = self.config
-        stats = PhaseStats(n_reads=len(reads))
-        clock = _PhaseClock(stats, *mesh.devices)
         sc = self._sharded_count(reads, mesh, stats, clock)
         kmer, counts, stats.entries_post_prune = _sharded_kept_keys(sc, mesh, with_counts)
         del sc
@@ -550,31 +525,33 @@ class FastAssembler:
         graph = dbg.CompactedGraph(*(torch.from_numpy(mesh.to_host(x).reshape(-1)) for x in g))
         kmer = mesh.to_host(kmer).reshape(-1)
         counts = None if counts is None else mesh.to_host(counts).reshape(-1)
-        return kmer, kmer != SENTINEL, counts, graph, wide, stats, clock
+        return kmer, kmer != SENTINEL, counts, graph, wide
 
     def _unitigs_sharded(self, reads: Sequence[str], mesh):
         """Counting and dBG compaction over the mesh; the host materializer
         (the bucketed one for wide ids, as in the JAX package)."""
-        kmer, valid, _, graph, wide, stats, clock = self._sharded_graph(
-            reads, mesh, with_counts=False)
-        clock.start("materialize")
-        if wide:
-            out = dbg.materialize_unitigs_partitioned(kmer, valid, graph, self.config.k)
-        else:
-            out = dbg.materialize_unitigs(kmer, valid, graph, self.config.k)
-        clock.stop()
+        stats = PhaseStats(n_reads=len(reads))
+        with profiling.PhaseClock(stats, *mesh.devices) as clock:
+            kmer, valid, _, graph, wide = self._sharded_graph(
+                reads, mesh, stats, clock, with_counts=False)
+            clock.start("materialize")
+            if wide:
+                out = dbg.materialize_unitigs_partitioned(kmer, valid, graph, self.config.k)
+            else:
+                out = dbg.materialize_unitigs(kmer, valid, graph, self.config.k)
         stats.entries_post_extension = len(out)
         return out, stats
 
     def _unitigs_cov_sharded(self, reads: Sequence[str], mesh):
         """``unitigs_with_coverage`` over the mesh: the counts ride the
         kept-key sort."""
-        kmer, valid, counts, graph, _, stats, clock = self._sharded_graph(
-            reads, mesh, with_counts=True)
-        clock.start("materialize")
-        out, occ_sum, n_kmers = dbg.materialize_unitigs_cov(kmer, valid, graph, self.config.k,
-                                                           counts)
-        clock.stop()
+        stats = PhaseStats(n_reads=len(reads))
+        with profiling.PhaseClock(stats, *mesh.devices) as clock:
+            kmer, valid, counts, graph, _ = self._sharded_graph(
+                reads, mesh, stats, clock, with_counts=True)
+            clock.start("materialize")
+            out, occ_sum, n_kmers = dbg.materialize_unitigs_cov(kmer, valid, graph,
+                                                               self.config.k, counts)
         stats.entries_post_extension = len(out)
         return out, occ_sum, n_kmers, stats
 
@@ -585,27 +562,28 @@ class FastAssembler:
         keys into dBG order and permutes the CSR alongside; the tail is the
         in-core one."""
         stats = PhaseStats(n_reads=len(reads))
-        clock = _PhaseClock(stats, *mesh.devices, self.device)
-        sc = self._sharded_count(reads, mesh, stats, clock)
-        lanes = shard_count.host_lanes(sc, mesh, ("kmer", "read_id", "count", "keep"))
-        del sc
-        s_idx, g_idx = np.nonzero(lanes["keep"])
-        counts = lanes["count"][s_idx, g_idx].astype(np.int64)
-        kmer = lanes["kmer"][s_idx, g_idx]
-        stats.entries_post_prune = len(s_idx)
-        offsets = np.zeros(len(s_idx) + 1, dtype=np.int64)
-        np.cumsum(counts, out=offsets[1:])
-        within = np.arange(offsets[-1], dtype=np.int64) - np.repeat(offsets[:-1], counts)
-        base = s_idx.astype(np.int64) * lanes["keep"].shape[1] + g_idx
-        values = lanes["read_id"].reshape(-1)[np.repeat(base, counts) + within].astype(np.uint32)
-        # dBG order: sort the kept keys, permute the CSR alongside
-        order = np.argsort(kmer, kind="stable")
-        counts_s = counts[order]
-        off_s = np.zeros(len(order) + 1, dtype=np.int64)
-        np.cumsum(counts_s, out=off_s[1:])
-        pos = (np.arange(offsets[-1], dtype=np.int64) - np.repeat(off_s[:-1], counts_s)
-               + np.repeat(offsets[:-1][order], counts_s))
-        return self._assemble_with_read_ids(kmer[order], off_s, values[pos], stats, clock)
+        with profiling.PhaseClock(stats, *mesh.devices, self.device) as clock:
+            sc = self._sharded_count(reads, mesh, stats, clock)
+            lanes = shard_count.host_lanes(sc, mesh, ("kmer", "read_id", "count", "keep"))
+            del sc
+            s_idx, g_idx = np.nonzero(lanes["keep"])
+            counts = lanes["count"][s_idx, g_idx].astype(np.int64)
+            kmer = lanes["kmer"][s_idx, g_idx]
+            stats.entries_post_prune = len(s_idx)
+            offsets = np.zeros(len(s_idx) + 1, dtype=np.int64)
+            np.cumsum(counts, out=offsets[1:])
+            within = np.arange(offsets[-1], dtype=np.int64) - np.repeat(offsets[:-1], counts)
+            base = s_idx.astype(np.int64) * lanes["keep"].shape[1] + g_idx
+            values = lanes["read_id"].reshape(-1)[np.repeat(base, counts) + within].astype(
+                np.uint32)
+            # dBG order: sort the kept keys, permute the CSR alongside
+            order = np.argsort(kmer, kind="stable")
+            counts_s = counts[order]
+            off_s = np.zeros(len(order) + 1, dtype=np.int64)
+            np.cumsum(counts_s, out=off_s[1:])
+            pos = (np.arange(offsets[-1], dtype=np.int64) - np.repeat(off_s[:-1], counts_s)
+                   + np.repeat(offsets[:-1][order], counts_s))
+            return self._assemble_with_read_ids(kmer[order], off_s, values[pos], stats, clock)
 
 
 def _raise_on_overflow(mesh, overflow, what: str) -> None:
@@ -672,7 +650,8 @@ class ParityAssembler:
         # Any byte is accepted, as the reference accepts any byte (it
         # scores unknown characters as 'A'); reads containing non-ACGT
         # take the exact exception path (parity/nonacgt.py).
-        return reads_io.load_reads_parity(path, self.config.read_length)
+        with profiling.span("load"):
+            return reads_io.load_reads_parity(path, self.config.read_length)
 
     def pruned_table(
         self, reads: Sequence[str]
@@ -682,9 +661,8 @@ class ParityAssembler:
         if self._needs_outofcore(reads):
             return self._groups_outofcore(reads, self.config.abundance_cutoff)
         counted, stats = self.counter.count_reads(reads)
-        clock = _PhaseClock(stats, self.device, phase="extract")
-        host = table_ops.extract_groups(counted, pruned=True)
-        clock.stop()
+        with profiling.PhaseClock(stats, self.device, phase="extract"):
+            host = table_ops.extract_groups(counted, pruned=True)
         return host, stats
 
     def _reject_dirty(self, reads: Sequence[str], where: str) -> None:
@@ -717,43 +695,42 @@ class ParityAssembler:
         """
         cfg = self.config
         stats = PhaseStats(n_reads=len(reads))
-        clock = _PhaseClock(stats, self.device, phase="batch")
-        batches = reads_io.batch_reads(
-            reads, cfg.max_read_len, cfg.batch_reads, parity_chars=True)
-        if not batches:
-            raise ValueError("no reads")
-        if len(batches) > 1:
-            batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
-        n_win = cfg.windows_per_read
-        total_slots = len(batches) * cfg.batch_reads * n_win
-        clock.start("count")
+        with profiling.PhaseClock(stats, self.device, phase="batch") as clock:
+            batches = reads_io.batch_reads(
+                reads, cfg.max_read_len, cfg.batch_reads, parity_chars=True)
+            if not batches:
+                raise ValueError("no reads")
+            if len(batches) > 1:
+                batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
+            n_win = cfg.windows_per_read
+            total_slots = len(batches) * cfg.batch_reads * n_win
+            clock.start("count")
 
-        def records(b, codes, lengths, rids):
-            recs = self.counter.scan(codes, lengths)
-            rows, nw = recs.kmer.shape
-            n = rows * nw
-            stream = torch.arange(n, dtype=torch.int64, device=codes.device) + (
-                b * cfg.batch_reads * n_win)
-            return (recs.mmer.reshape(n), recs.kmer.reshape(n),
-                    rids[:, None].expand(rows, nw).reshape(n), stream)
+            def records(b, codes, lengths, rids):
+                recs = self.counter.scan(codes, lengths)
+                rows, nw = recs.kmer.shape
+                n = rows * nw
+                stream = torch.arange(n, dtype=torch.int64, device=codes.device) + (
+                    b * cfg.batch_reads * n_win)
+                return (recs.mmer.reshape(n), recs.kmer.reshape(n),
+                        rids[:, None].expand(rows, nw).reshape(n), stream)
 
-        partitions = max(1, int(np.ceil(total_slots * 20 / (cfg.outofcore_bytes / 3))))
-        out = outofcore.partitioned_count_parity(
-            _batch_source(batches, self.device, records), len(batches),
-            partitions=partitions, cutoff=cutoff,
-            with_streams=with_streams, checkpoint_dir=checkpoint_dir)
-        host, streams = out[0], (out[1] if with_streams else None)
-        n_windows, overflows = out[-2:]
-        if overflows:
-            raise RuntimeError(
-                f"out-of-core parity counting: {overflows} records of a batch "
-                "exceeded their partition's staging cap (a heavily repeated "
-                "k-mer); raise outofcore_bytes (fewer, wider partitions, or "
-                "none past the limit)")
-        stats.n_windows = n_windows
-        stats.entries_pre_prune = len(host.mmer) if cutoff < 0 else 0
-        stats.entries_post_prune = len(host.mmer) if cutoff >= 0 else 0
-        clock.stop()
+            partitions = max(1, int(np.ceil(total_slots * 20 / (cfg.outofcore_bytes / 3))))
+            out = outofcore.partitioned_count_parity(
+                _batch_source(batches, self.device, records), len(batches),
+                partitions=partitions, cutoff=cutoff,
+                with_streams=with_streams, checkpoint_dir=checkpoint_dir)
+            host, streams = out[0], (out[1] if with_streams else None)
+            n_windows, overflows = out[-2:]
+            if overflows:
+                raise RuntimeError(
+                    f"out-of-core parity counting: {overflows} records of a batch "
+                    "exceeded their partition's staging cap (a heavily repeated "
+                    "k-mer); raise outofcore_bytes (fewer, wider partitions, or "
+                    "none past the limit)")
+            stats.n_windows = n_windows
+            stats.entries_pre_prune = len(host.mmer) if cutoff < 0 else 0
+            stats.entries_post_prune = len(host.mmer) if cutoff >= 0 else 0
         if with_streams:
             return host, streams, stats
         return host, stats
@@ -770,45 +747,45 @@ class ParityAssembler:
         batch, count, extract, replay."""
         cfg = self.config
         stats = PhaseStats(n_reads=len(reads))
-        clock = _PhaseClock(stats, *mesh.devices, phase="batch")
-        n = mesh.n_shards
-        rows = max(n, -(-cfg.batch_reads // n) * n)
-        batches = [reads_io.pad_batch(b, rows) for b in reads_io.batch_reads(
-            reads, cfg.max_read_len, rows, parity_chars=True)]
-        clock.start("count")
-        sc = shard_count.sharded_count_batches(
-            batches, k=cfg.k, m=cfg.m, parity=True, cutoff=-1, mesh=mesh, routing=routing)
-        overflow = mesh.total(sc.overflow)
-        if overflow:
-            raise RuntimeError(
-                f"minimizer routing overflow ({overflow} records); rerun with a larger "
-                "slack factor")
-        stats.n_windows = mesh.total([v.sum() for v in sc.valid])
-        stats.entries_pre_prune = mesh.total(
-            [(g & v).sum() for g, v in zip(sc.group_start, sc.valid)])
-        clock.start("extract")
-        if nonacgt.has_non_acgt(reads):
-            host, streams = shard_count.sharded_host_table_with_streams(sc, mesh)
+        with profiling.PhaseClock(stats, *mesh.devices, phase="batch") as clock:
+            n = mesh.n_shards
+            rows = max(n, -(-cfg.batch_reads // n) * n)
+            batches = [reads_io.pad_batch(b, rows) for b in reads_io.batch_reads(
+                reads, cfg.max_read_len, rows, parity_chars=True)]
+            clock.start("count")
+            sc = shard_count.sharded_count_batches(
+                batches, k=cfg.k, m=cfg.m, parity=True, cutoff=-1, mesh=mesh, routing=routing)
+            overflow = mesh.total(sc.overflow)
+            if overflow:
+                raise RuntimeError(
+                    f"minimizer routing overflow ({overflow} records); rerun with a larger "
+                    "slack factor")
+            stats.n_windows = mesh.total([v.sum() for v in sc.valid])
+            stats.entries_pre_prune = mesh.total(
+                [(g & v).sum() for g, v in zip(sc.group_start, sc.valid)])
+            clock.start("extract")
+            if nonacgt.has_non_acgt(reads):
+                host, streams = shard_count.sharded_host_table_with_streams(sc, mesh)
+                del sc
+                groups = nonacgt.regroup_with_exceptions(
+                    host, streams, reads, k=cfg.k, m=cfg.m, n_win=cfg.windows_per_read)
+                return self._replay(
+                    stats, clock, lambda: self._replay_string_groups(groups, engine, verbose))
+            if engine == "native":
+                groups = shard_count.sharded_groups_for_replay(sc, mesh)
+
+                def run():
+                    text, _ = replay_native.replay(*groups, cfg.k, cfg.m, cfg.abundance_cutoff,
+                                                   verbose=verbose)
+                    return text if verbose else text.splitlines()
+            else:
+                host, _ = shard_count.sharded_host_table_with_streams(sc, mesh)
+
+                def run():
+                    groups = replay_mod.groups_from_host_table(host, cfg.k, cfg.m)
+                    return self._replay_string_groups(groups, engine, verbose)
             del sc
-            groups = nonacgt.regroup_with_exceptions(
-                host, streams, reads, k=cfg.k, m=cfg.m, n_win=cfg.windows_per_read)
-            return self._replay(
-                stats, clock, lambda: self._replay_string_groups(groups, engine, verbose))
-        if engine == "native":
-            groups = shard_count.sharded_groups_for_replay(sc, mesh)
-
-            def run():
-                text, _ = replay_native.replay(*groups, cfg.k, cfg.m, cfg.abundance_cutoff,
-                                               verbose=verbose)
-                return text if verbose else text.splitlines()
-        else:
-            host, _ = shard_count.sharded_host_table_with_streams(sc, mesh)
-
-            def run():
-                groups = replay_mod.groups_from_host_table(host, cfg.k, cfg.m)
-                return self._replay_string_groups(groups, engine, verbose)
-        del sc
-        return self._replay(stats, clock, run)
+            return self._replay(stats, clock, run)
 
     def pruned_table_dict(self, reads: Sequence[str]) -> Dict:
         if nonacgt.has_non_acgt(reads):
@@ -832,7 +809,7 @@ class ParityAssembler:
         return engine
 
     @staticmethod
-    def _replay(stats: PhaseStats, clock: _PhaseClock, run):
+    def _replay(stats: PhaseStats, clock: profiling.PhaseClock, run):
         """Run the replay ``run()`` as the clock's last phase.  Unitig lines
         set ``entries_post_extension`` (their number); verbose text leaves
         it 0, as the JAX package leaves it on every parity run."""
@@ -866,11 +843,10 @@ class ParityAssembler:
         if self._needs_outofcore(reads):
             # every group (cutoff -1): the replay prunes, as the reference does
             host_all, stats = self._groups_outofcore(reads, -1)
-            clock = _PhaseClock(stats, self.device)
         else:
             counted, stats = self.counter.count_reads(reads)
-            clock = _PhaseClock(stats, self.device, phase="extract")
-            host_all = table_ops.extract_groups(counted, pruned=False)
+            with profiling.PhaseClock(stats, self.device, phase="extract"):
+                host_all = table_ops.extract_groups(counted, pruned=False)
             del counted
         if engine == "native":
             # the packed lanes go to the engine as they are
@@ -881,36 +857,39 @@ class ParityAssembler:
             def run():
                 groups = replay_mod.groups_from_host_table(host_all, cfg.k, cfg.m)
                 return self._replay_string_groups(groups, engine, verbose)
-        return self._replay(stats, clock, run)
+        with profiling.PhaseClock(stats, self.device) as clock:
+            return self._replay(stats, clock, run)
 
     def _nonacgt_groups(self, reads: Sequence[str]):
         """Device count + exact raw-byte regrouping (parity/nonacgt.py),
-        unpruned, in insertion order."""
+        unpruned, in insertion order: (groups, stats), the regrouping
+        timed as the phase ``extract``."""
         cfg = self.config
         if self._needs_outofcore(reads):
             host_all, streams, stats = self._groups_outofcore(reads, -1, with_streams=True)
-            clock = _PhaseClock(stats, self.device, phase="extract")
+            counted = None
         else:
             counted, stats = self.counter.count_reads(reads)
-            clock = _PhaseClock(stats, self.device, phase="extract")
-            host_all, streams = table_ops.extract_groups_with_streams(
-                counted, pruned=False
+        with profiling.PhaseClock(stats, self.device, phase="extract"):
+            if counted is not None:
+                host_all, streams = table_ops.extract_groups_with_streams(
+                    counted, pruned=False
+                )
+                del counted
+            groups = nonacgt.regroup_with_exceptions(
+                host_all, streams, reads, k=cfg.k, m=cfg.m, n_win=cfg.windows_per_read,
             )
-            del counted
-        groups = nonacgt.regroup_with_exceptions(
-            host_all, streams, reads, k=cfg.k, m=cfg.m, n_win=cfg.windows_per_read,
-        )
-        clock.stop()
-        return groups, stats, clock
+        return groups, stats
 
     def _assemble_nonacgt(self, reads: Sequence[str], engine: str, verbose: bool):
         """Exact parity for read sets containing non-ACGT bytes: the
         regrouped string groups (raw bytes preserved) feed either replay
         engine; pruning happens inside the replay as always."""
-        groups, stats, clock = self._nonacgt_groups(reads)
-        return self._replay(
-            stats, clock, lambda: self._replay_string_groups(groups, engine, verbose)
-        )
+        groups, stats = self._nonacgt_groups(reads)
+        with profiling.PhaseClock(stats, self.device) as clock:
+            return self._replay(
+                stats, clock, lambda: self._replay_string_groups(groups, engine, verbose)
+            )
 
     def _replay_string_groups(self, groups, engine: str, verbose: bool):
         """Insertion-ordered string groups -> replay engine -> output."""
@@ -932,7 +911,7 @@ class ParityAssembler:
         """Pruned table as STRING groups [(mmer, kmer, ids)] -- the form
         that can carry raw non-ACGT key bytes (the reference stores raw
         bytes in uncomplemented keys)."""
-        groups, _, _ = self._nonacgt_groups(reads)
+        groups, _ = self._nonacgt_groups(reads)
         return nonacgt.prune_groups(groups, self.config.abundance_cutoff)
 
     def expanded_table(self, reads: Sequence[str], engine: str = "auto"):

@@ -16,6 +16,13 @@ The device half (``build_unitig_links_join``, ``pointer_jump``) works on
 tensors; the string assembly (``materialize_unitigs`` and below) is host
 numpy, fed from ``.cpu().numpy()``.  State ids are int64 here (torch
 indexes with int64); the JAX package carries them as int32.
+
+Both materializers time the same steps as spans of the run in progress
+(``utils/profiling.span``): ``readback``, ``revcomp`` (all 2N states on
+the host; the chain heads alone on the device path), ``cycles``, ``sort``
+(the walk sort), ``spell`` (the byte buffer) and ``strands``
+(``_canonical_chain_strings``).  Every array they read back counts as
+``d2h_bytes``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 
 from genome_assembly_tpu_torch.common import SENTINEL
 from genome_assembly_tpu_torch.ops import encode
+from genome_assembly_tpu_torch.utils import profiling
 
 
 class CompactedGraph(NamedTuple):
@@ -327,8 +335,10 @@ def build_unitig_links_parked(
         s = c * chunk_nodes
         kc, vc = kmer[s: s + chunk_nodes], valid[s: s + chunk_nodes]
         if keys_hosted:
-            kc = torch.from_numpy(np.ascontiguousarray(kc)).to(link_device)
-            vc = torch.from_numpy(np.ascontiguousarray(vc)).to(link_device)
+            kc = torch.from_numpy(np.ascontiguousarray(kc))
+            vc = torch.from_numpy(np.ascontiguousarray(vc))
+            profiling.count("h2d_bytes", kc.nbytes + vc.nbytes)
+            kc, vc = kc.to(link_device), vc.to(link_device)
         if kc.shape[0] < chunk_nodes:
             pad = chunk_nodes - kc.shape[0]
             kc = torch.cat([kc, kc.new_full((pad,), SENTINEL)])
@@ -350,7 +360,9 @@ def build_unitig_links_parked(
             src_c, dst_c, n_dev = _compact_edges(src, dst)
             del src, dst
             n_edges = int(n_dev)
-            next_host[src_c[:n_edges].cpu().numpy()] = dst_c[:n_edges].cpu().numpy()
+            src_h, dst_h = src_c[:n_edges].cpu().numpy(), dst_c[:n_edges].cpu().numpy()
+            profiling.count("d2h_bytes", src_h.nbytes + dst_h.nbytes)
+            next_host[src_h] = dst_h
         else:
             _scatter_edges(next_state, src, dst)
         if on_event is not None:
@@ -544,8 +556,12 @@ _CODE_CHARS = np.frombuffer(b"TGCA", dtype=np.uint8)
 
 
 def _host(x) -> np.ndarray:
+    """x as a numpy array; a tensor is read back, its bytes counted as
+    ``d2h_bytes``."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        out = x.detach().cpu().numpy()
+        profiling.count("d2h_bytes", out.nbytes)
+        return out
     return np.asarray(x)
 
 
@@ -710,13 +726,14 @@ def _canonical_chain_strings(
 def _materialize(
     kmer, valid, graph: CompactedGraph, k: int, node_counts
 ) -> Tuple[List[str], np.ndarray, np.ndarray]:
-    # the int64 key IS the full 2k-bit packed value
-    value = _host(kmer).astype(np.uint64)
-    valid = _host(valid)
-    next_state = _host(graph.next_state)
-    head = _host(graph.head)
-    rank = _host(graph.rank).astype(np.int64)
-    is_cycle = _host(graph.is_cycle)
+    with profiling.span("readback"):
+        # the int64 key IS the full 2k-bit packed value
+        value = _host(kmer).astype(np.uint64)
+        valid = _host(valid)
+        next_state = _host(graph.next_state)
+        head = _host(graph.head)
+        rank = _host(graph.rank).astype(np.int64)
+        is_cycle = _host(graph.is_cycle)
 
     n = value.shape[0]
     kmask = (np.uint64(1) << np.uint64(2 * k)) - np.uint64(1)
@@ -728,72 +745,77 @@ def _materialize(
             out = (out << np.uint64(2)) | ((comp >> np.uint64(2 * j)) & np.uint64(3))
         return out
 
-    state_val = np.empty(2 * n, dtype=np.uint64)
-    state_val[0::2] = value
-    state_val[1::2] = rc_val(value)
-    node_valid = np.repeat(valid, 2)
+    with profiling.span("revcomp"):
+        state_val = np.empty(2 * n, dtype=np.uint64)
+        state_val[0::2] = value
+        state_val[1::2] = rc_val(value)
+        node_valid = np.repeat(valid, 2)
 
-    # --- cycles ---
-    cyc_states = np.flatnonzero(is_cycle & node_valid)
-    if cyc_states.size:
-        cycle_strings, cycle_sums, cycle_lens = _materialize_cycles(
-            next_state, head, cyc_states, state_val[cyc_states], k,
-            node_counts,
-        )
-    else:
-        cycle_strings, cycle_sums, cycle_lens = [], [], []
+    with profiling.span("cycles"):
+        cyc_states = np.flatnonzero(is_cycle & node_valid)
+        if cyc_states.size:
+            cycle_strings, cycle_sums, cycle_lens = _materialize_cycles(
+                next_state, head, cyc_states, state_val[cyc_states], k,
+                node_counts,
+            )
+        else:
+            cycle_strings, cycle_sums, cycle_lens = [], [], []
 
     # --- linear chains: vectorized assembly ---
-    lin_mask = node_valid & ~is_cycle
-    lin_states = np.flatnonzero(lin_mask)
-    if lin_states.size == 0:
-        return (
-            cycle_strings,
-            np.asarray(cycle_sums, dtype=np.int64),
-            np.asarray(cycle_lens, dtype=np.int64),
-        )
+    with profiling.span("sort"):
+        lin_mask = node_valid & ~is_cycle
+        lin_states = np.flatnonzero(lin_mask)
+        if lin_states.size == 0:
+            return (
+                cycle_strings,
+                np.asarray(cycle_sums, dtype=np.int64),
+                np.asarray(cycle_lens, dtype=np.int64),
+            )
 
-    order = np.lexsort((rank[lin_states], head[lin_states]))
-    s_sorted = lin_states[order]
-    h_sorted = head[lin_states][order]
-    chain_start = np.empty(len(s_sorted), dtype=bool)
-    chain_start[0] = True
-    chain_start[1:] = h_sorted[1:] != h_sorted[:-1]
-    starts = np.flatnonzero(chain_start)
-    chain_lens = np.diff(np.append(starts, len(s_sorted)))
-    out_lens = chain_lens + (k - 1)
+        order = np.lexsort((rank[lin_states], head[lin_states]))
+        s_sorted = lin_states[order]
+        h_sorted = head[lin_states][order]
+        chain_start = np.empty(len(s_sorted), dtype=bool)
+        chain_start[0] = True
+        chain_start[1:] = h_sorted[1:] != h_sorted[:-1]
+        starts = np.flatnonzero(chain_start)
+        chain_lens = np.diff(np.append(starts, len(s_sorted)))
+        out_lens = chain_lens + (k - 1)
 
-    # flat byte buffer: chain c occupies [out_off[c], out_off[c] + out_lens[c])
-    out_off = np.zeros(len(starts) + 1, dtype=np.int64)
-    np.cumsum(out_lens, out=out_off[1:])
-    buf = np.empty(out_off[-1], dtype=np.uint8)
+    with profiling.span("spell"):
+        # flat byte buffer: chain c occupies [out_off[c], out_off[c] + out_lens[c])
+        out_off = np.zeros(len(starts) + 1, dtype=np.int64)
+        np.cumsum(out_lens, out=out_off[1:])
+        buf = np.empty(out_off[-1], dtype=np.uint8)
 
-    # first k characters of each chain: decode the head state's value
-    first_vals = state_val[s_sorted[starts]]
-    for j in range(k):
-        shift = np.uint64(2 * (k - 1 - j))
-        buf[out_off[:-1] + j] = _CODE_CHARS[
-            ((first_vals >> shift) & np.uint64(3)).astype(np.int64)
+        # first k characters of each chain: decode the head state's value
+        first_vals = state_val[s_sorted[starts]]
+        for j in range(k):
+            shift = np.uint64(2 * (k - 1 - j))
+            buf[out_off[:-1] + j] = _CODE_CHARS[
+                ((first_vals >> shift) & np.uint64(3)).astype(np.int64)
+            ]
+        # subsequent states contribute their last base at position k-1+rank
+        chain_id = np.cumsum(chain_start) - 1
+        not_first = ~chain_start
+        pos = out_off[chain_id[not_first]] + (k - 1) + rank[s_sorted[not_first]]
+        buf[pos] = _CODE_CHARS[
+            (state_val[s_sorted[not_first]] & np.uint64(3)).astype(np.int64)
         ]
-    # subsequent states contribute their last base at position k-1+rank
-    chain_id = np.cumsum(chain_start) - 1
-    not_first = ~chain_start
-    pos = out_off[chain_id[not_first]] + (k - 1) + rank[s_sorted[not_first]]
-    buf[pos] = _CODE_CHARS[
-        (state_val[s_sorted[not_first]] & np.uint64(3)).astype(np.int64)
-    ]
 
-    # per-chain coverage: occurrence counts summed over member nodes
-    chain_sums = None
-    if node_counts is not None:
-        chain_sums = np.add.reduceat(
-            node_counts[s_sorted >> 1].astype(np.int64), starts
+        # per-chain coverage: occurrence counts summed over member nodes
+        chain_sums = None
+        if node_counts is not None:
+            chain_sums = np.add.reduceat(
+                node_counts[s_sorted >> 1].astype(np.int64), starts
+            )
+        all_bytes = buf.tobytes()
+
+    with profiling.span("strands"):
+        return _canonical_chain_strings(
+            all_bytes, out_off, chain_lens, chain_sums,
+            cycle_strings, cycle_sums, cycle_lens,
         )
-
-    return _canonical_chain_strings(
-        buf.tobytes(), out_off, chain_lens, chain_sums,
-        cycle_strings, cycle_sums, cycle_lens,
-    )
 
 
 _ASCII_TGCA = torch.tensor(list(b"TGCA"), dtype=torch.uint8)
@@ -843,7 +865,8 @@ def _host_state_vals(kmer, k: int, sids: np.ndarray) -> np.ndarray:
     are gathered where ``kmer`` lies and only they come to the host."""
     node = torch.from_numpy(np.asarray(sids, dtype=np.int64) >> 1)
     if isinstance(kmer, torch.Tensor):
-        v = kmer[node.to(kmer.device)].cpu().numpy().astype(np.uint64)
+        profiling.count("h2d_bytes", node.nbytes)
+        v = _host(kmer[node.to(kmer.device)]).astype(np.uint64)
     else:
         v = np.asarray(kmer)[node.numpy()].astype(np.uint64)
     odd = (np.asarray(sids) & 1).astype(bool)
@@ -879,67 +902,79 @@ def materialize_unitigs_device(
         raise ValueError(
             f"{graph.head.shape[0]} states: the device walk sort packs state ids "
             f"and ranks into one int64 and takes at most {MAX_WALK_STATES}")
-    kmer = torch.as_tensor(kmer).to(device)
-    valid = torch.as_tensor(valid).to(device)
-    n_cyc = int(_count_cycle_nodes(valid, graph.is_cycle))
+    if not (isinstance(kmer, torch.Tensor) and kmer.device == device):
+        kmer = torch.as_tensor(kmer)
+        profiling.count("h2d_bytes", kmer.nbytes)
+    if not (isinstance(valid, torch.Tensor) and valid.device == device):
+        valid = torch.as_tensor(valid)
+        profiling.count("h2d_bytes", valid.nbytes)
+    kmer, valid = kmer.to(device), valid.to(device)
     cycle_strings: List[str] = []
     cycle_sums: List[int] = []
     cycle_lens: List[int] = []
-    if n_cyc:
-        cyc_states = torch.nonzero(
-            graph.is_cycle & valid.repeat_interleave(2)).reshape(-1).cpu().numpy()
-        cycle_strings, cycle_sums, cycle_lens = _materialize_cycles(
-            _host(graph.next_state), _host(graph.head), cyc_states,
-            _host_state_vals(kmer, k, cyc_states), k,
-            None if node_counts is None else _host(node_counts),
-        )
+    with profiling.span("cycles"):
+        n_cyc = int(_count_cycle_nodes(valid, graph.is_cycle))
+        if n_cyc:
+            cyc_states = _host(torch.nonzero(
+                graph.is_cycle & valid.repeat_interleave(2)).reshape(-1))
+            cycle_strings, cycle_sums, cycle_lens = _materialize_cycles(
+                _host(graph.next_state), _host(graph.head), cyc_states,
+                _host_state_vals(kmer, k, cyc_states), k,
+                None if node_counts is None else _host(node_counts),
+            )
 
-    sid_s, chain_start, n_lin = _materialize_prep_sort(
-        valid, graph.head, graph.rank, graph.is_cycle)
-    n_lin = int(n_lin)
+    with profiling.span("sort"):
+        sid_s, chain_start, n_lin = _materialize_prep_sort(
+            valid, graph.head, graph.rank, graph.is_cycle)
+        n_lin = int(n_lin)
     if n_lin == 0:
         return (cycle_strings, np.asarray(cycle_sums, dtype=np.int64),
                 np.asarray(cycle_lens, dtype=np.int64))
-    sid_s, chain_start = sid_s[:n_lin], chain_start[:n_lin]
-    byte_np = _materialize_prep_bytes(kmer, sid_s, k=k).cpu().numpy()
-    if node_counts is None:
-        # thin read-back: the byte lane, and the chain starts with their
-        # head states (O(chains) ints); chain geometry from starts alone
-        starts_dev = torch.nonzero(chain_start).reshape(-1)
-        starts = starts_dev.cpu().numpy()
-        head_sids = sid_s[starts_dev].cpu().numpy()
-        sid_np = None
-    else:
-        # coverage needs every state's node count: the state lane comes back
-        sid_np = sid_s.cpu().numpy()
-        starts = np.flatnonzero(chain_start.cpu().numpy())
-        head_sids = sid_np[starts]
+    with profiling.span("readback"):
+        sid_s, chain_start = sid_s[:n_lin], chain_start[:n_lin]
+        byte_np = _host(_materialize_prep_bytes(kmer, sid_s, k=k))
+        if node_counts is None:
+            # thin read-back: the byte lane, and the chain starts with their
+            # head states (O(chains) ints); chain geometry from starts alone
+            starts_dev = torch.nonzero(chain_start).reshape(-1)
+            starts = _host(starts_dev)
+            head_sids = _host(sid_s[starts_dev])
+            sid_np = None
+        else:
+            # coverage needs every state's node count: the state lane comes back
+            sid_np = _host(sid_s)
+            starts = np.flatnonzero(_host(chain_start))
+            head_sids = sid_np[starts]
 
-    n_chains = len(starts)
-    chain_lens = np.diff(np.append(starts, n_lin))
-    out_off = np.zeros(n_chains + 1, dtype=np.int64)
-    np.cumsum(chain_lens + (k - 1), out=out_off[1:])
-    buf = np.empty(out_off[-1], dtype=np.uint8)
     # a head state gives the chain its first k-1 bases; its LAST base comes
     # through the byte lane like every other state's
-    first_vals = _host_state_vals(kmer, k, head_sids)
-    for j in range(k - 1):
-        shift = np.uint64(2 * (k - 1 - j))
-        buf[out_off[:-1] + j] = _CODE_CHARS[
-            ((first_vals >> shift) & np.uint64(3)).astype(np.int64)
-        ]
-    chain_id = np.repeat(np.arange(n_chains, dtype=np.int64), chain_lens)
-    local_i = np.arange(n_lin, dtype=np.int64) - starts[chain_id]
-    buf[out_off[chain_id] + (k - 1) + local_i] = byte_np
+    with profiling.span("revcomp"):
+        first_vals = _host_state_vals(kmer, k, head_sids)
+    with profiling.span("spell"):
+        n_chains = len(starts)
+        chain_lens = np.diff(np.append(starts, n_lin))
+        out_off = np.zeros(n_chains + 1, dtype=np.int64)
+        np.cumsum(chain_lens + (k - 1), out=out_off[1:])
+        buf = np.empty(out_off[-1], dtype=np.uint8)
+        for j in range(k - 1):
+            shift = np.uint64(2 * (k - 1 - j))
+            buf[out_off[:-1] + j] = _CODE_CHARS[
+                ((first_vals >> shift) & np.uint64(3)).astype(np.int64)
+            ]
+        chain_id = np.repeat(np.arange(n_chains, dtype=np.int64), chain_lens)
+        local_i = np.arange(n_lin, dtype=np.int64) - starts[chain_id]
+        buf[out_off[chain_id] + (k - 1) + local_i] = byte_np
 
-    chain_sums = None
-    if node_counts is not None:
-        chain_sums = np.add.reduceat(
-            _host(node_counts)[sid_np >> 1].astype(np.int64), starts)
-    return _canonical_chain_strings(
-        buf.tobytes(), out_off, chain_lens, chain_sums,
-        cycle_strings, cycle_sums, cycle_lens,
-    )
+        chain_sums = None
+        if node_counts is not None:
+            chain_sums = np.add.reduceat(
+                _host(node_counts)[sid_np >> 1].astype(np.int64), starts)
+        all_bytes = buf.tobytes()
+    with profiling.span("strands"):
+        return _canonical_chain_strings(
+            all_bytes, out_off, chain_lens, chain_sums,
+            cycle_strings, cycle_sums, cycle_lens,
+        )
 
 
 def materialize_unitigs_partitioned(kmer, valid, graph: CompactedGraph, k: int,

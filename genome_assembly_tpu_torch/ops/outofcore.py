@@ -28,6 +28,13 @@ record just past the slice still belongs to the partition), never
 dropped in silence; the count re-extracts such a partition alone with a
 larger cap.
 
+Steps of a pass are spans of the run in progress (``utils/profiling``):
+``extract`` (each unit's extraction into the staging buffers, and the
+pass's one read-back of its overflow flags), ``partition`` (a partition's
+count, its read-back included) and ``reextract``; the kept keys parked on
+the host count as ``d2h_bytes``, and those sent back to the device as
+``h2d_bytes``.
+
 Conventions of this package: one int64 key lane (``SENTINEL`` for an
 invalid slot) where the JAX package carries two uint32 lanes; the hashes
 run on that key's lanes ``hi = key >> 32``, ``lo = key & 0xFFFFFFFF`` in
@@ -61,6 +68,7 @@ from genome_assembly_tpu_torch.common import (
 from genome_assembly_tpu_torch.ops import count as count_ops
 from genome_assembly_tpu_torch.ops.minimizer import WindowRecords
 from genome_assembly_tpu_torch.parity.table import HostTable
+from genome_assembly_tpu_torch.utils import profiling
 
 # Maximum partitions extracted per re-scan pass (the JAX package bounds
 # the unrolled slices of its extraction executable with it; here it keeps
@@ -272,24 +280,27 @@ def stage_group(records, n_units: int, extract, group, *, partitions: int,
     parts = ovf_sum = pids = None
     for u in range(n_units):
         lanes = records(u)
-        if parts is None:
-            device = lanes[0].device
-            pids = int(group) if isinstance(group, (int, np.integer)) else \
-                torch.from_numpy(group).to(device)
-            parts = [[torch.empty(n_units * cap_bp, dtype=dt, device=device) for dt in dtypes]
-                     for _ in range(group_size)]
-            ovf_sum = torch.zeros(group_size, dtype=torch.int64, device=device)
-        *rows, ovf = extract(*lanes, pids, partitions=partitions, group_size=group_size,
-                             cap_bp=cap_bp)
-        del lanes
-        for r, bufs in enumerate(parts):
-            for buf, lane in zip(bufs, rows):
-                buf[u * cap_bp: (u + 1) * cap_bp] = lane[r]
-        ovf_sum += ovf
-        del rows, ovf
+        with profiling.span("extract"):
+            if parts is None:
+                device = lanes[0].device
+                pids = int(group) if isinstance(group, (int, np.integer)) else \
+                    torch.from_numpy(group).to(device)
+                parts = [[torch.empty(n_units * cap_bp, dtype=dt, device=device)
+                          for dt in dtypes] for _ in range(group_size)]
+                ovf_sum = torch.zeros(group_size, dtype=torch.int64, device=device)
+            *rows, ovf = extract(*lanes, pids, partitions=partitions, group_size=group_size,
+                                 cap_bp=cap_bp)
+            del lanes
+            for r, bufs in enumerate(parts):
+                for buf, lane in zip(bufs, rows):
+                    buf[u * cap_bp: (u + 1) * cap_bp] = lane[r]
+            ovf_sum += ovf
+            del rows, ovf
         if on_unit is not None:
             on_unit(u + 1)
-    return parts, ovf_sum.tolist()
+    with profiling.span("extract"):
+        profiling.count("d2h_bytes", ovf_sum.nbytes)
+        return parts, ovf_sum.tolist()
 
 
 def _reextract(records, n_units, p, *, extract, partitions, cap0, unit_records, what,
@@ -319,8 +330,11 @@ def _reextract(records, n_units, p, *, extract, partitions, cap0, unit_records, 
                 break
             real = rows[0][0] != fill  # the first lane of the one partition
             pieces.append([lane[0][real].cpu() for lane in rows])
+            profiling.count("d2h_bytes", sum(x.nbytes for x in pieces[-1]))
         if not overflowed or cap >= unit_records:
-            return [torch.cat(lane).to(device) for lane in zip(*pieces)]
+            lanes = [torch.cat(lane) for lane in zip(*pieces)]
+            profiling.count("h2d_bytes", sum(x.nbytes for x in lanes))
+            return [lane.to(device) for lane in lanes]
 
 
 # ---------------------------------------------------------------------------
@@ -445,6 +459,8 @@ class _KeptKeys:
 
     def result(self, device, return_host: bool, **fields) -> PartitionedCount:
         key = np.concatenate(self.parts) if self.parts else np.zeros(0, np.int64)
+        if not return_host:
+            profiling.count("h2d_bytes", key.nbytes)
         kmer = key if return_host else torch.from_numpy(key).to(device)
         return PartitionedCount(kmer=kmer, valid=kmer != SENTINEL, n_distinct=self.n_distinct,
                                 n_kept=self.n_kept, **fields)
@@ -462,11 +478,14 @@ def _count_kept(keys: torch.Tensor, *, cutoff: int, hybrid_sort: bool = False):
     recs = WindowRecords(mmer=keys[:0].int(), kmer=keys, valid=keys != SENTINEL)
     kc = count_ops.count_keys(recs, cutoff=cutoff, hybrid_sort=hybrid_sort)
     del recs, keys
-    n_distinct, n_kept = torch.stack(
-        [(kc.group_start & kc.valid).sum(), kc.keep.sum()]).tolist()
+    both = torch.stack([(kc.group_start & kc.valid).sum(), kc.keep.sum()])
+    profiling.count("d2h_bytes", both.nbytes)
+    n_distinct, n_kept = both.tolist()
     kept, _ = count_ops.kept_keys_sorted(kc)
     del kc
-    return kept[:n_kept].cpu().numpy(), n_distinct, n_kept
+    kept = kept[:n_kept].cpu().numpy()
+    profiling.count("d2h_bytes", kept.nbytes)
+    return kept, n_distinct, n_kept
 
 
 def _count_groups(groups, records, n_units, extract, *, partitions, unit_records, dtypes,
@@ -506,13 +525,18 @@ def _count_groups(groups, records, n_units, extract, *, partitions, unit_records
             elif group_overflows[r]:
                 overflowed.append(p)
             else:
-                count_partition(p, lanes)
+                with profiling.span("partition"):
+                    count_partition(p, lanes)
             del lanes
         del parts
         for p in overflowed:
-            count_partition(p, _reextract(
-                records, n_units, p, extract=extract, partitions=partitions, cap0=cap,
-                unit_records=unit_records, what=what, fill=fill))
+            with profiling.span("reextract"):
+                lanes = _reextract(
+                    records, n_units, p, extract=extract, partitions=partitions, cap0=cap,
+                    unit_records=unit_records, what=what, fill=fill)
+            with profiling.span("partition"):
+                count_partition(p, lanes)
+            del lanes
     return passes
 
 

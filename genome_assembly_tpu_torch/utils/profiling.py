@@ -1,4 +1,5 @@
-"""Profiler hooks on ``torch.profiler``: the CLI's ``--trace DIR``.
+"""Profiler hooks on ``torch.profiler`` (the CLI's ``--trace DIR``) and the
+one recorder of a run's phases, steps and counters.
 
 ``maybe_trace(dir)`` records the host's operator calls and, where a CUDA
 device is present, the card's kernels, copies and sets, and writes them on
@@ -11,15 +12,31 @@ Systems sees the pipeline's phases too.
 A trace taken where a card is present must hold the card's activity: if
 the profiler cannot record it (no CUPTI) or recorded none, ``maybe_trace``
 raises instead of writing a host-only trace.
+
+``PhaseClock`` times the phases of one run into its ``PhaseStats``
+(models/pipeline.py).  While it is open it is the active recorder, held in
+a context variable, so code anywhere below the run reports to it:
+``span(step)`` times a step of the phase in progress as ``<phase>.<step>``
+(one ``annotate`` range, its seconds summed into ``spans_s``) and
+``count(name, n)`` adds to the run's counter ``name`` (``counts``).  With
+no open clock (ops called directly, the tools, the tests) a span is only
+its range, named by the step, and a count does nothing.  Neither ever
+synchronizes a device or reads anything back: a span over device work
+ends where the step's own code first waits for it.  While a trace is
+being recorded, a phase that counted something ends with one zero-length
+range a counter, ``<phase>.<counter>=<n>``, so the trace carries the
+counts beside the spans (the benchmark's readers find both there).
 """
 
 from __future__ import annotations
 
+import contextvars
 import os
 import pathlib
+import threading
 import time
 from contextlib import contextmanager
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -72,3 +89,111 @@ def annotate(name: str) -> Iterator[None]:
         finally:
             if nvtx:
                 torch.cuda.nvtx.range_pop()
+
+
+_RECORDER: contextvars.ContextVar[Optional["PhaseClock"]] = contextvars.ContextVar(
+    "genome_assembly_tpu_torch_recorder", default=None)
+
+
+class PhaseClock:
+    """Times the phases of one run into ``stats.wall_s``, its steps into
+    ``stats.spans_s`` and its counters into ``stats.counts``.
+
+    ``start(name)`` ends the phase in progress and begins ``name``,
+    ``stop()`` ends the last.  Ending a phase first synchronizes every CUDA
+    device the clock was given, so its seconds hold its device work.  Each
+    phase is one range of its name in a trace (``annotate``).  The clock is
+    the active recorder from its making until ``close()``; use it as a
+    context manager, whose exit closes it: after an exception the phase in
+    progress ends without a synchronize or a reading, so no range stays
+    open and no recorder stays active."""
+
+    def __init__(self, stats, *devices: torch.device, phase: Optional[str] = None):
+        self.stats = stats
+        self.devices = {torch.device(d) for d in devices}
+        self.name = self._range = None
+        self._counted: Dict[str, int] = {}
+        self._lock = threading.Lock()
+        self._token = _RECORDER.set(self)
+        if phase is not None:
+            self.start(phase)
+
+    def __enter__(self) -> "PhaseClock":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close(ok=exc_type is None)
+
+    def start(self, name: str) -> None:
+        self.stop()
+        self._range = annotate(name)
+        self._range.__enter__()
+        self.name = name
+        self._counted = dict(self.stats.counts)
+        self.t = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.name is None:
+            return
+        for device in self.devices:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        self.stats.wall_s[self.name] = self.stats.wall_s.get(self.name, 0.0) + now - self.t
+        if torch.autograd.profiler._is_profiler_enabled:
+            for counter, n in self.stats.counts.items():
+                if n != self._counted.get(counter, 0):
+                    with torch.profiler.record_function(
+                            f"{self.name}.{counter}={n - self._counted.get(counter, 0)}"):
+                        pass
+        self._end_phase()
+
+    def close(self, ok: bool = True) -> None:
+        """End the phase in progress (timed when ``ok``) and stop being the
+        active recorder.  Idempotent."""
+        try:
+            if ok:
+                self.stop()
+        finally:
+            self._end_phase()
+            if self._token is not None:
+                _RECORDER.reset(self._token)
+                self._token = None
+
+    def _end_phase(self) -> None:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        self.name = self._range = None
+
+    def add_span(self, name: str, seconds: float) -> None:
+        spans = self.stats.spans_s
+        spans[name] = spans.get(name, 0.0) + seconds
+
+    def add_count(self, name: str, n: int) -> None:
+        # the feeder's worker thread counts too
+        with self._lock:
+            self.stats.counts[name] = self.stats.counts.get(name, 0) + n
+
+
+@contextmanager
+def span(step: str) -> Iterator[None]:
+    """Time ``step`` of the active recorder's phase in progress as
+    ``<phase>.<step>`` (one ``annotate`` range; seconds summed into its
+    ``spans_s``).  With no recorder: the range alone, named ``step``."""
+    recorder = _RECORDER.get()
+    phase = None if recorder is None else recorder.name
+    name = step if phase is None else f"{phase}.{step}"
+    with annotate(name):
+        t = time.perf_counter()
+        yield
+        if recorder is not None:
+            recorder.add_span(name, time.perf_counter() - t)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` (a host int, such as an array's ``nbytes``: never a device
+    value) to the active recorder's counter ``name``; nothing without a
+    recorder."""
+    recorder = _RECORDER.get()
+    if recorder is not None:
+        recorder.add_count(name, n)

@@ -135,4 +135,7 @@ def test_both_clis_count_checkpoints_agree(tmp_path, capsys, mode):
     recs = [json.loads((tmp_path / f"{name}.jsonl").read_text()) for name in ("jax", "port")]
     for rec in recs:
         rec.pop("ts"), rec.pop("wall_s"), rec.pop("run")
+    # the port's record ends with the run's own record of itself
+    own = [recs[1].pop(f) for f in ("phase_s", "spans_s", "counts")]
+    assert list(own[0]) == ["batch", "scan", "count"] and own[2]["h2d_bytes"] > 0
     assert recs[0] == recs[1] and recs[0]["event"] == "count"

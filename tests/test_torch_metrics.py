@@ -5,7 +5,8 @@
 order, ``ts`` and ``wall_s`` left out (clock readings); both CLIs'
 ``assemble --metrics --cpu`` write one ``assemble`` record with the same
 fields and counts, in parity mode on the goldens' input (k 6, m 3) and in
-fast mode on a generated read set.
+fast mode on a generated read set; the port's record then carries the
+run's ``phase_s``, ``spans_s`` and ``counts``.
 """
 
 import io
@@ -86,8 +87,13 @@ def test_both_clis_assemble_metrics_agree(tmp_path, capsys, mode):
     for name in ("jax", "port"):
         (line,) = (tmp_path / f"{name}.jsonl").read_text().splitlines()
         recs[name] = json.loads(line)
+    # the port's record ends with the run's own record of itself
+    own = {f: recs["port"].pop(f) for f in ("phase_s", "spans_s", "counts")}
     assert list(recs["port"]) == list(recs["jax"]) == [
         "ts", "run", "event", "wall_s", "mode", "k", "m", *fields]
+    assert own["phase_s"] and all(v > 0 for v in own["counts"].values())
+    assert set(own["counts"]) == ({"h2d_bytes", "d2h_bytes"} if mode == "fast"
+                                  else {"h2d_bytes"})
     for rec in recs.values():
         rec.pop("ts"), rec.pop("wall_s"), rec.pop("run")
     assert recs["port"] == recs["jax"]

@@ -278,7 +278,7 @@ def test_clean_reads_through_the_exception_path_are_unchanged():
     reads = [r for r in _dirty_reads() if frozenset("ACGT").issuperset(r)]
     _, tasm = _pair()
     clean, _ = tasm.assemble(reads, engine="native")
-    groups, _, _ = tasm._nonacgt_groups(reads)
+    groups, _ = tasm._nonacgt_groups(reads)
     assert replay_native.assemble_groups(groups, 6, 3, 1) == clean
 
 
@@ -348,7 +348,7 @@ def test_outofcore_nonacgt_equals_in_core():
     for verbose in (False, True):
         assert ooc.assemble(reads, engine="python", verbose=verbose)[0] == \
             incore.assemble(reads, engine="python", verbose=verbose)[0]
-    groups, stats, _ = ooc._nonacgt_groups(reads)
+    groups, stats = ooc._nonacgt_groups(reads)
     assert groups == incore._nonacgt_groups(reads)[0]
     assert set(stats.wall_s) == {"batch", "count", "extract"}
 
