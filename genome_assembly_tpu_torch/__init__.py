@@ -8,7 +8,8 @@ in-core path on one device,
   hand-written CUDA kernel csrc/fast_scan.cu on a CUDA tensor, its plain
   tensor version on a CPU tensor) -> ops.count.count_keys ->
   ops.count.kept_keys_sorted -> ops.dbg.build_unitig_links_join ->
-  ops.dbg.pointer_jump -> ops.dbg.materialize_unitigs (host numpy)
+  ops.dbg.pointer_jump -> ops.dbg.materialize_unitigs_device (the walk
+  sort on the device, the strings on the host)
 
 A packed k-mer is ONE int64 key, the plain 2k-bit MSB-first value (the
 JAX package's ``(hi << 32) | lo``); the padding sentinel is int64 max

@@ -1,7 +1,8 @@
 """End-to-end assembly pipelines.
 
 Fast mode (``FastAssembler``): ingest (host) -> canonical scan -> count ->
-prune -> links -> pointer jump -> materialize (host).
+prune -> links -> pointer jump -> materialize (the walk sort on the device,
+the strings on the host).
 
 Parity mode (``ParityAssembler``): ingest with the reference's ``fgets``
 quirks (host) -> signature scan -> count with read-id and stream payloads
@@ -121,6 +122,25 @@ def _extension_graph(kmer, valid, *, k: int, clock: profiling.PhaseClock,
     else:
         graph = dbg.pointer_jump(links)
     return graph
+
+
+def _materialize_in_core(kmer, valid, graph: dbg.CompactedGraph, k: int, counts=None):
+    """(unitigs, occ_sum, n_kmers) of the in-core graph, in the host
+    materializer's order.
+
+    The walk sort runs on the device (``dbg.materialize_unitigs_device``)
+    wherever its packed int64 holds every state id, i.e. up to
+    ``dbg.MAX_WALK_STATES`` states; past that the host lexsort
+    (``materialize_unitigs`` / ``materialize_unitigs_cov``) takes it.  The
+    run's counter ``on_device`` says which ran (1 or 0).  Without
+    ``counts`` only the list is meaningful."""
+    if graph.head.shape[0] <= dbg.MAX_WALK_STATES:
+        profiling.count("on_device", 1)
+        return dbg.materialize_unitigs_device(kmer, valid, graph, k, counts)
+    profiling.count("on_device", 0)
+    if counts is None:
+        return dbg.materialize_unitigs(kmer, valid, graph, k), None, None
+    return dbg.materialize_unitigs_cov(kmer, valid, graph, k, counts)
 
 
 def _batch_source(batches, device, fn):
@@ -275,7 +295,7 @@ class FastAssembler:
             kmer, valid = kmer[:n_nodes], valid[:n_nodes]
             graph = _extension_graph(kmer, valid, k=cfg.k, clock=clock)
             clock.start("materialize")
-            out = dbg.materialize_unitigs(kmer, valid, graph, cfg.k)
+            out, _, _ = _materialize_in_core(kmer, valid, graph, cfg.k)
         stats.entries_post_extension = len(out)
         return out, stats
 
@@ -379,9 +399,7 @@ class FastAssembler:
             kmer, valid, counts = kmer[:n_nodes], valid[:n_nodes], counts[:n_nodes]
             graph = _extension_graph(kmer, valid, k=cfg.k, clock=clock)
             clock.start("materialize")
-            out, occ_sum, n_kmers = dbg.materialize_unitigs_cov(
-                kmer, valid, graph, cfg.k, counts
-            )
+            out, occ_sum, n_kmers = _materialize_in_core(kmer, valid, graph, cfg.k, counts)
         stats.entries_post_extension = len(out)
         return out, occ_sum, n_kmers, stats
 

@@ -1,6 +1,7 @@
 """Port vs JAX package: the fast-mode in-core slice as a whole (CPU).
 
-The four in-core inputs of tests/test_fast_pipeline.py go through the JAX
+The four in-core inputs of tests/test_fast_pipeline.py, and a read set
+whose graph holds cycles and hairpins, go through the JAX
 ``FastAssembler`` and the port's (``device="cpu"``): the unitig list (same
 strings, same ORDER), the coverage arrays, the per-unitig read-id arrays
 and the ``PhaseStats`` counters must be equal.  Strings and integers:
@@ -55,11 +56,25 @@ def _case(name):
     if name == "strand_invariance_k13_rc":
         reads, kw = _case("strand_invariance_k13")
         return [_rc(r) for r in reads], kw
+    if name == "cycles_hairpins_k7":
+        # tandem repeats (cycles), a read followed by its reverse complement
+        # (hairpins: the link join drops the edge from a state to its own
+        # twin), a palindromic (k-1)-mer junction (GGATCC) and a random read;
+        # every k-mer kept, several batches
+        rng = np.random.default_rng(41)
+
+        def dna(n):
+            return "".join(rng.choice(list("ACGT"), size=n))
+        hairpin = dna(40)
+        reads = [dna(12) * 6, dna(9) * 5, hairpin + _rc(hairpin),
+                 hairpin + "A" + _rc(hairpin), "ACGTGCAATCGGATCCA", dna(90)]
+        return reads, dict(k=7, m=3, parity=False, abundance_cutoff=0, max_read_len=128,
+                           batch_reads=4)
     raise KeyError(name)
 
 
 CASES = ["brute_force_k11", "clean_genome_k21", "long_sequence_k15",
-         "strand_invariance_k13", "strand_invariance_k13_rc"]
+         "strand_invariance_k13", "strand_invariance_k13_rc", "cycles_hairpins_k7"]
 
 
 def _counters(stats):
@@ -197,17 +212,22 @@ def test_outofcore_unitigs_match_jax_in_order(limits, seed):
         gstats.entries_pre_prune, gstats.entries_post_prune)
 
 
-def test_outofcore_switches_reach_every_branch(monkeypatch):
-    """The second configuration really builds its links out of core and
-    jumps with the bulk form; the first keeps the in-core join and jump."""
+def _spy(monkeypatch, calls, *names):
+    """Wrap ``dbg``'s functions ``names`` to append their name to ``calls``."""
     from genome_assembly_tpu_torch.ops import dbg as tdbg
 
-    calls = []
-    for name in ("build_unitig_links_join", "build_unitig_links_ooc", "pointer_jump",
-                 "pointer_jump_bulk", "materialize_unitigs_device"):
+    for name in names:
         real = getattr(tdbg, name)
         monkeypatch.setattr(tdbg, name, lambda *a, _r=real, _n=name, **k: (
             calls.append(_n), _r(*a, **k))[1])
+
+
+def test_outofcore_switches_reach_every_branch(monkeypatch):
+    """The second configuration really builds its links out of core and
+    jumps with the bulk form; the first keeps the in-core join and jump."""
+    calls = []
+    _spy(monkeypatch, calls, "build_unitig_links_join", "build_unitig_links_ooc",
+         "pointer_jump", "pointer_jump_bulk", "materialize_unitigs_device")
     for limits, seed in (("count", 29), ("count_links_jump", 31)):
         reads, kw = _ooc_reads(seed)
         calls.clear()
@@ -218,6 +238,95 @@ def test_outofcore_switches_reach_every_branch(monkeypatch):
         else:
             assert calls == ["build_unitig_links_ooc", "pointer_jump_bulk",
                              "materialize_unitigs_device"]
+
+
+# -- the in-core materializer: the device walk sort, the host one past its limit --
+
+@pytest.mark.parametrize("method", ["unitigs", "unitigs_with_coverage"])
+def test_incore_materializes_with_the_device_walk_sort(monkeypatch, method):
+    """In core the graph is built by the join and the fused jump, then
+    materialized by the device walk sort; the host materializer never runs,
+    and the run's counter ``on_device`` is 1."""
+    calls = []
+    _spy(monkeypatch, calls, "build_unitig_links_join", "build_unitig_links_ooc",
+         "pointer_jump", "pointer_jump_bulk", "materialize_unitigs_device",
+         "materialize_unitigs", "materialize_unitigs_cov")
+    reads, kw = _case("clean_genome_k21")
+    got = getattr(TFast(TConfig(**kw), device="cpu"), method)(reads)
+    assert calls == ["build_unitig_links_join", "pointer_jump", "materialize_unitigs_device"]
+    assert got[0] and got[-1].counts["on_device"] == 1
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_past_the_walk_sort_limit_the_host_materializes_the_same(monkeypatch, name):
+    """With ``dbg.MAX_WALK_STATES`` below the graph's states both in-core
+    routes fall back to the host materializer, counted as ``on_device`` 0:
+    the same list in the same order, and the same coverage arrays."""
+    from genome_assembly_tpu_torch.ops import dbg as tdbg
+
+    reads, kw = _case(name)
+    asm = TFast(TConfig(**kw), device="cpu")
+    device = asm.unitigs(reads)
+    device_cov = asm.unitigs_with_coverage(reads)
+    calls = []
+    _spy(monkeypatch, calls, "materialize_unitigs_device", "materialize_unitigs",
+         "materialize_unitigs_cov")
+    monkeypatch.setattr(tdbg, "MAX_WALK_STATES", 2 * device[1].entries_post_prune - 1)
+    host = asm.unitigs(reads)
+    host_cov = asm.unitigs_with_coverage(reads)
+    assert calls == ["materialize_unitigs", "materialize_unitigs_cov"]
+    assert host[0] == device[0] == device_cov[0] == host_cov[0] and host[0]
+    for h, d in zip(host_cov[1:3], device_cov[1:3]):
+        assert np.array_equal(h, d) and h.dtype == d.dtype == np.int64
+    assert device[1].counts["on_device"] == device_cov[-1].counts["on_device"] == 1
+    assert host[1].counts["on_device"] == host_cov[-1].counts["on_device"] == 0
+    assert _counters(host[1]) == _counters(device[1])
+
+
+def test_the_cycles_case_holds_cycles_hairpins_and_a_palindromic_junction(monkeypatch):
+    """The graph of ``cycles_hairpins_k7``, whose in-core lists the tests
+    above hold to the JAX package's in order, has cycles, and its reads a
+    hairpin (a palindromic (k+1)-mer) and a palindromic (k-1)-mer.  No
+    unitig is its own reverse complement at odd k: its middle (k+1)-mer
+    would be such a hairpin edge."""
+    from genome_assembly_tpu_torch.ops import dbg as tdbg
+
+    graphs = []
+    real = tdbg.pointer_jump
+    monkeypatch.setattr(tdbg, "pointer_jump",
+                        lambda *a, **k: (lambda g: (graphs.append(g), g)[1])(real(*a, **k)))
+    reads, kw = _case("cycles_hairpins_k7")
+    out, stats = TFast(TConfig(**kw), device="cpu").unitigs(reads)
+    (graph,) = graphs
+    assert bool(graph.is_cycle.any()) and stats.counts["on_device"] == 1
+    assert out and not any(u == _rc(u) for u in out)
+    k = kw["k"]
+    for width in (k + 1, k - 1):
+        assert any(r[i:i + width] == _rc(r[i:i + width])
+                   for r in reads for i in range(len(r) - width + 1))
+
+
+def test_a_traced_incore_run_marks_the_device_materializer(tmp_path):
+    """The trace of an in-core run holds ``materialize.on_device=1`` and the
+    six steps of the materializer, each inside the phase."""
+    import json
+    import pathlib
+
+    from genome_assembly_tpu_torch.utils import profiling
+
+    reads, kw = _case("clean_genome_k21")
+    with profiling.maybe_trace(str(tmp_path)):
+        TFast(TConfig(**kw), device="cpu").unitigs(reads)
+    (path,) = pathlib.Path(tmp_path).glob("*.json")
+    ranges = [(e["name"], e["ts"], e["ts"] + e["dur"])
+              for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "user_annotation"]
+    (phase,) = [r for r in ranges if r[0] == "materialize"]
+    inside = {n for n, a, b in ranges if n.startswith("materialize.")
+              and phase[1] <= a and b <= phase[2]}
+    steps = ("readback", "revcomp", "cycles", "sort", "spell", "strands")
+    assert {n for n in inside if "=" not in n} == {f"materialize.{s}" for s in steps}
+    assert "materialize.on_device=1" in inside
 
 
 def test_outofcore_hybrid_sort_matches_jax(monkeypatch):

@@ -123,7 +123,8 @@ def test_trace_holds_one_range_a_phase(tmp_path, mode):
     inner = _check_nesting(_ranges(tmp_path), phases)
     assert {n for n in inner if "=" not in n} == set(stats.spans_s)
     marks = {n.split("=")[0] for n in inner if "=" in n}
-    assert marks == ({"scan.h2d_bytes", "materialize.d2h_bytes"} if mode == "fast"
+    assert marks == ({"scan.h2d_bytes", "materialize.h2d_bytes", "materialize.d2h_bytes",
+                      "materialize.on_device"} if mode == "fast"
                      else {"scan.h2d_bytes"})
 
 
@@ -181,7 +182,7 @@ def test_a_run_that_raises_leaves_nothing_open(tmp_path, monkeypatch):
     def failing(*a, **kw):
         seen.append(profiling._RECORDER.get())
         raise RuntimeError("materializer failed")
-    monkeypatch.setattr(dbg, "materialize_unitigs", failing)
+    monkeypatch.setattr(dbg, "materialize_unitigs_device", failing)
     asm = FastAssembler(PipelineConfig(**FAST), device="cpu")
     with profiling.maybe_trace(str(tmp_path)):
         with pytest.raises(RuntimeError, match="materializer failed"):
@@ -255,15 +256,27 @@ def _staged_bytes(n_reads, config):
         config.get("max_read_len", 128) + 4 + 8)
 
 
-def test_copies_in_core_are_counted_exactly():
-    """In core the card receives each batch once and returns, to the host
-    materializer, the kept keys (8 bytes), their valid flags (1) and the
-    graph's next state, head and rank (int64) and cycle flag (bool) of both
-    strands: 59 bytes a kept key."""
+def test_copies_in_core_are_counted_exactly(monkeypatch):
+    """In core the card receives each batch once and, for the device walk
+    sort, the state id of each chain's head (8 bytes); it returns one byte
+    a linear state and, a chain, its start, its head state and the head's
+    key (24 bytes).  This genome has no cycle and no palindromic unitig, so
+    every state of the kept keys is linear and each unitig is two chains,
+    one a strand: the heads are the only states whose keys are gathered."""
+    gathered, real_vals = [], dbg._host_state_vals
+
+    def spy_vals(kmer, k, sids):
+        gathered.append(len(sids))
+        return real_vals(kmer, k, sids)
+    monkeypatch.setattr(dbg, "_host_state_vals", spy_vals)
     reads = _reads()
-    _, stats = FastAssembler(PipelineConfig(**FAST), device="cpu").unitigs(reads)
+    out, stats = FastAssembler(PipelineConfig(**FAST), device="cpu").unitigs(reads)
     staged, _ = _staged_bytes(len(reads), FAST)
-    assert stats.counts == {"h2d_bytes": staged, "d2h_bytes": 59 * stats.entries_post_prune}
+    chains = 2 * len(out)
+    assert gathered == [chains] and not any(u == dbg._rc_str(u) for u in out)
+    assert stats.counts == {"h2d_bytes": staged + 8 * chains,
+                            "d2h_bytes": 2 * stats.entries_post_prune + 24 * chains,
+                            "on_device": 1}
     assert len(treads.batch_reads(reads, 128, 32)) > 1
 
 
@@ -318,7 +331,7 @@ def test_cli_trace_and_metrics(tmp_path, capsys):
     assert record["event"] == "assemble"
     assert list(record["phase_s"]) == FAST_PHASES
     assert sorted(record["spans_s"]) == sorted(INCORE_SPANS)
-    assert set(record["counts"]) == {"h2d_bytes", "d2h_bytes"}
+    assert set(record["counts"]) == {"h2d_bytes", "d2h_bytes", "on_device"}
     assert all(v > 0 for v in record["counts"].values())
 
 
