@@ -22,7 +22,8 @@ shards share a card where there are fewer cards than shards).
 run's own record of itself (``PhaseStats``): ``phase_s``, the seconds of
 each phase; ``spans_s``, the seconds of each timed step in a phase
 (``<phase>.<step>``); ``counts``, its counters (``h2d_bytes``,
-``d2h_bytes``).  ``--trace`` writes a Chrome-trace JSON of the run, card
+``d2h_bytes``; in fast mode the scan's ``slots`` and ``windows``, and out
+of core ``staged_bytes``, ``partitions`` and ``passes``).  ``--trace`` writes a Chrome-trace JSON of the run, card
 activity included (utils/profiling.py: the phases, their steps and the
 load as ranges), ``count --checkpoint`` the counted table in the JAX
 package's format (utils/checkpoint.py).  ``bench-scaling`` times the
@@ -50,7 +51,14 @@ def _add_pipeline_args(ap: argparse.ArgumentParser) -> None:
     )
     ap.add_argument("--read-length", type=int, default=101,
                     help="parity-mode fgets buffer size (reference READ_LENGTH)")
-    ap.add_argument("--max-read-len", type=int, default=128)
+    ap.add_argument(
+        "--max-read-len",
+        type=int,
+        default=128,
+        help="the padded row length on the device: a read longer than it is "
+        "refused, so set it to at least the longest read (150 for 150-bp reads). "
+        "With --fasta, longer sequences are chunked to it",
+    )
     ap.add_argument("--batch-reads", type=int, default=16384)
     ap.add_argument("--metrics", default=None, help="append JSONL metrics here")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")

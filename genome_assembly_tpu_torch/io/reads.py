@@ -131,8 +131,9 @@ def batch_reads(
     """Encode and pad reads into fixed-shape batches.
 
     Every read (even empty ones) consumes a read id.  Reads longer than
-    ``max_len`` are rejected here; long sequences are chunked first
-    (``chunk_long_sequence``).
+    ``max_len`` are rejected here, with an error that names
+    ``max_read_len`` and the CLI's ``--max-read-len``; sequences longer
+    than reads are chunked first (``chunk_long_sequence``).
 
     parity_chars: encode with the reference's exact table (only uppercase
     TGCA are real; everything else scores as 'A') instead of the lenient
@@ -147,8 +148,11 @@ def batch_reads(
         for r in reads:
             if len(r) > max_len:
                 raise ValueError(
-                    f"read of length {len(r)} exceeds max_read_len={max_len}; "
-                    "use the long-sequence chunking path"
+                    f"read of length {len(r)} exceeds max_read_len={max_len}; raise "
+                    "max_read_len (the CLI's --max-read-len) to at least the longest "
+                    "read, e.g. --max-read-len 150 for 150-bp reads (sequences longer "
+                    "than reads, such as contigs or genomes, are chunked instead: "
+                    "unitigs_from_sequences, assemble --fasta)"
                 )
     if batch_size is None:
         batch_size = max(1, len(reads))

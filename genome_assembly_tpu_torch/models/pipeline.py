@@ -70,7 +70,9 @@ class PhaseStats:
     counts: the run's counters (``utils/profiling.count``): ``h2d_bytes``,
     the bytes handed to the device (read batches, kept keys back on the
     card), and ``d2h_bytes``, the bytes of every read-back larger than a
-    scalar.
+    scalar; in fast mode ``slots`` and ``windows`` (``_ScanTally``), and
+    out of core ``staged_bytes`` (``outofcore.stage_group``),
+    ``partitions`` and ``passes``.
     """
 
     n_reads: int = 0
@@ -141,6 +143,34 @@ def _materialize_in_core(kmer, valid, graph: dbg.CompactedGraph, k: int, counts=
     if counts is None:
         return dbg.materialize_unitigs(kmer, valid, graph, k), None, None
     return dbg.materialize_unitigs_cov(kmer, valid, graph, k, counts)
+
+
+class _ScanTally:
+    """The fast scan's counters: ``slots``, the window slots each K1
+    launch writes (rows x windows a row, padding included), counted at the
+    launch; ``windows``, the valid ones among them, summed on the device
+    into one scalar and counted by ``flush``, which reads it back.  Flush
+    only where the caller waits for the card anyway, never inside a batch
+    loop."""
+
+    def __init__(self):
+        self.total = None
+
+    def add(self, recs: minimizer.WindowRecords) -> None:
+        profiling.count("slots", recs.valid.numel())
+        n = recs.valid.sum()
+        if self.total is None:
+            self.total = n
+        else:
+            self.total += n
+
+    def flush(self) -> int:
+        """The valid windows since the last flush, counted and returned."""
+        if self.total is None:
+            return 0
+        n, self.total = int(self.total), None
+        profiling.count("windows", n)
+        return n
 
 
 def _batch_source(batches, device, fn):
@@ -313,14 +343,29 @@ class FastAssembler:
             if len(batches) > 1:
                 batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
             clock.start("count")
-            batch_keys = _batch_source(
-                batches, self.device,
-                lambda b, codes, lengths, rids:
-                    self.counter.scan(codes, lengths).kmer.reshape(-1))
+            tally = _ScanTally()
+
+            def scan_keys(b, codes, lengths, rids):
+                recs = self.counter.scan(codes, lengths)
+                tally.add(recs)
+                return recs.kmer.reshape(-1)
+
+            def pass_end(group, n_groups, done, n_batches):
+                # the pass's overflow flags are read back right after this:
+                # the windows come back with them, before the partitions are
+                # counted, so their scalar is gone by the count's peak
+                if done == n_batches:
+                    with profiling.span("extract"):
+                        tally.flush()
+
+            batch_keys = _batch_source(batches, self.device, scan_keys)
             partitions = max(1, int(np.ceil(total_slots * 8 / (cfg.outofcore_bytes / 3))))
             pc = outofcore.partitioned_count(
                 batch_keys, len(batches), partitions=partitions,
-                cutoff=cfg.abundance_cutoff, hybrid_sort=cfg.hybrid_sort)
+                cutoff=cfg.abundance_cutoff, hybrid_sort=cfg.hybrid_sort, on_progress=pass_end)
+            tally.flush()  # a re-extraction's scans
+            profiling.count("partitions", pc.partitions)
+            profiling.count("passes", pc.passes)
             stats.n_windows = total_slots
             stats.entries_pre_prune = pc.n_distinct
             stats.entries_post_prune = pc.n_kept
@@ -351,7 +396,7 @@ class FastAssembler:
         kmers, valids, rid_parts = [], [], []
         # the valid windows are summed on the device and read back once,
         # after the last batch: the scan loop itself never waits for the card
-        n_windows = torch.zeros((), dtype=torch.int64, device=self.device)
+        tally = _ScanTally()
         with stream_io.feed_read_batches(batches, self.device) as feeder:
             for codes, lengths, rids in feeder:
                 recs = self.counter.scan(codes, lengths)
@@ -361,8 +406,8 @@ class FastAssembler:
                     rid_parts.append(
                         rids[:, None].expand(recs.kmer.shape).reshape(-1)
                     )
-                n_windows += recs.valid.sum()
-        stats.n_windows += int(n_windows)
+                tally.add(recs)
+        stats.n_windows += tally.flush()
         # the main path throws the minimizers away (routing in the
         # multi-device path is what needs them)
         combined = minimizer.WindowRecords(

@@ -272,7 +272,8 @@ def stage_group(records, n_units: int, extract, group, *, partitions: int,
     buffers can be let go of alone.  The flags are summed on the device and
     read back once, at the end: the pass makes ONE synchronising call of
     its own.  ``on_unit(u + 1)`` runs after each unit's extraction is
-    queued.  Returns (parts: G lists of lanes, overflows: G ints).
+    queued.  The staging buffers' bytes are the run's counter
+    ``staged_bytes``.  Returns (parts: G lists of lanes, overflows: G ints).
     """
     if not isinstance(group, (int, np.integer)):
         group = np.asarray(group, dtype=np.int64)
@@ -287,6 +288,7 @@ def stage_group(records, n_units: int, extract, group, *, partitions: int,
                     torch.from_numpy(group).to(device)
                 parts = [[torch.empty(n_units * cap_bp, dtype=dt, device=device)
                           for dt in dtypes] for _ in range(group_size)]
+                profiling.count("staged_bytes", sum(buf.nbytes for bufs in parts for buf in bufs))
                 ovf_sum = torch.zeros(group_size, dtype=torch.int64, device=device)
             *rows, ovf = extract(*lanes, pids, partitions=partitions, group_size=group_size,
                                  cap_bp=cap_bp)
@@ -312,7 +314,8 @@ def _reextract(records, n_units, p, *, extract, partitions, cap0, unit_records, 
     unit's slice is compacted on the device and read back at its true
     size, so device memory stays at one unit's extraction.  ``fill`` is the
     first lane's value at a non-member row.  Returns the partition's lanes,
-    on the device of the records.
+    on the device of the records; their bytes are counted as
+    ``staged_bytes``.
     """
     cap = cap0
     while True:
@@ -334,6 +337,7 @@ def _reextract(records, n_units, p, *, extract, partitions, cap0, unit_records, 
         if not overflowed or cap >= unit_records:
             lanes = [torch.cat(lane) for lane in zip(*pieces)]
             profiling.count("h2d_bytes", sum(x.nbytes for x in lanes))
+            profiling.count("staged_bytes", sum(x.nbytes for x in lanes))
             return [lane.to(device) for lane in lanes]
 
 

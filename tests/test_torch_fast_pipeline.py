@@ -1,11 +1,11 @@
 """Port vs JAX package: the fast-mode in-core slice as a whole (CPU).
 
-The four in-core inputs of tests/test_fast_pipeline.py, and a read set
-whose graph holds cycles and hairpins, go through the JAX
-``FastAssembler`` and the port's (``device="cpu"``): the unitig list (same
-strings, same ORDER), the coverage arrays, the per-unitig read-id arrays
-and the ``PhaseStats`` counters must be equal.  Strings and integers:
-tolerance 0.
+The four in-core inputs of tests/test_fast_pipeline.py, a read set whose
+graph holds cycles and hairpins, and 150-bp reads in rows of 256 bases go
+through the JAX ``FastAssembler`` and the port's (``device="cpu"``): the
+unitig list (same strings, same ORDER), the coverage arrays, the
+per-unitig read-id arrays and the ``PhaseStats`` counters must be equal.
+Strings and integers: tolerance 0.
 """
 
 import dataclasses
@@ -70,11 +70,18 @@ def _case(name):
                  hairpin + "A" + _rc(hairpin), "ACGTGCAATCGGATCCA", dna(90)]
         return reads, dict(k=7, m=3, parity=False, abundance_cutoff=0, max_read_len=128,
                            batch_reads=4)
+    if name == "reads_150bp_k31":
+        # 150-bp reads in rows of 256 bases (the scan's two rounds of 128),
+        # several batches, the last one padded
+        _, reads, _ = jdatagen.generate_coverage_reads(
+            genome_len=2000, read_len=150, coverage=12, seed=17, with_reverse=True)
+        return reads, dict(k=31, m=4, parity=False, max_read_len=256, batch_reads=64)
     raise KeyError(name)
 
 
 CASES = ["brute_force_k11", "clean_genome_k21", "long_sequence_k15",
-         "strand_invariance_k13", "strand_invariance_k13_rc", "cycles_hairpins_k7"]
+         "strand_invariance_k13", "strand_invariance_k13_rc", "cycles_hairpins_k7",
+         "reads_150bp_k31"]
 
 
 def _counters(stats):
@@ -179,21 +186,26 @@ def test_everything_pruned_gives_no_unitigs():
 
 # tests/test_fast_pipeline.py's two out-of-core configurations: a tiny
 # outofcore_bytes alone (partitioned count, in-core join and jump), then with
-# the link budget and jump limit too (out-of-core links, bulk jump)
+# the link budget and jump limit too (out-of-core links, bulk jump); and the
+# 150-bp reads of CASES past a limit that gives them 4 partitions
 OOC_LIMITS = {
     "count": dict(outofcore_bytes=1 << 12),
     "count_links_jump": dict(outofcore_bytes=1 << 12, link_budget_bytes=1 << 10,
                              bulk_jump_states=8),
+    "count_150bp": dict(outofcore_bytes=1 << 18),
 }
 
 
 def _ooc_reads(seed):
+    if isinstance(seed, str):
+        return _case(seed)
     _, reads, _ = jdatagen.generate_coverage_reads(
         genome_len=900, read_len=48, coverage=8, seed=seed, with_reverse=True)
     return reads, dict(k=11, m=5, parity=False, max_read_len=64, batch_reads=128)
 
 
-@pytest.mark.parametrize("limits,seed", [("count", 29), ("count_links_jump", 31)])
+@pytest.mark.parametrize("limits,seed", [("count", 29), ("count_links_jump", 31),
+                                         ("count_150bp", "reads_150bp_k31")])
 def test_outofcore_unitigs_match_jax_in_order(limits, seed):
     """Past outofcore_bytes the port returns the JAX package's out-of-core
     list -- same strings, same ORDER (partition, then key, then the
@@ -206,6 +218,7 @@ def test_outofcore_unitigs_match_jax_in_order(limits, seed):
     assert got == want and got
     assert _counters(gstats) == _counters(wstats)
     assert set(gstats.wall_s) == {"batch", "count", "links", "jump", "materialize"}
+    assert gstats.counts["partitions"] > 1
     incore, istats = TFast(TConfig(**kw), device="cpu").unitigs(reads)
     assert sorted(incore) == sorted(got)
     assert (istats.entries_pre_prune, istats.entries_post_prune) == (

@@ -123,8 +123,8 @@ def test_trace_holds_one_range_a_phase(tmp_path, mode):
     inner = _check_nesting(_ranges(tmp_path), phases)
     assert {n for n in inner if "=" not in n} == set(stats.spans_s)
     marks = {n.split("=")[0] for n in inner if "=" in n}
-    assert marks == ({"scan.h2d_bytes", "materialize.h2d_bytes", "materialize.d2h_bytes",
-                      "materialize.on_device"} if mode == "fast"
+    assert marks == ({"scan.h2d_bytes", "scan.slots", "scan.windows", "materialize.h2d_bytes",
+                      "materialize.d2h_bytes", "materialize.on_device"} if mode == "fast"
                      else {"scan.h2d_bytes"})
 
 
@@ -276,7 +276,10 @@ def test_copies_in_core_are_counted_exactly(monkeypatch):
     assert gathered == [chains] and not any(u == dbg._rc_str(u) for u in out)
     assert stats.counts == {"h2d_bytes": staged + 8 * chains,
                             "d2h_bytes": 2 * stats.entries_post_prune + 24 * chains,
-                            "on_device": 1}
+                            "on_device": 1,
+                            # the scan's counters: every batch's slots, 40 windows a read
+                            "slots": -(-len(reads) // 32) * 32 * (128 - 21 + 1),
+                            "windows": 40 * len(reads)}
     assert len(treads.batch_reads(reads, 128, 32)) > 1
 
 
@@ -331,7 +334,7 @@ def test_cli_trace_and_metrics(tmp_path, capsys):
     assert record["event"] == "assemble"
     assert list(record["phase_s"]) == FAST_PHASES
     assert sorted(record["spans_s"]) == sorted(INCORE_SPANS)
-    assert set(record["counts"]) == {"h2d_bytes", "d2h_bytes", "on_device"}
+    assert set(record["counts"]) == {"h2d_bytes", "d2h_bytes", "on_device", "slots", "windows"}
     assert all(v > 0 for v in record["counts"].values())
 
 
