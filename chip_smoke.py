@@ -116,6 +116,8 @@ try:
     from genome_assembly_tpu_torch.ops import minimizer
     from genome_assembly_tpu_torch.ops import minimizer_cuda
     from genome_assembly_tpu_torch.ops import outofcore
+    from genome_assembly_tpu_torch.ops import pack_rows
+    from genome_assembly_tpu_torch.ops import pack_rows_cuda
     from genome_assembly_tpu_torch.ops import superkmer
     from genome_assembly_tpu_torch.parallel import comm_model
     from genome_assembly_tpu_torch.parallel import mesh as mesh_lib
@@ -298,6 +300,7 @@ SCAN_KERNELS = ("fast_scan_kernel",)
 SORT_KERNELS = ("sort_rows_kernel", "chunk_sort_kernel", "big_ce_kernel", "finish_kernel")
 MERGE_KERNELS = ("local_merge_kernel", "merge_pass_kernel", "merge_splits_kernel")
 GATHER_KERNELS = ("lane_gather_kernel",)
+PACK_KERNELS = ("pack_rows_kernel",)
 # redesigned for registers: a spill would undo the design
 NO_SPILL_KERNELS = ("fast_scan_kernel", "finish_kernel")
 
@@ -342,15 +345,17 @@ def phase_build():
     lib = bitonic_cuda._library()
     mergepath_cuda._library()
     lane_gather_cuda._load()
-    if sorted(libs) != ["bitonic", "fast_scan", "lane_gather", "mergepath"]:
-        raise AssertionError(f"expected four CUDA sources, built {sorted(libs)}")
+    pack_rows_cuda._library()
+    if sorted(libs) != ["bitonic", "fast_scan", "lane_gather", "mergepath", "pack_rows"]:
+        raise AssertionError(f"expected five CUDA sources, built {sorted(libs)}")
     # build_log holds what nvcc printed whether it built now or an earlier
     # run did (the log is kept beside each library)
     report = ptxas_report(csrc_build.build_log.get("fast_scan", ""), SCAN_KERNELS)
     report.update(ptxas_report(csrc_build.build_log.get("bitonic", ""), SORT_KERNELS))
     report.update(ptxas_report(csrc_build.build_log.get("mergepath", ""), MERGE_KERNELS))
     report.update(ptxas_report(csrc_build.build_log.get("lane_gather", ""), GATHER_KERNELS))
-    every = SCAN_KERNELS + SORT_KERNELS + MERGE_KERNELS + GATHER_KERNELS
+    report.update(ptxas_report(csrc_build.build_log.get("pack_rows", ""), PACK_KERNELS))
+    every = SCAN_KERNELS + SORT_KERNELS + MERGE_KERNELS + GATHER_KERNELS + PACK_KERNELS
     if sorted({name.split("<")[0] for name in report}) != sorted(every):
         raise AssertionError(f"ptxas reported {sorted(report)}, expected {every}")
     # what ptxas does not see is the DYNAMIC shared memory: 4.25 bytes a base
@@ -1282,6 +1287,7 @@ def phase_small_e2e(device):
 
 def reset_launch_counts():
     minimizer_cuda.launch_count = 0
+    pack_rows_cuda.launch_count = 0
     lane_gather_cuda.reset_launch_count()
     for counts in (bitonic_cuda.launch_count, mergepath_cuda.launch_count):
         for name in counts:
@@ -1289,7 +1295,8 @@ def reset_launch_counts():
 
 
 def read_launch_counts():
-    return {"fast_scan": minimizer_cuda.launch_count, **bitonic_cuda.launch_count,
+    return {"fast_scan": minimizer_cuda.launch_count, "pack_rows": pack_rows_cuda.launch_count,
+            **bitonic_cuda.launch_count,
             **mergepath_cuda.launch_count, "lane_gather": lane_gather_cuda.launch_count()}
 
 
@@ -1369,8 +1376,9 @@ def run_ecoli(device, reads, *, hybrid_sort):
     launches = read_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_batches = -(-len(reads) // cfg.batch_reads)
-    if launches["fast_scan"] != n_batches:
-        raise AssertionError(f"{launches['fast_scan']} scan launches for {n_batches} batches")
+    if launches["fast_scan"] != n_batches or launches["pack_rows"] != n_batches:
+        raise AssertionError(f"{launches['fast_scan']} scan and {launches['pack_rows']} pack "
+                             f"launches for {n_batches} batches")
     slots = n_batches * cfg.batch_reads * cfg.windows_per_read
     fields = dict(
         hybrid_sort=hybrid_sort, k=cfg.k, m=cfg.m, batch_reads=cfg.batch_reads,
@@ -1430,11 +1438,13 @@ def phase_full_e2e(device, coverage):
 # --------------------------------------------------------------------------
 
 FAST_PHASES = ("batch", "scan", "count", "links", "jump", "materialize")
-# the fields of the JAX package's fast-mode `assemble` record, in its order
+# the fields of the JAX package's fast-mode `assemble` record, in its order,
+# then the port's record of its own run (cli._record_run)
+RUN_FIELDS = ["phase_s", "spans_s", "counts"]
 ASSEMBLE_FIELDS = ["ts", "run", "event", "wall_s", "mode", "k", "m", "entries_post_prune",
-                   "n_unitigs", "n_windows"]
+                   "n_unitigs", "n_windows", *RUN_FIELDS]
 COUNT_FIELDS = ["ts", "run", "event", "wall_s", "k", "m", "n_reads", "n_windows",
-                "entries_pre_prune", "entries_post_prune"]
+                "entries_pre_prune", "entries_post_prune", *RUN_FIELDS]
 DEVICE_EVENT_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the batch the entry step is also held on: overlapping reads, most k-mers kept
 ENTRY_COVERAGE = dict(genome_len=20_000, read_len=128, coverage=16, seed=1, with_reverse=True)
@@ -1513,7 +1523,8 @@ def trace_report(device_events, ranges):
 
 
 def jsonl_record(path, fields):
-    """The one JSONL record in path, held to the JAX package's field order."""
+    """The one JSONL record in path, held to the JAX package's field order
+    and the port's run fields after them."""
     (line,) = pathlib.Path(path).read_text().splitlines()
     rec = json.loads(line)
     if list(rec) != fields:
@@ -1550,7 +1561,9 @@ def surfaces_traced_assemble(device, full, tmp):
     same = dict(
         exit_code_0=rc == 0, lines_equal_full_e2e=lines == full["unitigs"],
         k1_launches_equal_batches=launches["fast_scan"] == fields["n_batches"],
-        no_sort_kernel=not any(v for n, v in launches.items() if n != "fast_scan"),
+        k0_launches_equal_batches=launches["pack_rows"] == fields["n_batches"],
+        no_sort_kernel=not any(v for n, v in launches.items()
+                               if n not in ("fast_scan", "pack_rows")),
         metrics_equal=(rec["event"], rec["mode"], rec["k"], rec["m"], rec["entries_post_prune"],
                        rec["n_unitigs"], rec["n_windows"])
         == ("assemble", "fast", ECOLI["k"], ECOLI["m"], want["entries_post_prune"],
@@ -1598,7 +1611,7 @@ def surfaces_count_checkpoint(device, parity_runs, tmp):
         config=cfg == want_cfg,
         lanes=all(a.dtype == b.dtype and np.array_equal(a, b)
                   for a, b in zip(got_lanes, want_lanes)),
-        metrics=[rec[f] for f in COUNT_FIELDS[4:]]
+        metrics=[rec[f] for f in COUNT_FIELDS[4:-len(RUN_FIELDS)]]
         == [p["k"], p["m"], stats.n_reads, stats.n_windows, stats.entries_pre_prune,
             stats.entries_post_prune])
     return dict(cli_wall_seconds=wall, count_wall_s=rec["wall_s"], save_seconds=saves,
@@ -2622,6 +2635,51 @@ def time_lane_gather(device, launches, tally):
         "launches": launches, "launches_from": "prims (tools/bench_prims.py on the card)",
         "max_abs_err": tally[1], "mismatches": tally[0],
         **main, "kernel_ms": main["ms"], "at_int64": at_int64, "at_probe_shapes": probes,
+    }
+
+
+# the benchmark's batches: (rows, width, read length) of the 100-bp cells and
+# of the 150-bp cell
+PACK_SHAPES = ((16384, 128, 100), (16384, 256, 150))
+
+
+def time_pack_rows(device, launches):
+    """K0 at the benchmark's batches (``PACK_SHAPES``: full-length reads of
+    random bases), turn about with its plain version on the card, and queued
+    behind a spin (``device_ms``: the card's work alone, where ``ms`` is the
+    host's launch path); each checked against the plain version and against
+    ``batch_reads``'s rows first.  Bound: bytes, the bases, starts and
+    lengths read once and the rows written once."""
+    table = pack_rows.ascii_table(device)
+    shapes = []
+    for rows, width, read_len in PACK_SHAPES:
+        rng = np.random.default_rng(width)
+        letters = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, (rows, read_len))]
+        reads = [r.tobytes().decode() for r in letters]
+        (flat,) = reads_io.flat_batches(reads, width, rows)
+        (want,) = reads_io.batch_reads(reads, width, rows)
+        bases, starts, lengths = (torch.from_numpy(a.copy()).to(device)
+                                  for a in stream_io._flat_host(flat)[:3])
+        kernel = lambda: pack_rows_cuda.pack_rows_cuda(  # noqa: E731
+            bases, starts, lengths, table, width)
+        plain = lambda: pack_rows.pack_rows_plain(bases, starts, lengths, table, width)  # noqa: E731
+        want = torch.from_numpy(want.codes)
+        mismatches = int((kernel().cpu() != want).sum()) + int((plain().cpu() != want).sum())
+        times = turn_about(kernel, plain, kernel_calls=50)
+        times["device_ms"] = statistics.median(timed_ms_runs(
+            kernel, calls=50, spin_cycles=SPIN_CYCLES))
+        n_bytes = bases.numel() + 8 * rows + rows * width
+        times.update(shape=[rows, width], read_len=read_len, mismatches=mismatches,
+                     bytes=n_bytes, bound_ms=n_bytes / PEAK_BYTES_PER_S * 1e3,
+                     bound_by="bytes")
+        shapes.append(times)
+    return {
+        "name": "pack_rows", "route": "cuda",
+        "source": "genome_assembly_tpu_torch/csrc/pack_rows.cu",
+        "replaces": "none: the JAX package pads and encodes on the host",
+        "launches": launches, "launches_from": "full_e2e (one a batch)",
+        "mismatches": sum(t["mismatches"] for t in shapes),
+        **shapes[0], "kernel_ms": shapes[0]["ms"], "at_256": shapes[1],
     }
 
 
@@ -4616,6 +4674,7 @@ def main() -> int:
     chr1_launches = phase_scale_chr1(device)
     n_keys = full["fields"]["window_slots"]
     first_batch, scan_launches = full["first_batch"], full["launches"]["fast_scan"]
+    pack_launches = full["launches"]["pack_rows"]
     real_keys = scanned_keys(full["reads"], ecoli_config(), device)
     del full
     entry_launches = phase_sort_entry_points(device, n_keys)
@@ -4630,6 +4689,7 @@ def main() -> int:
     del real_keys
     torch.cuda.empty_cache()
     kernels.append(time_lane_gather(device, prims_launches, gather_tally))
+    kernels.append(time_pack_rows(device, pack_launches))
     phase_chunk_choice(device, n_keys)
     torch.cuda.empty_cache()
     phase_tile_choice(device, n_keys)

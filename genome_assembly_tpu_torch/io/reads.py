@@ -1,6 +1,8 @@
 """Read loading and batching, on the host in numpy.  ``batch_reads`` times
 its two steps as spans of the run in progress (``utils/profiling.span``):
-``encode`` and ``scatter`` of the ``batch`` phase.
+``encode`` and ``scatter`` of the ``batch`` phase.  ``flat_batches``, fast
+mode's batcher, only joins each batch's bases (span ``encode``): the
+stager (io/stream.py) pads and encodes them on the device.
 
 Parity mode reproduces the reference driver's input handling exactly:
 ``fgets(read, READ_LENGTH=101, file)`` reads at most 100 characters per
@@ -103,6 +105,16 @@ def validate_acgt(reads: Sequence[str]) -> None:
             )
 
 
+def _too_long(length: int, max_len: int) -> ValueError:
+    return ValueError(
+        f"read of length {length} exceeds max_read_len={max_len}; raise "
+        "max_read_len (the CLI's --max-read-len) to at least the longest "
+        "read, e.g. --max-read-len 150 for 150-bp reads (sequences longer "
+        "than reads, such as contigs or genomes, are chunked instead: "
+        "unitigs_from_sequences, assemble --fasta)"
+    )
+
+
 @dataclasses.dataclass
 class ReadBatch:
     """A padded batch of reads, ready to copy to the device.
@@ -147,13 +159,7 @@ def batch_reads(
     with profiling.span("encode"):
         for r in reads:
             if len(r) > max_len:
-                raise ValueError(
-                    f"read of length {len(r)} exceeds max_read_len={max_len}; raise "
-                    "max_read_len (the CLI's --max-read-len) to at least the longest "
-                    "read, e.g. --max-read-len 150 for 150-bp reads (sequences longer "
-                    "than reads, such as contigs or genomes, are chunked instead: "
-                    "unitigs_from_sequences, assemble --fasta)"
-                )
+                raise _too_long(len(r), max_len)
     if batch_size is None:
         batch_size = max(1, len(reads))
     table = encode._ASCII_TO_CODE_REF if parity_chars else encode._ASCII_TO_CODE
@@ -178,6 +184,56 @@ def batch_reads(
             codes = np.zeros((n, max_len), dtype=np.uint8)
             codes[row, col] = values
         batches.append(ReadBatch(codes, lengths, ids[ofs : ofs + n]))
+    return batches
+
+
+@dataclasses.dataclass
+class FlatBatch:
+    """A batch of reads as their bases, unpadded and not encoded: what fast
+    mode copies to the device, where ``ops/pack_rows`` turns it into a
+    ``ReadBatch``'s rows (``width`` wide).
+
+    bases: [sum(lengths)] uint8, the reads' ASCII bytes one after another.
+    lengths: [n] int32 actual lengths (0 for a padding row).
+    read_ids: [n] int64 global read ids (0 for a padding row), as staged.
+    """
+
+    bases: np.ndarray
+    lengths: np.ndarray
+    read_ids: np.ndarray
+    width: int
+
+    @property
+    def n(self) -> int:
+        return self.lengths.shape[0]
+
+
+def flat_batches(reads: Sequence[str], max_len: int, batch_size: int) -> List[FlatBatch]:
+    """Fast mode's batches, ``batch_reads`` + ``pad_batch`` as the fast
+    pipelines call them, with the padding and the encoding left to the
+    device: several batches have ``batch_size`` rows each, the last padded
+    with empty reads; a lone batch keeps its own rows.  Read ids count from
+    0.  The same errors as ``batch_reads``: a read longer than ``max_len``
+    (one check over the whole set, before any batch) and a read of
+    characters wider than a byte."""
+    n_reads = len(reads)
+    with profiling.span("encode"):
+        lengths = np.fromiter(map(len, reads), dtype=np.int32, count=n_reads)
+        if n_reads and int(lengths.max()) > max_len:
+            raise _too_long(int(lengths[np.argmax(lengths > max_len)]), max_len)
+    rows = batch_size if n_reads > batch_size else n_reads
+    batches = []
+    for ofs in range(0, n_reads, batch_size):
+        n = min(batch_size, n_reads - ofs)
+        with profiling.span("encode"):
+            bases = np.frombuffer("".join(reads[ofs : ofs + n]).encode(), dtype=np.uint8)
+            length = np.zeros(rows, dtype=np.int32)
+            length[:n] = lengths[ofs : ofs + n]
+            if bases.size != int(length.sum()):
+                raise ValueError("reads must be single-byte characters")
+            ids = np.zeros(rows, dtype=np.int64)
+            ids[:n] = np.arange(ofs, ofs + n)
+        batches.append(FlatBatch(bases, length, ids, max_len))
     return batches
 
 

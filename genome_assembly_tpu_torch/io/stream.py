@@ -14,10 +14,19 @@ that copy's event before it uses the batch, and each delivered tensor is
 recorded on the consumer's stream, so the caching allocator does not hand
 its memory back while the consumer still reads it.
 
+Two kinds of batch, each on its own route, chosen by its type: an
+``io.reads.ReadBatch`` (padded, encoded rows) is copied as it is; an
+``io.reads.FlatBatch`` (fast mode's bases, unpadded) is copied with its
+lengths, their exclusive sum and its ids, and K0 (``ops/pack_rows``) builds
+its rows where it was copied to: on a card on the side stream, before the
+copy's event, on the CPU by the plain version.  Either way the consumer
+gets (codes uint8 [n, L], lengths int32 [n], read_ids int64 [n]).
+
 The worker runs in the caller's context, so the run in progress
 (``utils/profiling``) counts what it stages: ``h2d_bytes``, every batch's
-bytes, on a card and on the CPU alike.  The consumer's wait for a staged
-batch is the span ``wait`` of the phase in progress.
+bytes as they are copied, and ``packed_batches``, every flat batch packed,
+on a card and on the CPU alike.  The consumer's wait for a staged batch is
+the span ``wait`` of the phase in progress.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ from typing import Callable, Iterable, Iterator, Optional, Sequence
 import torch
 
 from genome_assembly_tpu_torch import convert
+from genome_assembly_tpu_torch.io.reads import FlatBatch
+from genome_assembly_tpu_torch.ops import pack_rows
 from genome_assembly_tpu_torch.utils import profiling
 
 
@@ -132,41 +143,64 @@ class DeviceFeeder:
 
 class _PinnedRing:
     """Copies read batches to one CUDA device through ``depth`` pinned host
-    buffers used in turn, on a side stream.  A buffer is refilled only after
-    the copy that last read it has completed (its event); a batch larger
-    than its buffer (a different width, more rows) gets a larger one.
-    Returns (tensors, event) for ``_receive``."""
+    buffers used in turn, on a side stream, where a flat batch is then
+    packed.  A buffer is refilled only after the work that last read it has
+    completed (its event); a batch larger than its buffer (a different
+    width, more rows) gets a larger one.  The packer's 256-byte table is
+    copied once a ring, from pinned memory on the side stream, without
+    synchronising (not counted).  Returns (tensors,
+    event) for ``_receive``."""
 
     def __init__(self, device: torch.device, depth: int):
         self.device = device
         self.stream = torch.cuda.Stream(device)
-        self.slots = [None] * max(1, depth)  # (pinned codes, lengths, ids, event)
+        self.slots = [None] * max(1, depth)  # ([pinned buffers], event)
         self.turn = 0
+        self.table = None
 
-    def _slot(self, n: int, width: int):
+    def _slot(self, sizes):
+        """The next pinned buffers, one at least of each (shape, dtype)."""
         i = self.turn
         self.turn = (i + 1) % len(self.slots)
         slot = self.slots[i]
         if slot is not None:
-            slot[3].synchronize()  # the copy that read this buffer is done
-        if slot is None or slot[0].shape[1] != width or slot[0].shape[0] < n:
-            slot = (torch.empty((n, width), dtype=torch.uint8, pin_memory=True),
-                    torch.empty(n, dtype=torch.int32, pin_memory=True),
-                    torch.empty(n, dtype=torch.int64, pin_memory=True),
+            slot[1].synchronize()  # the work that read these buffers is done
+        if slot is None or len(slot[0]) != len(sizes) or not all(
+                b.dtype == dtype and b.shape[1:] == shape[1:] and b.shape[0] >= shape[0]
+                for b, (shape, dtype) in zip(slot[0], sizes)):
+            slot = ([torch.empty(shape, dtype=dtype, pin_memory=True) for shape, dtype in sizes],
                     torch.cuda.Event())
             self.slots[i] = slot
         return slot
 
+    def _copy(self, pinned, host):
+        """Device copies of the host arrays through the pinned buffers, on
+        the current (side) stream."""
+        out = []
+        for buf, h in zip(pinned, host):
+            buf = buf[:len(h)]
+            buf.numpy()[...] = h
+            out.append(torch.empty_like(buf, device=self.device).copy_(buf, non_blocking=True))
+        return out
+
     def __call__(self, batch):
-        host = _host_batch(batch)
-        n, width = host[0].shape
-        *pinned, event = self._slot(n, width)
+        if isinstance(batch, FlatBatch):
+            host = _flat_host(batch)
+            n = batch.n
+            # the bases' buffer holds any batch of these rows
+            sizes = [((max(n * batch.width, len(host[0])),), torch.uint8), ((n,), torch.int32),
+                     ((n,), torch.int32), ((n,), torch.int64)]
+        else:
+            host = _host_batch(batch)
+            sizes = [(h.shape, h.dtype) for h in host]
+            host = [h.numpy() for h in host]
+        pinned, event = self._slot(sizes)
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            out = []
-            for buf, h in zip(pinned, host):
-                buf = buf[:n]
-                buf.copy_(h)
-                out.append(torch.empty_like(buf, device=self.device).copy_(buf, non_blocking=True))
+            out = self._copy(pinned, host)
+            if isinstance(batch, FlatBatch):
+                if self.table is None:
+                    self.table = pack_rows.ascii_table(self.device)
+                out = _pack(*out, self.table, batch.width)
             event.record(self.stream)
         return tuple(out), event
 
@@ -177,6 +211,32 @@ def _host_batch(batch):
     host = convert.read_batch_to_torch(batch)
     profiling.count("h2d_bytes", sum(t.nbytes for t in host))
     return host
+
+
+def _flat_host(batch: FlatBatch):
+    """A flat batch as the arrays staging it copies (bases uint8, starts
+    and lengths int32, read_ids int64), their bytes counted as
+    ``h2d_bytes``."""
+    host = (batch.bases, pack_rows.row_starts(batch.lengths), batch.lengths, batch.read_ids)
+    profiling.count("h2d_bytes", sum(a.nbytes for a in host))
+    return host
+
+
+def _pack(bases, starts, lengths, read_ids, table, width: int):
+    """(codes, lengths, read_ids) of a flat batch on the bases' device (K0),
+    counted as ``packed_batches``."""
+    codes = pack_rows.pack_rows(bases, starts, lengths, table, width)
+    profiling.count("packed_batches", 1)
+    return codes, lengths, read_ids
+
+
+def _stage_on_host(batch):
+    """The CPU's staging: a read batch as tensors, a flat one packed (its
+    arrays copied, as staging on a card copies them)."""
+    if isinstance(batch, FlatBatch):
+        host = (torch.from_numpy(a.copy()) for a in _flat_host(batch))
+        return _pack(*host, pack_rows.ascii_table("cpu"), batch.width)
+    return _host_batch(batch)
 
 
 def _receive(staged):
@@ -191,14 +251,15 @@ def _receive(staged):
 
 
 def batch_stager(device="cuda", depth: int = 1):
-    """(stage, receive) that copy ``io.reads.ReadBatch`` batches to
-    ``device`` as (codes uint8 [n, L], lengths int32 [n], read_ids int64
-    [n]) tensors: on a CUDA device through a ring of ``depth`` pinned
-    buffers and a side stream, on the CPU as tensors over the arrays.
-    Raises on a CUDA device where there is none."""
+    """(stage, receive) that copy ``io.reads.ReadBatch`` or ``FlatBatch``
+    batches to ``device`` as (codes uint8 [n, L], lengths int32 [n],
+    read_ids int64 [n]) tensors: on a CUDA device through a ring of
+    ``depth`` pinned buffers and a side stream, on the CPU as tensors over
+    the arrays (a flat batch packed by K0's plain version).  Raises on a
+    CUDA device where there is none."""
     device = torch.device(device)
     if device.type != "cuda":
-        return _host_batch, None
+        return _stage_on_host, None
     if not torch.cuda.is_available():
         raise RuntimeError("feed_read_batches was asked for a CUDA device and this machine "
                            "has none; pass device='cpu' to run on the CPU")
@@ -206,7 +267,8 @@ def batch_stager(device="cuda", depth: int = 1):
 
 
 def feed_read_batches(batches: Sequence, device="cuda", *, depth: int = 2) -> DeviceFeeder:
-    """Stage ``io.reads.ReadBatch`` batches onto ``device`` in order.
+    """Stage ``io.reads.ReadBatch`` or ``FlatBatch`` batches onto
+    ``device`` in order.
 
     Returns the DeviceFeeder itself (iterable AND a context manager) so
     call sites can wrap consumption in ``with`` and guarantee the worker

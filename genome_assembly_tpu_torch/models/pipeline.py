@@ -1,8 +1,9 @@
 """End-to-end assembly pipelines.
 
-Fast mode (``FastAssembler``): ingest (host) -> canonical scan -> count ->
-prune -> links -> pointer jump -> materialize (the walk sort on the device,
-the strings on the host).
+Fast mode (``FastAssembler``): ingest (host: each batch's bases, which
+the device pads and encodes) -> canonical scan -> count -> prune -> links
+-> pointer jump -> materialize (the walk sort on the device, the strings on
+the host).
 
 Parity mode (``ParityAssembler``): ingest with the reference's ``fgets``
 quirks (host) -> signature scan -> count with read-id and stream payloads
@@ -70,9 +71,10 @@ class PhaseStats:
     counts: the run's counters (``utils/profiling.count``): ``h2d_bytes``,
     the bytes handed to the device (read batches, kept keys back on the
     card), and ``d2h_bytes``, the bytes of every read-back larger than a
-    scalar; in fast mode ``slots`` and ``windows`` (``_ScanTally``), and
-    out of core ``staged_bytes`` (``outofcore.stage_group``),
-    ``partitions`` and ``passes``.
+    scalar; in fast mode ``packed_batches`` (every staging of a flat batch,
+    ``io/stream``), ``slots`` and ``windows`` (``_ScanTally``), and out of
+    core ``staged_bytes`` (``outofcore.stage_group``), ``partitions`` and
+    ``passes``.
     """
 
     n_reads: int = 0
@@ -339,9 +341,7 @@ class FastAssembler:
         cfg = self.config
         stats = PhaseStats(n_reads=len(reads))
         with profiling.PhaseClock(stats, self.device, phase="batch") as clock:
-            batches = reads_io.batch_reads(reads, cfg.max_read_len, cfg.batch_reads)
-            if len(batches) > 1:
-                batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
+            batches = reads_io.flat_batches(reads, cfg.max_read_len, cfg.batch_reads)
             clock.start("count")
             tally = _ScanTally()
 
@@ -381,17 +381,16 @@ class FastAssembler:
 
     def _flat_fast_records(self, reads: Sequence[str], stats: PhaseStats,
                            clock: profiling.PhaseClock, with_rids: bool = False):
-        """Batch the reads, scan all batches and flatten their records.
+        """Batch the reads (flat: the stager pads and encodes them on the
+        device), scan all batches and flatten their records.
 
         Returns (records, rid_flat): rid_flat is None unless with_rids.
         """
         cfg = self.config
         clock.start("batch")
-        batches = reads_io.batch_reads(reads, cfg.max_read_len, cfg.batch_reads)
+        batches = reads_io.flat_batches(reads, cfg.max_read_len, cfg.batch_reads)
         if not batches:
             raise ValueError("no reads")
-        if len(batches) > 1:
-            batches[-1] = reads_io.pad_batch(batches[-1], cfg.batch_reads)
         clock.start("scan")
         kmers, valids, rid_parts = [], [], []
         # the valid windows are summed on the device and read back once,

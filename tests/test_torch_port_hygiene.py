@@ -206,7 +206,8 @@ def test_every_cuda_source_has_a_binding_and_no_library_sort():
     ops = REPO_ROOT / "genome_assembly_tpu_torch" / "ops"
     bindings = "".join(p.read_text() for p in ops.glob("*_cuda.py"))
     sources = sorted(csrc.glob("*.cu"))
-    assert [s.stem for s in sources] == ["bitonic", "fast_scan", "lane_gather", "mergepath"]
+    assert [s.stem for s in sources] == ["bitonic", "fast_scan", "lane_gather", "mergepath",
+                                         "pack_rows"]
     # a torch host file beside a source makes it an operator library
     assert sorted(p.name for p in csrc.glob("*.cpp")) == ["lane_gather_op.cpp"]
     for source in sources:
@@ -254,6 +255,8 @@ def test_every_cuda_source_has_a_binding_and_no_library_sort():
     assert re.findall(r"^(\w+_kernel)\(", scan, flags=re.M) == ["fast_scan_kernel"]
     gather = (csrc / "lane_gather.cu").read_text()
     assert re.findall(r"^(\w+_kernel)\(", gather, flags=re.M) == ["lane_gather_kernel"]
+    pack = (csrc / "pack_rows.cu").read_text()
+    assert re.findall(r"^(\w+_kernel)\(", pack, flags=re.M) == ["pack_rows_kernel"]
     # the scan kernel writes `valid` itself; finish takes keys a thread, not threads
     assert "valid_out" in scan.split('extern "C" int fast_scan_launch(', 1)[1].split(")", 1)[0]
     finish = bitonic.split('extern "C" int finish_launch(', 1)[1].split(")", 1)[0]
@@ -538,7 +541,7 @@ def _plain_library_name(source):
 def test_operator_route_builds_the_host_file_against_torch(tmp_path, monkeypatch):
     """lane_gather.cu has a torch host file, so one nvcc call builds both
     into an operator library: torch's ABI, headers and libraries (with an
-    rpath) on its command, torch's version in its name.  The three plain C
+    rpath) on its command, torch's version in its name.  The plain C
     sources keep their commands and names byte for byte."""
     import json
 
@@ -560,10 +563,11 @@ def test_operator_route_builds_the_host_file_against_torch(tmp_path, monkeypatch
     argvs = [json.loads(p.read_text()) for p in nvcc.parent.glob("argv.*.json")]
     by_source = {pathlib.Path(next(a for a in argv if a.endswith(".cu"))).stem: argv
                  for argv in argvs}
-    assert sorted(by_source) == ["bitonic", "fast_scan", "lane_gather", "mergepath"]
+    assert sorted(by_source) == ["bitonic", "fast_scan", "lane_gather", "mergepath",
+                                 "pack_rows"]
     assert sorted(build.build_seconds) == sorted(by_source)
 
-    for stem in ("bitonic", "fast_scan", "mergepath"):
+    for stem in ("bitonic", "fast_scan", "mergepath", "pack_rows"):
         source = build.CSRC_DIR / f"{stem}.cu"
         assert build.operator_source(source) is None
         assert targets[stem].name == _plain_library_name(source)

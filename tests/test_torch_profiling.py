@@ -38,8 +38,10 @@ OOC_PHASES = ["batch", "count", "links", "jump", "materialize"]
 PARITY_PHASES = ["batch", "scan", "count", "extract", "replay"]
 MATERIALIZE_SPANS = [f"materialize.{s}" for s in
                      ("readback", "revcomp", "cycles", "sort", "spell", "strands")]
-INCORE_SPANS = ["batch.encode", "batch.scatter", "scan.wait", *MATERIALIZE_SPANS]
-OOC_SPANS = ["batch.encode", "batch.scatter", "count.stage", "count.scan", "count.extract",
+# fast mode's batches are flat: the host joins their bases (``encode``) and
+# scatters nothing, the stager packs them on the device
+INCORE_SPANS = ["batch.encode", "scan.wait", *MATERIALIZE_SPANS]
+OOC_SPANS = ["batch.encode", "count.stage", "count.scan", "count.extract",
              "count.partition", *MATERIALIZE_SPANS]
 # the fast configurations of these tests: in core, and forced out of core
 FAST = dict(k=21, m=7, parity=False, batch_reads=32)
@@ -123,8 +125,9 @@ def test_trace_holds_one_range_a_phase(tmp_path, mode):
     inner = _check_nesting(_ranges(tmp_path), phases)
     assert {n for n in inner if "=" not in n} == set(stats.spans_s)
     marks = {n.split("=")[0] for n in inner if "=" in n}
-    assert marks == ({"scan.h2d_bytes", "scan.slots", "scan.windows", "materialize.h2d_bytes",
-                      "materialize.d2h_bytes", "materialize.on_device"} if mode == "fast"
+    assert marks == ({"scan.h2d_bytes", "scan.packed_batches", "scan.slots", "scan.windows",
+                      "materialize.h2d_bytes", "materialize.d2h_bytes", "materialize.on_device"}
+                     if mode == "fast"
                      else {"scan.h2d_bytes"})
 
 
@@ -152,7 +155,7 @@ def test_each_fast_path_opens_its_steps(tmp_path, config, phases, steps):
     inner = _check_nesting(spans[1:], phases)
     assert {n for n in inner if "=" not in n} == set(steps)
     # a step's seconds are its ranges' lengths
-    for name in ("batch.scatter", "materialize.sort"):
+    for name in ("batch.encode", "materialize.sort"):
         lengths = sum(b - a for n, a, b in spans if n == name) / 1e6
         assert lengths == pytest.approx(stats.spans_s[name], rel=0.5, abs=2e-3)
 
@@ -245,15 +248,16 @@ def test_counts_from_many_threads_add_up():
     assert stats.counts == {"h2d_bytes": 3 * n_threads * n_counts}
 
 
-def _staged_bytes(n_reads, config):
-    """h2d bytes of one pass over the batches: uint8 codes, int32 lengths
-    and int64 ids a row, every batch padded to ``batch_reads`` rows when
-    there are several."""
+def _staged_bytes(reads, config):
+    """h2d bytes of one pass over the flat batches, and of the first batch:
+    the bases, unpadded, and int32 starts, int32 lengths and int64 ids a
+    row, every batch padded to ``batch_reads`` rows when there are
+    several."""
     rows = config["batch_reads"]
-    n_batches = -(-n_reads // rows)
-    total_rows = n_batches * rows if n_batches > 1 else n_reads
-    return total_rows * (config.get("max_read_len", 128) + 4 + 8), rows * (
-        config.get("max_read_len", 128) + 4 + 8)
+    n_batches = -(-len(reads) // rows)
+    total_rows = n_batches * rows if n_batches > 1 else len(reads)
+    return (sum(map(len, reads)) + total_rows * (4 + 4 + 8),
+            sum(map(len, reads[:rows])) + rows * (4 + 4 + 8))
 
 
 def test_copies_in_core_are_counted_exactly(monkeypatch):
@@ -271,12 +275,14 @@ def test_copies_in_core_are_counted_exactly(monkeypatch):
     monkeypatch.setattr(dbg, "_host_state_vals", spy_vals)
     reads = _reads()
     out, stats = FastAssembler(PipelineConfig(**FAST), device="cpu").unitigs(reads)
-    staged, _ = _staged_bytes(len(reads), FAST)
+    staged, _ = _staged_bytes(reads, FAST)
     chains = 2 * len(out)
     assert gathered == [chains] and not any(u == dbg._rc_str(u) for u in out)
     assert stats.counts == {"h2d_bytes": staged + 8 * chains,
                             "d2h_bytes": 2 * stats.entries_post_prune + 24 * chains,
                             "on_device": 1,
+                            # every batch packed once on the device
+                            "packed_batches": -(-len(reads) // 32),
                             # the scan's counters: every batch's slots, 40 windows a read
                             "slots": -(-len(reads) // 32) * 32 * (128 - 21 + 1),
                             "windows": 40 * len(reads)}
@@ -304,7 +310,7 @@ def test_copies_out_of_core_are_counted(monkeypatch):
     monkeypatch.setattr(dbg, "_host_state_vals", spy_vals)
     reads = _reads()
     _, stats = FastAssembler(PipelineConfig(**FAST_OOC), device="cpu").unitigs(reads)
-    staged, one_batch = _staged_bytes(len(reads), FAST_OOC)
+    staged, one_batch = _staged_bytes(reads, FAST_OOC)
     (n_passes,) = passes
     assert n_passes >= 1 and gathered
     kept = stats.entries_post_prune
@@ -312,6 +318,8 @@ def test_copies_out_of_core_are_counted(monkeypatch):
                                          + 8 * sum(gathered))
     assert stats.counts["h2d_bytes"] >= (1 + n_passes) * one_batch
     assert stats.counts["d2h_bytes"] > 8 * kept
+    # every staging of a batch packs it: the probe's, then each pass's
+    assert stats.counts["packed_batches"] == 1 + n_passes * -(-len(reads) // 32)
 
 
 def test_cli_trace_and_metrics(tmp_path, capsys):
@@ -334,7 +342,8 @@ def test_cli_trace_and_metrics(tmp_path, capsys):
     assert record["event"] == "assemble"
     assert list(record["phase_s"]) == FAST_PHASES
     assert sorted(record["spans_s"]) == sorted(INCORE_SPANS)
-    assert set(record["counts"]) == {"h2d_bytes", "d2h_bytes", "on_device", "slots", "windows"}
+    assert set(record["counts"]) == {"h2d_bytes", "d2h_bytes", "on_device", "packed_batches",
+                                     "slots", "windows"}
     assert all(v > 0 for v in record["counts"].values())
 
 
