@@ -2,10 +2,6 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase, needs one CUDA device
-    python3 chip_smoke.py --against DIR
-                                     # only: K1, K3c, K4a and K5 of this tree
-                                     # and of the copy of csrc/ in DIR
-                                     # (another commit's), in turns
 
 Builds the port's CUDA kernels from genome_assembly_tpu_torch/csrc/, holds
 each kernel against its plain tensor version on the card (bit-exact: all
@@ -72,7 +68,6 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
-import ctypes
 import dataclasses
 import io
 import json
@@ -116,8 +111,6 @@ try:
     from genome_assembly_tpu_torch.ops import minimizer
     from genome_assembly_tpu_torch.ops import minimizer_cuda
     from genome_assembly_tpu_torch.ops import outofcore
-    from genome_assembly_tpu_torch.ops import pack_rows
-    from genome_assembly_tpu_torch.ops import pack_rows_cuda
     from genome_assembly_tpu_torch.ops import superkmer
     from genome_assembly_tpu_torch.parallel import comm_model
     from genome_assembly_tpu_torch.parallel import mesh as mesh_lib
@@ -300,7 +293,6 @@ SCAN_KERNELS = ("fast_scan_kernel",)
 SORT_KERNELS = ("sort_rows_kernel", "chunk_sort_kernel", "big_ce_kernel", "finish_kernel")
 MERGE_KERNELS = ("local_merge_kernel", "merge_pass_kernel", "merge_splits_kernel")
 GATHER_KERNELS = ("lane_gather_kernel",)
-PACK_KERNELS = ("pack_rows_kernel",)
 # redesigned for registers: a spill would undo the design
 NO_SPILL_KERNELS = ("fast_scan_kernel", "finish_kernel")
 
@@ -341,21 +333,19 @@ def phase_build():
         libs = csrc_build.build_all(verbose=True)
         engine_lib = engine.result()
     replay_native._load()
-    minimizer_cuda._library()
-    lib = bitonic_cuda._library()
-    mergepath_cuda._library()
+    minimizer_cuda._load()
+    ops = bitonic_cuda._load()
+    mergepath_cuda._load()
     lane_gather_cuda._load()
-    pack_rows_cuda._library()
-    if sorted(libs) != ["bitonic", "fast_scan", "lane_gather", "mergepath", "pack_rows"]:
-        raise AssertionError(f"expected five CUDA sources, built {sorted(libs)}")
+    if sorted(libs) != ["bitonic", "fast_scan", "lane_gather", "mergepath"]:
+        raise AssertionError(f"expected four CUDA sources, built {sorted(libs)}")
     # build_log holds what nvcc printed whether it built now or an earlier
     # run did (the log is kept beside each library)
     report = ptxas_report(csrc_build.build_log.get("fast_scan", ""), SCAN_KERNELS)
     report.update(ptxas_report(csrc_build.build_log.get("bitonic", ""), SORT_KERNELS))
     report.update(ptxas_report(csrc_build.build_log.get("mergepath", ""), MERGE_KERNELS))
     report.update(ptxas_report(csrc_build.build_log.get("lane_gather", ""), GATHER_KERNELS))
-    report.update(ptxas_report(csrc_build.build_log.get("pack_rows", ""), PACK_KERNELS))
-    every = SCAN_KERNELS + SORT_KERNELS + MERGE_KERNELS + GATHER_KERNELS + PACK_KERNELS
+    every = SCAN_KERNELS + SORT_KERNELS + MERGE_KERNELS + GATHER_KERNELS
     if sorted({name.split("<")[0] for name in report}) != sorted(every):
         raise AssertionError(f"ptxas reported {sorted(report)}, expected {every}")
     # what ptxas does not see is the DYNAMIC shared memory: 4.25 bytes a base
@@ -369,13 +359,11 @@ def phase_build():
     for log_chunk in range(1, bitonic_cuda.MAX_SHARED_KEYS.bit_length()):
         chunk = 1 << log_chunk
         _, per_thread, _, shared_bytes = bitonic_cuda.finish_shape(chunk)
-        if lib.finish_shared_launch_bytes(chunk, per_thread) != shared_bytes:
+        if ops.finish_shared_launch_bytes(chunk, per_thread) != shared_bytes:
             raise AssertionError(f"finish_shape({chunk}) and finish_launch disagree on shared memory")
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=dict(csrc_build.build_seconds),
          libraries=sorted(str(p.name) for p in libs.values()),
-         operator_libraries=sorted(stem for stem in libs if csrc_build.operator_source(
-             csrc_build.CSRC_DIR / f"{stem}.cu") is not None),
          ptxas=report,
          replay_engine=engine_lib.name,
          kernels_with_spills=sorted(spills),
@@ -906,26 +894,28 @@ def count_refusals(device):
         lambda: bitonic_sort.sort_keys(k64, chunk=12),
     ]
     # what the launchers of the two merge sorts refuse themselves (they return
-    # an error and launch nothing): a block shorter than a run or than one
-    # thread's keys, no power of two, larger than shared memory; keys that are
-    # no whole number of runs; a run that is no power of two; no rows
-    lib = bitonic_cuda._library()
+    # an error and launch nothing; the operator raises): a block shorter than
+    # a run or than one thread's keys, no power of two, larger than shared
+    # memory; keys that are no whole number of runs; a run that is no power
+    # of two; no rows
+    ops = bitonic_cuda._load()
     spare = torch.empty_like(k64)
-    src, dst = k64.data_ptr(), spare.data_ptr()
 
     def launcher(call):
         def refused():
-            if call() != 0:
-                raise ValueError("the launcher returned an error")
+            try:
+                call()
+            except RuntimeError as e:
+                raise ValueError("the launcher returned an error") from e
         return refused
 
     for block_keys in (4, 8, 48, 2 * too_many):
-        bad.append(launcher(lambda b=block_keys: lib.sort_rows_launch(src, dst, 8, 8, b, None)))
-        bad.append(launcher(lambda b=block_keys: lib.chunk_sort_launch(src, dst, 64, 8, b, None)))
-    bad += [launcher(lambda: lib.chunk_sort_launch(src, dst, 64, 32, 16, None)),
-            launcher(lambda: lib.chunk_sort_launch(src, dst, 60, 8, 64, None)),
-            launcher(lambda: lib.chunk_sort_launch(src, dst, 64, 6, 64, None)),
-            launcher(lambda: lib.sort_rows_launch(src, dst, 0, 8, 64, None))]
+        bad.append(launcher(lambda b=block_keys: ops.sort_rows(k64, spare, 8, 8, b)))
+        bad.append(launcher(lambda b=block_keys: ops.chunk_sort(k64, spare, 64, 8, b)))
+    bad += [launcher(lambda: ops.chunk_sort(k64, spare, 64, 32, 16)),
+            launcher(lambda: ops.chunk_sort(k64, spare, 60, 8, 64)),
+            launcher(lambda: ops.chunk_sort(k64, spare, 64, 6, 64)),
+            launcher(lambda: ops.sort_rows(k64, spare, 0, 8, 64))]
     return refused_of(bad, bitonic_cuda.launch_count), len(bad)
 
 
@@ -1287,7 +1277,6 @@ def phase_small_e2e(device):
 
 def reset_launch_counts():
     minimizer_cuda.launch_count = 0
-    pack_rows_cuda.launch_count = 0
     lane_gather_cuda.reset_launch_count()
     for counts in (bitonic_cuda.launch_count, mergepath_cuda.launch_count):
         for name in counts:
@@ -1295,8 +1284,7 @@ def reset_launch_counts():
 
 
 def read_launch_counts():
-    return {"fast_scan": minimizer_cuda.launch_count, "pack_rows": pack_rows_cuda.launch_count,
-            **bitonic_cuda.launch_count,
+    return {"fast_scan": minimizer_cuda.launch_count, **bitonic_cuda.launch_count,
             **mergepath_cuda.launch_count, "lane_gather": lane_gather_cuda.launch_count()}
 
 
@@ -1376,9 +1364,8 @@ def run_ecoli(device, reads, *, hybrid_sort):
     launches = read_launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_batches = -(-len(reads) // cfg.batch_reads)
-    if launches["fast_scan"] != n_batches or launches["pack_rows"] != n_batches:
-        raise AssertionError(f"{launches['fast_scan']} scan and {launches['pack_rows']} pack "
-                             f"launches for {n_batches} batches")
+    if launches["fast_scan"] != n_batches:
+        raise AssertionError(f"{launches['fast_scan']} scan launches for {n_batches} batches")
     slots = n_batches * cfg.batch_reads * cfg.windows_per_read
     fields = dict(
         hybrid_sort=hybrid_sort, k=cfg.k, m=cfg.m, batch_reads=cfg.batch_reads,
@@ -1561,9 +1548,7 @@ def surfaces_traced_assemble(device, full, tmp):
     same = dict(
         exit_code_0=rc == 0, lines_equal_full_e2e=lines == full["unitigs"],
         k1_launches_equal_batches=launches["fast_scan"] == fields["n_batches"],
-        k0_launches_equal_batches=launches["pack_rows"] == fields["n_batches"],
-        no_sort_kernel=not any(v for n, v in launches.items()
-                               if n not in ("fast_scan", "pack_rows")),
+        no_sort_kernel=not any(v for n, v in launches.items() if n != "fast_scan"),
         metrics_equal=(rec["event"], rec["mode"], rec["k"], rec["m"], rec["entries_post_prune"],
                        rec["n_unitigs"], rec["n_windows"])
         == ("assemble", "fast", ECOLI["k"], ECOLI["m"], want["entries_post_prune"],
@@ -2635,51 +2620,6 @@ def time_lane_gather(device, launches, tally):
         "launches": launches, "launches_from": "prims (tools/bench_prims.py on the card)",
         "max_abs_err": tally[1], "mismatches": tally[0],
         **main, "kernel_ms": main["ms"], "at_int64": at_int64, "at_probe_shapes": probes,
-    }
-
-
-# the benchmark's batches: (rows, width, read length) of the 100-bp cells and
-# of the 150-bp cell
-PACK_SHAPES = ((16384, 128, 100), (16384, 256, 150))
-
-
-def time_pack_rows(device, launches):
-    """K0 at the benchmark's batches (``PACK_SHAPES``: full-length reads of
-    random bases), turn about with its plain version on the card, and queued
-    behind a spin (``device_ms``: the card's work alone, where ``ms`` is the
-    host's launch path); each checked against the plain version and against
-    ``batch_reads``'s rows first.  Bound: bytes, the bases, starts and
-    lengths read once and the rows written once."""
-    table = pack_rows.ascii_table(device)
-    shapes = []
-    for rows, width, read_len in PACK_SHAPES:
-        rng = np.random.default_rng(width)
-        letters = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, (rows, read_len))]
-        reads = [r.tobytes().decode() for r in letters]
-        (flat,) = reads_io.flat_batches(reads, width, rows)
-        (want,) = reads_io.batch_reads(reads, width, rows)
-        bases, starts, lengths = (torch.from_numpy(a.copy()).to(device)
-                                  for a in stream_io._flat_host(flat)[:3])
-        kernel = lambda: pack_rows_cuda.pack_rows_cuda(  # noqa: E731
-            bases, starts, lengths, table, width)
-        plain = lambda: pack_rows.pack_rows_plain(bases, starts, lengths, table, width)  # noqa: E731
-        want = torch.from_numpy(want.codes)
-        mismatches = int((kernel().cpu() != want).sum()) + int((plain().cpu() != want).sum())
-        times = turn_about(kernel, plain, kernel_calls=50)
-        times["device_ms"] = statistics.median(timed_ms_runs(
-            kernel, calls=50, spin_cycles=SPIN_CYCLES))
-        n_bytes = bases.numel() + 8 * rows + rows * width
-        times.update(shape=[rows, width], read_len=read_len, mismatches=mismatches,
-                     bytes=n_bytes, bound_ms=n_bytes / PEAK_BYTES_PER_S * 1e3,
-                     bound_by="bytes")
-        shapes.append(times)
-    return {
-        "name": "pack_rows", "route": "cuda",
-        "source": "genome_assembly_tpu_torch/csrc/pack_rows.cu",
-        "replaces": "none: the JAX package pads and encodes on the host",
-        "launches": launches, "launches_from": "full_e2e (one a batch)",
-        "mismatches": sum(t["mismatches"] for t in shapes),
-        **shapes[0], "kernel_ms": shapes[0]["ms"], "at_256": shapes[1],
     }
 
 
@@ -3895,7 +3835,7 @@ def time_scan(device, batch, launches, tally, chr1_launches, mesh_launches, mesh
     if tuple(codes.shape) != KERNEL_SHAPE:
         raise AssertionError(f"main-path batch is {tuple(codes.shape)}, not {KERNEL_SHAPE}")
     # 20 launches an event pair: the wrapper's host work (checks, three
-    # allocations, the ctypes call) takes longer than the kernel
+    # allocations, the operator call) takes longer than the kernel
     times = turn_about(lambda: minimizer.fast_scan(codes, lengths, k=k, m=m),
                        lambda: minimizer.fast_scan_plain(codes, lengths, k=k, m=m),
                        kernel_calls=20)
@@ -4431,206 +4371,11 @@ def phase_rows_choice(device):
          sort_rows=rows_grid, chunk_sort_by_last_level=by_level)
 
 
-def load_libraries(csrc_dir):
-    """{stem: library} built from the sources in `csrc_dir`, beside this
-    tree's in the build directory (a library is named by its sources'
-    hash), with the argument types of the launchers timed against another
-    commit's: those of K1, K3c and K4a, and K5's where its source is a plain
-    C library (before its launch became a torch operator)."""
-    before = csrc_build.CSRC_DIR, dict(csrc_build._loaded)
-    csrc_build.CSRC_DIR = pathlib.Path(csrc_dir).resolve()
-    csrc_build._loaded.clear()
-    stems = ["fast_scan", "bitonic", "mergepath"]
-    gather_source = csrc_build.CSRC_DIR / "lane_gather.cu"
-    if gather_source.exists() and csrc_build.operator_source(gather_source) is None:
-        stems.append("lane_gather")
-    try:
-        libs = {stem: csrc_build.load(stem) for stem in stems}
-    finally:
-        csrc_build.CSRC_DIR, loaded = before
-        csrc_build._loaded.clear()
-        csrc_build._loaded.update(loaded)
-    ptr, i32, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
-    text = (pathlib.Path(csrc_dir) / "fast_scan.cu").read_text()
-    # the scan's launcher took no `valid` output before the kernel wrote it
-    scan_writes_valid = "valid_out" in text.split("fast_scan_launch(", 1)[1].split(")", 1)[0]
-    libs["fast_scan"].fast_scan_launch.argtypes = (
-        [ptr] * (5 if scan_writes_valid else 4) + [i32] * 4 + [ptr])
-    libs["bitonic"].finish_launch.argtypes = [ptr, ptr, i64, i32, u64, i32, ptr]
-    libs["mergepath"].local_merge_launch.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr]
-    if "lane_gather" in libs:
-        libs["lane_gather"].lane_gather_launch.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, ptr]
-    # the last int of finish_launch was the threads of a block before it was
-    # the keys a thread (the stage-by-stage kernel ran 1024 threads a block)
-    finish_per_thread = bitonic_cuda.finish_shape(bitonic_cuda.MAX_SHARED_KEYS)[1]
-    finish_last = (finish_per_thread if "finish_shared_launch_bytes"
-                   in (pathlib.Path(csrc_dir) / "bitonic.cu").read_text() else 1024)
-    return libs, scan_writes_valid, finish_last
-
-
-def ctypes_lane_gather(lib):
-    """K5 through a plain C library, with the host path the port had before
-    its launch became a torch operator: the checks, the output, the data
-    pointers and the raw stream in Python, the arguments converted by ctypes,
-    and a launcher that takes the card and sets it and reads its
-    multiprocessors itself."""
-    def gather(x, idx):
-        lane_gather.check(x, idx)
-        if not x.is_cuda:
-            raise ValueError("lane_gather needs CUDA tensors")
-        if not (x.is_contiguous() and idx.is_contiguous()):
-            raise ValueError("lane_gather needs contiguous tensors")
-        rows, cols = x.shape
-        card = x.device.index
-        out = torch.empty_like(x)
-        err = lib.lane_gather_launch(x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols,
-                                     x.element_size(), card,
-                                     torch._C._cuda_getCurrentRawStream(card))
-        if err != 0:
-            raise RuntimeError(f"lane_gather kernel launch failed: cudaError {err}")
-        return out
-    return gather
-
-
-def phase_against(device, other_csrc):
-    """K1, K3c, K4a and K5 of this tree beside those of another copy of csrc/
-    (another commit's, say ``git archive <commit> genome_assembly_tpu_torch/csrc``
-    unpacked somewhere), on one card in one process, in the order other,
-    this, this, other.  K1, K3c and K4a are launched through their C
-    launchers: K1 on the first batch of the ecoli reads, K3c on 2^28 keys at
-    level 2^28 in chunks of 2^14, K4a on 2^28 keys in chunks of 2^14 from
-    single keys and from runs of 2^10.  K5 is launched as a user calls it:
-    this tree's through its torch operator, the other's (where its source
-    is a plain C library) through ``ctypes_lane_gather``, at the probe's
-    shapes and at [65536, 1024] int32, with ``ms``, ``device_ms`` and
-    ``host_us`` as ``time_lane_gather`` takes them, and this tree's host
-    time split (the OpOverload, the C++ callable under it, and the
-    ``empty_like`` inside it) timed in the same rounds.  Every result is held:
-    K1's m-mers and keys (and `valid`, where the launcher writes it) against
-    fast_scan_plain, K3c against finish_plain, K4a against the library's
-    sort of every chunk, K5 against torch.gather."""
-    libs = {"other": load_libraries(other_csrc), "this": load_libraries(csrc_build.CSRC_DIR)}
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    t, runs = Tally(), []
-
-    def turns(kernel, launch, hold, reps=7, **fields):
-        for name in ("other", "this", "this", "other"):
-            if launch(name) != 0:
-                raise AssertionError(f"{kernel} of {name} csrc/: the launch failed")
-            hold(name)
-            runs.append({"kernel": kernel, "csrc": name, **fields,
-                         "ms": timed_ms(lambda: launch(name), reps=reps, warm=1)})
-
-    # K1
-    _, reads = coverage_reads(ECOLI["genome_len"], ECOLI["read_len"], ECOLI["coverage"], seed=0)
-    cfg = ecoli_config()
-    batch = reads_io.batch_reads(reads[: cfg.batch_reads], cfg.max_read_len, cfg.batch_reads)[0]
-    del reads
-    codes = torch.from_numpy(batch.codes).to(device)
-    lengths = torch.from_numpy(batch.lengths).to(device)
-    want = minimizer.fast_scan_plain(codes, lengths, k=cfg.k, m=cfg.m)
-    got = minimizer.WindowRecords(*(torch.empty_like(x) for x in want))
-    b_rows, max_len = codes.shape
-
-    def scan(name):
-        lib, writes_valid, _ = libs[name]
-        outs = [got.mmer.data_ptr(), got.kmer.data_ptr()] + [got.valid.data_ptr()] * writes_valid
-        return lib["fast_scan"].fast_scan_launch(codes.data_ptr(), lengths.data_ptr(), *outs,
-                                                 b_rows, max_len, cfg.k, cfg.m, stream())
-
-    def hold_scan(name):
-        got.valid.fill_(False)
-        scan(name)
-        t.hold(got.mmer, want.mmer)
-        t.hold(got.kmer, want.kmer)
-        if libs[name][1]:
-            t.hold(got.valid, want.valid)
-
-    turns("fast_scan", scan, hold_scan, reps=21, shape=list(codes.shape))
-    del codes, lengths, want, got
-
-    gen = torch.Generator(device=device)
-    gen.manual_seed(5)
-    chunk = bitonic_cuda.MAX_SHARED_KEYS
-    key = random_keys(gen, 1 << 28, device, 0.3)
-    out = torch.empty_like(key)
-
-    # K3c
-    n_chunks = key.shape[0] // chunk
-    want = bitonic_sort.finish_plain(key, key.shape[0], chunk=chunk)
-
-    def finish(name):
-        lib, _, last = libs[name]
-        return lib["bitonic"].finish_launch(key.data_ptr(), out.data_ptr(), n_chunks, chunk,
-                                            key.shape[0], last, stream())
-
-    turns("finish", finish, lambda name: t.hold(out, want), n_keys=key.shape[0],
-          size=key.shape[0], chunk=chunk)
-    del want
-
-    # K4a
-    want = torch.sort(key.view(-1, chunk), dim=1).values.view(-1)
-    per_thread = mergepath_cuda.LOCAL_KEYS_PER_THREAD
-    for base_run in (1, EARLIER_BASE_RUN):
-        state = chunk_runs(key, base_run)
-
-        def local_merge(name):
-            return libs[name][0]["mergepath"].local_merge_launch(
-                state.data_ptr(), out.data_ptr(), n_chunks, chunk, base_run, chunk, per_thread,
-                stream())
-
-        turns("local_merge", local_merge, lambda name: t.hold(out, want), n_keys=key.shape[0],
-              chunk=chunk, base_run=base_run)
-    del key, out, want, state
-
-    # K5
-    other_gather = libs["other"][0].get("lane_gather")
-    gathers = {"this": lane_gather_cuda.lane_gather_cuda}
-    if other_gather is not None:
-        gathers["other"] = ctypes_lane_gather(other_gather)
-    gather_host_us = []
-    for shape, calls in (((256, 128), 50), ((256, 1024), 50), ((65536, 1024), 10)):
-        x, idx = lane_gather_input(gen, shape, torch.int32, "random", device)
-        want = torch.gather(x, 1, idx.long())
-        for name in ("other", "this", "this", "other"):
-            if name not in gathers:
-                continue
-            fn = gathers[name]
-            t.hold(fn(x, idx), want)
-            run = lambda: fn(x, idx)  # noqa: E731
-            runs.append({
-                "kernel": "lane_gather", "csrc": name, "shape": list(shape),
-                "host_path": "torch operator" if name == "this" else "ctypes",
-                "ms": timed_ms(run, calls=calls),
-                "device_ms": statistics.median(timed_ms_runs(run, calls=calls,
-                                                             spin_cycles=SPIN_CYCLES))})
-        # where this tree's host time goes: the wrapper (a Python frame)
-        # calls the OpOverload (a Python frame), which calls the C++ callable
-        # (arguments boxed, the dispatcher, the operator's host path, in
-        # which empty_like is one more dispatch and the allocator)
-        op = torch.ops.ga_torch.lane_gather.default
-        split = {"op_overload": lambda: op(x, idx), "cpp_callable": lambda: op._op(x, idx),
-                 "empty_like": lambda: torch.empty_like(x)}
-        gather_host_us.append({"shape": list(shape), "rounds": HOST_ROUNDS, **host_us(
-            {**{name: (lambda fn=fn: fn(x, idx)) for name, fn in gathers.items()}, **split},
-            calls)})
-    emit("against", other_csrc=str(other_csrc), runs=runs, lane_gather_host_us=gather_host_us,
-         lane_gather_other="ctypes" if other_gather is not None else
-         "not run: the other tree's K5 is an operator library too (one a process)",
-         **t.report())
-    if t.mismatches:
-        raise AssertionError(f"against: {t.mismatches} mismatches")
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--coverage", type=int, default=ECOLI["coverage"],
                     help="coverage of the ecoli read set of full_e2e and hybrid_e2e "
                          "(the preset's is 50)")
-    ap.add_argument("--against", metavar="DIR",
-                    help="only time fast_scan, finish, local_merge and lane_gather of this tree "
-                         "against those of the copy of genome_assembly_tpu_torch/csrc/ in DIR, "
-                         "in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -4639,9 +4384,6 @@ def main() -> int:
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     smi = phase_env()
-    if args.against:
-        phase_against(device, args.against)
-        return 0
     phase_build()
     scan_tally, gather_tally = phase_kernel_check(device)
     prims_launches = phase_prims(device)
@@ -4674,7 +4416,6 @@ def main() -> int:
     chr1_launches = phase_scale_chr1(device)
     n_keys = full["fields"]["window_slots"]
     first_batch, scan_launches = full["first_batch"], full["launches"]["fast_scan"]
-    pack_launches = full["launches"]["pack_rows"]
     real_keys = scanned_keys(full["reads"], ecoli_config(), device)
     del full
     entry_launches = phase_sort_entry_points(device, n_keys)
@@ -4689,7 +4430,6 @@ def main() -> int:
     del real_keys
     torch.cuda.empty_cache()
     kernels.append(time_lane_gather(device, prims_launches, gather_tally))
-    kernels.append(time_pack_rows(device, pack_launches))
     phase_chunk_choice(device, n_keys)
     torch.cuda.empty_cache()
     phase_tile_choice(device, n_keys)

@@ -1,40 +1,35 @@
-"""Build the CUDA sources of this directory into shared libraries.
+"""Build the CUDA sources of this directory into torch operator libraries.
 
-Every ``*.cu`` here has a plain C interface (no PyTorch headers), so one
-``nvcc`` call per source takes seconds; all sources are compiled at the
-same time.  Libraries go to ``genome_assembly_tpu_torch/build/`` (not
-tracked by git), named by the hash of their source and of every header
-(``*.cuh``) of this directory, so an edited source or header is rebuilt and
-an unchanged one is reused.  What nvcc printed (ptxas's registers, shared
+Every ``<stem>.cu`` here has a torch host file beside it, ``<stem>_op.cpp``,
+which registers the operators that launch its kernels (a
+``TORCH_LIBRARY_FRAGMENT`` of the namespace ``ga_torch`` each).  One nvcc
+call builds both into one library: the ``.cu`` with its plain C launchers,
+the ``.cpp`` against torch's headers with torch's C++ ABI, linked against
+torch's libraries and the shared CUDA runtime torch uses.  All sources are
+compiled at the same time.  Libraries go to ``genome_assembly_tpu_torch/build/``
+(not tracked by git), named by the hash of the source, of its host file, of
+every header (``*.cuh``) of this directory, of the flags and of torch's and
+CUDA's versions, so an edited file or a torch upgrade is rebuilt and an
+unchanged one is reused.  What nvcc printed (ptxas's registers, shared
 memory and spills: every build asks for them) is kept beside each library as
 ``lib<stem>-<hash>.log`` and read back into ``build_log`` when the library
 is reused.
 
-Two routes:
-
-* a source alone is a plain C library, loaded with ctypes (``load``);
-* a source with a torch host file beside it, ``<stem>_op.cpp``, is a torch
-  operator library: the same nvcc call compiles both files, the ``.cpp``
-  against torch's headers with torch's C++ ABI, and links torch's libraries
-  (``load_operators``, which calls ``torch.ops.load_library`` once a
-  process).  Its name also hashes the ``.cpp`` and torch's and CUDA's
-  versions, so a torch upgrade rebuilds it.
-
-Nothing here runs at import: the first kernel launch calls ``load`` or
-``load_operators``.  A failed build raises; there is no other route to the
-kernel's function.
+Nothing here runs at import: the first kernel launch calls
+``load_operators``, which calls ``torch.ops.load_library`` once a process.
+A source without its host file, or a failed build, raises; there is no other
+route to a kernel.
 """
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import torch
 
@@ -45,10 +40,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
-# what an operator library links besides its inputs
+# what a library links besides its inputs
 OPERATOR_LIBS = ["-lc10", "-lc10_cuda", "-ltorch", "-ltorch_cpu", "-ltorch_cuda", "-lcudart"]
 
-_loaded: Dict[str, ctypes.CDLL] = {}
 # {source stem: operator library loaded into torch.ops}
 _operators: Dict[str, pathlib.Path] = {}
 
@@ -77,15 +71,17 @@ def nvcc_path() -> str:
     )
 
 
-def operator_source(source: pathlib.Path) -> Optional[pathlib.Path]:
-    """The torch host file of ``source`` (``<stem>_op.cpp`` beside it), if it
-    has one: then the source is built as a torch operator library."""
+def operator_source(source: pathlib.Path) -> pathlib.Path:
+    """The torch host file of ``source``, ``<stem>_op.cpp`` beside it; raises
+    where there is none."""
     host = source.with_name(f"{source.stem}_op.cpp")
-    return host if host.exists() else None
+    if not host.exists():
+        raise FileNotFoundError(f"{source.name} has no torch host file {host.name} beside it")
+    return host
 
 
 def operator_flags(nvcc: str) -> List[str]:
-    """What an operator library adds to ``NVCC_FLAGS`` before its inputs:
+    """What a library adds to ``NVCC_FLAGS`` before its inputs:
     torch's C++ ABI, torch's headers and CUDA's."""
     from torch.utils import cpp_extension
 
@@ -95,7 +91,7 @@ def operator_flags(nvcc: str) -> List[str]:
 
 
 def operator_link_flags(nvcc: str) -> List[str]:
-    """What an operator library links after its inputs: torch's libraries,
+    """What a library links after its inputs: torch's libraries,
     found at run time through an rpath, and the shared CUDA runtime torch
     uses."""
     from torch.utils import cpp_extension
@@ -108,29 +104,25 @@ def operator_link_flags(nvcc: str) -> List[str]:
 
 def _library_path(source: pathlib.Path) -> pathlib.Path:
     """Where the library of ``source`` goes: named by the hash of the source,
-    of every header beside it (any source may include any of them) and of the
-    compiler's flags; for an operator library also of its host file and of
-    torch's version, CUDA version and C++ ABI."""
+    of its host file, of every header beside it (any source may include any
+    of them), of the compiler's flags and of torch's version, CUDA version
+    and C++ ABI."""
+    host = operator_source(source)
     digest = hashlib.sha1(source.read_bytes())
     for header in sorted(source.parent.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    host = operator_source(source)
-    if host is not None:
-        digest.update(host.read_bytes())
-        digest.update(f"{torch.__version__} {torch.version.cuda} "
-                      f"{torch._C._GLIBCXX_USE_CXX11_ABI} {' '.join(OPERATOR_LIBS)}".encode())
+    digest.update(host.read_bytes())
+    digest.update(f"{torch.__version__} {torch.version.cuda} "
+                  f"{torch._C._GLIBCXX_USE_CXX11_ABI} {' '.join(OPERATOR_LIBS)}".encode())
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:12]}.so"
 
 
 def nvcc_command(nvcc: str, source: pathlib.Path, output: pathlib.Path) -> List[str]:
-    """The one nvcc call that builds ``source`` (and its torch host file, if
-    it has one) into ``output``."""
-    host = operator_source(source)
-    if host is None:
-        return [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(output), str(source)]
+    """The one nvcc call that builds ``source`` and its torch host file into
+    ``output``."""
     return [nvcc, *NVCC_FLAGS, *operator_flags(nvcc), "-Xptxas", "-v", "-o", str(output),
-            str(source), str(host), *operator_link_flags(nvcc)]
+            str(source), str(operator_source(source)), *operator_link_flags(nvcc)]
 
 
 def _log_path(library: pathlib.Path) -> pathlib.Path:
@@ -180,33 +172,15 @@ def build_all(verbose: bool = False) -> Dict[str, pathlib.Path]:
     return targets
 
 
-def _target(name: str, operators: bool) -> pathlib.Path:
-    source = CSRC_DIR / f"{name}.cu"
-    if not source.exists():
-        raise KeyError(f"no CUDA source {name}.cu in {CSRC_DIR}")
-    if (operator_source(source) is not None) != operators:
-        raise KeyError(f"{name}.cu in {CSRC_DIR} is " + (
-            "no operator library" if operators else "an operator library: use load_operators"))
-    return build_all()[name]
-
-
-def load(name: str) -> ctypes.CDLL:
-    """The plain C library built from ``<name>.cu``, building it first if
-    needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(_target(name, operators=False)))
-        _loaded[name] = lib
-    return lib
-
-
 def load_operators(name: str) -> pathlib.Path:
     """Load the operator library built from ``<name>.cu`` and
     ``<name>_op.cpp`` into ``torch.ops``, building it first if needed; once
     a process (a second load would register its operators again)."""
     path = _operators.get(name)
     if path is None:
-        path = _target(name, operators=True)
+        if not (CSRC_DIR / f"{name}.cu").exists():
+            raise KeyError(f"no CUDA source {name}.cu in {CSRC_DIR}")
+        path = build_all()[name]
         torch.ops.load_library(str(path))
         _operators[name] = path
     return path

@@ -97,7 +97,7 @@ at::Tensor lane_gather_cpu(const at::Tensor& x, const at::Tensor& idx) {
 
 }  // namespace
 
-TORCH_LIBRARY(ga_torch, m) {
+TORCH_LIBRARY_FRAGMENT(ga_torch, m) {
   m.def("lane_gather(Tensor x, Tensor idx) -> Tensor");
   m.def("lane_gather_launch_count() -> int",
         []() -> int64_t { return launches.load(std::memory_order_relaxed); });

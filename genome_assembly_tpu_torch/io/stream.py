@@ -17,9 +17,9 @@ its memory back while the consumer still reads it.
 Two kinds of batch, each on its own route, chosen by its type: an
 ``io.reads.ReadBatch`` (padded, encoded rows) is copied as it is; an
 ``io.reads.FlatBatch`` (fast mode's bases, unpadded) is copied with its
-lengths, their exclusive sum and its ids, and K0 (``ops/pack_rows``) builds
-its rows where it was copied to: on a card on the side stream, before the
-copy's event, on the CPU by the plain version.  Either way the consumer
+lengths, their exclusive sum and its ids, and ``ops/pack_rows`` builds its
+rows where it was copied to: on a card on the side stream, before the
+copy's event.  Either way the consumer
 gets (codes uint8 [n, L], lengths int32 [n], read_ids int64 [n]).
 
 The worker runs in the caller's context, so the run in progress
@@ -223,9 +223,9 @@ def _flat_host(batch: FlatBatch):
 
 
 def _pack(bases, starts, lengths, read_ids, table, width: int):
-    """(codes, lengths, read_ids) of a flat batch on the bases' device (K0),
+    """(codes, lengths, read_ids) of a flat batch on the bases' device,
     counted as ``packed_batches``."""
-    codes = pack_rows.pack_rows(bases, starts, lengths, table, width)
+    codes = pack_rows.pack_rows_plain(bases, starts, lengths, table, width)
     profiling.count("packed_batches", 1)
     return codes, lengths, read_ids
 
@@ -255,8 +255,8 @@ def batch_stager(device="cuda", depth: int = 1):
     batches to ``device`` as (codes uint8 [n, L], lengths int32 [n],
     read_ids int64 [n]) tensors: on a CUDA device through a ring of
     ``depth`` pinned buffers and a side stream, on the CPU as tensors over
-    the arrays (a flat batch packed by K0's plain version).  Raises on a
-    CUDA device where there is none."""
+    the arrays (a flat batch packed there).  Raises on a CUDA device where
+    there is none."""
     device = torch.device(device)
     if device.type != "cuda":
         return _stage_on_host, None

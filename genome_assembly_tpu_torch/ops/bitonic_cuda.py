@@ -1,9 +1,12 @@
-"""ctypes bindings and wrappers of the kernels of csrc/bitonic.cu.
+"""Wrappers of the kernels of csrc/bitonic.cu, launched by the torch
+operators ``ga_torch::sort_rows``, ``chunk_sort``, ``big_ce`` and ``finish``
+(csrc/bitonic_op.cpp).
 
 Replace the JAX package's ``sort_rows_pallas`` (ops/sort_pallas.py) and
 ``_run_chunk_pass``, ``_run_big_ce``, ``_run_finish`` (ops/bitonic_pallas.py).
-Each wrapper checks what its kernel does not take and raises; it launches on
-torch's current stream, does not synchronise and allocates only its output.
+Each wrapper checks what its kernel does not take and raises, and allocates
+only its output; the operator launches on torch's current stream of the
+keys' card and does not synchronise.
 A wrapper writes into its caller's tensor only when told ``overwrite=True``
 (the sorts say so for the buffer they own).  ``launch_count[name]`` goes up
 by one per launch of that kernel and nowhere else, so a run can show which
@@ -15,12 +18,12 @@ kernels it went through.
 of the block merge sort.  Any other list is a partial network and no sort; no
 sort sends one and the wrapper refuses it.
 
-The library is built and loaded at the first launch, never at import.
+The operator library is built and loaded at the first launch, never at
+import; a CPU tensor is refused before anything is built.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence, Tuple
 
 import torch
@@ -84,30 +87,20 @@ def finish_shape(chunk: int) -> Tuple[int, int, Tuple[Tuple[int, ...], ...], int
     return chunk // per_thread, per_thread, groups, shared_bytes
 
 
-_lib = None
+# torch.ops.ga_torch once the operator library is loaded
+_ops = None
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
+def _load():
+    global _ops
+    if _ops is None:
         from genome_assembly_tpu_torch.csrc import build
 
-        lib = build.load("bitonic")
-        ptr, i32, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
-        lib.sort_rows_launch.argtypes = [ptr, ptr, i64, i32, i32, ptr]
-        lib.chunk_sort_launch.argtypes = [ptr, ptr, u64, i32, i32, ptr]
-        lib.finish_launch.argtypes = [ptr, ptr, i64, i32, u64, i32, ptr]
-        lib.finish_shared_launch_bytes.argtypes = [i32, i32]
-        lib.finish_shared_launch_bytes.restype = i64
-        lib.big_ce_launch.argtypes = [ptr, ptr, u64, u64, u64, ptr]
-        for fn in (lib.sort_rows_launch, lib.chunk_sort_launch, lib.finish_launch,
-                   lib.big_ce_launch, lib.bitonic_max_shared_keys):
-            fn.restype = ctypes.c_int
-        lib.bitonic_max_shared_keys.argtypes = []
-        if lib.bitonic_max_shared_keys() != MAX_SHARED_KEYS:
+        build.load_operators("bitonic")
+        if torch.ops.ga_torch.bitonic_max_shared_keys() != MAX_SHARED_KEYS:
             raise RuntimeError("bitonic.cu and bitonic_cuda.py disagree on the largest chunk")
-        _lib = lib
-    return _lib
+        _ops = torch.ops.ga_torch
+    return _ops
 
 
 def _check_on_card(name: str, key: torch.Tensor) -> None:
@@ -125,15 +118,13 @@ def _check_fits(name: str, keys: int) -> None:
         )
 
 
-def _launch(name: str, key: torch.Tensor, overwrite: bool, call) -> torch.Tensor:
-    """Run ``call(lib, in_ptr, out_ptr, stream)`` on key's device; count it."""
-    with torch.cuda.device(key.device):
-        out = key if overwrite else torch.empty_like(key)
-        err = call(_library(), key.data_ptr(), out.data_ptr(),
-                   torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-        launch_count[name] += 1
+def _launch(name: str, key: torch.Tensor, overwrite: bool, *ints: int) -> torch.Tensor:
+    """Launch kernel ``name`` on ``key`` (its output ``key`` itself or a new
+    tensor) with the launcher's ints; count it."""
+    op = getattr(_load(), name)
+    out = key if overwrite else torch.empty_like(key)
+    op(key, out, *ints)
+    launch_count[name] += 1
     return out
 
 
@@ -145,8 +136,7 @@ def sort_rows_cuda(key: torch.Tensor) -> torch.Tensor:
     rows, c = key.shape
     _check_fits("sort_rows_cuda", c)
     block_keys = block_shape(c)[0]
-    return _launch("sort_rows", key, False, lambda lib, src, dst, stream:
-                   lib.sort_rows_launch(src, dst, rows, c, block_keys, stream))
+    return _launch("sort_rows", key, False, rows, c, block_keys)
 
 
 def chunk_sort_cuda(key: torch.Tensor, sizes: Sequence[int], *, chunk: int,
@@ -162,8 +152,7 @@ def chunk_sort_cuda(key: torch.Tensor, sizes: Sequence[int], *, chunk: int,
     n = key.shape[0]
     top = bitonic_sort.check_prefix(sizes, chunk)
     block_keys = block_shape(top)[0]
-    return _launch("chunk_sort", key, overwrite, lambda lib, src, dst, stream:
-                   lib.chunk_sort_launch(src, dst, n, top, block_keys, stream))
+    return _launch("chunk_sort", key, overwrite, n, top, block_keys)
 
 
 def big_ce_cuda(key: torch.Tensor, d: int, size: int, *,
@@ -173,8 +162,7 @@ def big_ce_cuda(key: torch.Tensor, d: int, size: int, *,
     _check_on_card("big_ce_cuda", key)
     bitonic_sort.check_stage(key, d, size)
     n = key.shape[0]
-    return _launch("big_ce", key, overwrite, lambda lib, src, dst, stream:
-                   lib.big_ce_launch(src, dst, n, d, size, stream))
+    return _launch("big_ce", key, overwrite, n, d, size)
 
 
 def finish_cuda(key: torch.Tensor, size: int, *, chunk: int,
@@ -187,5 +175,4 @@ def finish_cuda(key: torch.Tensor, size: int, *, chunk: int,
     _check_fits("finish_cuda", chunk)
     n_chunks = key.shape[0] // chunk
     per_thread = finish_shape(chunk)[1]
-    return _launch("finish", key, overwrite, lambda lib, src, dst, stream:
-                   lib.finish_launch(src, dst, n_chunks, chunk, size, per_thread, stream))
+    return _launch("finish", key, overwrite, n_chunks, chunk, size, per_thread)

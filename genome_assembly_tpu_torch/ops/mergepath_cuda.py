@@ -1,21 +1,23 @@
-"""ctypes bindings and wrappers of the merge-path kernels (csrc/mergepath.cu).
+"""Wrappers of the merge-path kernels (csrc/mergepath.cu), launched by the
+torch operators ``ga_torch::local_merge``, ``merge_pass`` and
+``merge_splits`` (csrc/mergepath_op.cpp).
 
 Replace the JAX package's ``_local_merge_pass``, ``_merge_pass`` and
 ``merge_splits`` (ops/mergepath_pallas.py).  Each wrapper checks what its
-kernel does not take and raises; it launches on torch's current stream, does
-not synchronise and allocates only its output.  ``local_merge_cuda`` writes
-into its caller's tensor only when told ``overwrite=True``; ``merge_pass_cuda``
-never works in place (a tile reads from anywhere in its run pair) and writes
-into ``out`` where the caller gives one.  ``launch_count[name]`` goes up by one per launch
-of that kernel and nowhere else, so a run can show which kernels it went
-through.
+kernel does not take and raises, and allocates only its output; the
+operator launches on torch's current stream of the keys' card and does not
+synchronise.  ``local_merge_cuda`` writes into its caller's tensor only when
+told ``overwrite=True``; ``merge_pass_cuda`` never works in place (a tile
+reads from anywhere in its run pair) and writes into ``out`` where the
+caller gives one.  ``launch_count[name]`` goes up by one per launch of that
+kernel and nowhere else, so a run can show which kernels it went through.
 
-The library is built and loaded at the first launch, never at import.
+The operator library is built and loaded at the first launch, never at
+import; a CPU tensor is refused before anything is built.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import torch
@@ -47,30 +49,22 @@ LOCAL_KEYS_PER_THREAD = 16
 MAX_CHUNK_KEYS = 1 << 14
 MAX_TILE_KEYS = 1 << 13
 
-_lib = None
+# torch.ops.ga_torch once the operator library is loaded
+_ops = None
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
+def _load():
+    global _ops
+    if _ops is None:
         from genome_assembly_tpu_torch.csrc import build
 
-        lib = build.load("mergepath")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        i64, u64 = ctypes.c_longlong, ctypes.c_ulonglong
-        lib.local_merge_launch.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr]
-        lib.merge_pass_launch.argtypes = [ptr, ptr, ptr, ptr, i64, i32, u64, i32, ptr]
-        lib.merge_splits_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, u64, ptr]
-        limits = (lib.mergepath_max_chunk_keys, lib.mergepath_max_tile_keys)
-        launchers = (lib.local_merge_launch, lib.merge_pass_launch, lib.merge_splits_launch)
-        for fn in (*launchers, *limits):
-            fn.restype = ctypes.c_int
-        for fn in limits:
-            fn.argtypes = []
-        if tuple(fn() for fn in limits) != (MAX_CHUNK_KEYS, MAX_TILE_KEYS):
+        build.load_operators("mergepath")
+        ops = torch.ops.ga_torch
+        if (ops.mergepath_max_chunk_keys(), ops.mergepath_max_tile_keys()) != (
+                MAX_CHUNK_KEYS, MAX_TILE_KEYS):
             raise RuntimeError("mergepath.cu and mergepath_cuda.py disagree on their limits")
-        _lib = lib
-    return _lib
+        _ops = ops
+    return _ops
 
 
 def _check_on_card(name: str, what: str, t: torch.Tensor) -> None:
@@ -104,14 +98,10 @@ def local_merge_cuda(key: torch.Tensor, levels: Sequence[int], *, chunk: int,
             f"memory (at most {MAX_CHUNK_KEYS})")
     n_chunks = key.shape[0] // chunk
     per_thread = _keys_per_thread(LOCAL_KEYS_PER_THREAD, chunk)
-    with torch.cuda.device(key.device):
-        out = key if overwrite else torch.empty_like(key)
-        err = _library().local_merge_launch(
-            key.data_ptr(), out.data_ptr(), n_chunks, chunk, levels[0] // 2, levels[-1],
-            per_thread, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"local_merge kernel launch failed: cudaError {err}")
-        launch_count["local_merge"] += 1
+    ops = _load()
+    out = key if overwrite else torch.empty_like(key)
+    ops.local_merge(key, out, n_chunks, chunk, levels[0] // 2, levels[-1], per_thread)
+    launch_count["local_merge"] += 1
     return out
 
 
@@ -142,15 +132,11 @@ def merge_pass_cuda(key: torch.Tensor, a0: torch.Tensor, b0: torch.Tensor, *, ru
         _check_on_card("merge_pass_cuda", "out", out)
         mergepath_sort.check_out(key, out)
     per_thread = _keys_per_thread(KEYS_PER_THREAD, tile)
-    with torch.cuda.device(key.device):
-        if out is None:
-            out = torch.empty_like(key)
-        err = _library().merge_pass_launch(
-            key.data_ptr(), out.data_ptr(), a0.data_ptr(), b0.data_ptr(), n_tiles, tile, run,
-            per_thread, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"merge_pass kernel launch failed: cudaError {err}")
-        launch_count["merge_pass"] += 1
+    ops = _load()
+    if out is None:
+        out = torch.empty_like(key)
+    ops.merge_pass(key, out, a0, b0, n_tiles, tile, run, per_thread)
+    launch_count["merge_pass"] += 1
     return out
 
 
@@ -161,13 +147,9 @@ def merge_splits_cuda(key: torch.Tensor, run: int, tile: int) -> mergepath_sort.
     _check_on_card("merge_splits_cuda", "its keys", key)
     mergepath_sort.check_merge(key, run, tile)
     n_tiles = key.shape[0] // tile
-    with torch.cuda.device(key.device):
-        out = torch.empty((4, n_tiles), dtype=torch.int64, device=key.device)
-        a0, b0, aend, bend = out.unbind(0)
-        err = _library().merge_splits_launch(
-            key.data_ptr(), a0.data_ptr(), b0.data_ptr(), aend.data_ptr(), bend.data_ptr(),
-            n_tiles, tile, run, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"merge_splits kernel launch failed: cudaError {err}")
-        launch_count["merge_splits"] += 1
+    ops = _load()
+    a0, b0, aend, bend = torch.empty((4, n_tiles), dtype=torch.int64,
+                                     device=key.device).unbind(0)
+    ops.merge_splits(key, a0, b0, aend, bend, n_tiles, tile, run)
+    launch_count["merge_splits"] += 1
     return a0, b0, aend, bend

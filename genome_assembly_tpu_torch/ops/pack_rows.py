@@ -1,15 +1,16 @@
-"""K0, the row packer: a fast-mode batch of reads, given as their ASCII
-bases one after another, becomes the zero-padded rows of 2-bit codes that
-the scan reads (``codes [n, width]`` uint8, as ``io/reads.batch_reads``
-builds them on the host).
+"""The row packer: a fast-mode batch of reads, given as their ASCII bases
+one after another, becomes the zero-padded rows of 2-bit codes that the scan
+reads (``codes [n, width]`` uint8, as ``io/reads.batch_reads`` builds them on
+the host).
 
-No TPU kernel does this: the JAX package pads and encodes on the host.
-``pack_rows`` sends CUDA tensors to the hand-written kernel
-(ops/pack_rows_cuda.py, csrc/pack_rows.cu) and CPU tensors to
-``pack_rows_plain``; there is no other route and no fallback between the
-two.  Both take the start of each read among the bases (``row_starts``, an
-exclusive sum of the lengths) and the encoding table (``encode._ASCII_TO_CODE``,
-``ascii_table``), so the device uses the host's table.
+Tensor operations on whatever device holds the bases: on a card the stager
+(``io/stream``) runs them on its side stream, where they hide under the
+copies the scan already waits on, so a hand-written kernel in their place
+gains nothing end to end.  No TPU kernel does this either: the JAX package
+pads and encodes on the host.  ``pack_rows_plain`` takes the start of each
+read among the bases (``row_starts``, an exclusive sum of the lengths) and
+the encoding table (``encode._ASCII_TO_CODE``, ``ascii_table``), so the
+device uses the host's table.
 """
 
 from __future__ import annotations
@@ -40,10 +41,10 @@ def row_starts(lengths: np.ndarray) -> np.ndarray:
 
 def pack_rows_plain(bases: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor,
                     table: torch.Tensor, width: int) -> torch.Tensor:
-    """The kernel's arithmetic in tensor operations: column c of row r is
+    """codes [n, width] uint8 of a batch's bases: column c of row r is
     ``table[bases[starts[r] + c]]`` below the row's length (clamped to
     [0, width]) where that base exists, else 0.  Nothing in it reads the
-    device back, so on a card it does not synchronise either."""
+    device back, so on a card it does not synchronise."""
     codes = torch.zeros((lengths.shape[0], width), dtype=torch.uint8, device=bases.device)
     if bases.numel() == 0:
         return codes
@@ -53,14 +54,3 @@ def pack_rows_plain(bases: torch.Tensor, starts: torch.Tensor, lengths: torch.Te
         pos < bases.numel())
     looked_up = table[bases[pos.clamp(0, bases.numel() - 1)].long()]
     return torch.where(inside, looked_up, codes)
-
-
-def pack_rows(bases: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor,
-              table: torch.Tensor, width: int) -> torch.Tensor:
-    """codes [n, width] uint8 of a batch's bases: on the card the kernel, on
-    the CPU the plain version."""
-    if bases.is_cuda:
-        from genome_assembly_tpu_torch.ops import pack_rows_cuda
-
-        return pack_rows_cuda.pack_rows_cuda(bases, starts, lengths, table, width)
-    return pack_rows_plain(bases, starts, lengths, table, width)

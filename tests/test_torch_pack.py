@@ -1,14 +1,12 @@
-"""Fast mode's flat batches and K0, the row packer (ops/pack_rows.py,
-csrc/pack_rows.cu).
+"""Fast mode's flat batches and the row packer (ops/pack_rows.py).
 
-On the CPU: ``io/reads.flat_batches``, staged by the CPU stager (K0's plain
-version), gives the rows, lengths and read ids that ``batch_reads`` +
-``pad_batch`` give, with the same errors, and ``FastAssembler.unitigs``
-the same unitigs as through the padded batches, in core and out of core.
-The ``card`` cases hold the kernel to its plain version and to
-``batch_reads`` at 128- and 256-base rows, its wrapper's refusals, and its
-launch count to the batches an assembly stages; they skip without a card.
-This file imports no JAX, so on a card:
+On the CPU: ``io/reads.flat_batches``, staged by the CPU stager, gives the
+rows, lengths and read ids that ``batch_reads`` + ``pad_batch`` give, with
+the same errors, and ``FastAssembler.unitigs`` the same unitigs as through
+the padded batches, in core and out of core.  The ``card`` cases hold the
+packer on the card to ``batch_reads`` at 128- and 256-base rows, staging to
+no synchronising call, and ``packed_batches`` to the batches an assembly
+stages; they skip without a card.  This file imports no JAX, so on a card:
 
     python -m pytest tests/test_torch_pack.py --noconftest -m card -q
 """
@@ -23,7 +21,7 @@ from genome_assembly_tpu_torch.io import datagen
 from genome_assembly_tpu_torch.io import reads as treads
 from genome_assembly_tpu_torch.io import stream as tstream
 from genome_assembly_tpu_torch.models.pipeline import FastAssembler, PhaseStats
-from genome_assembly_tpu_torch.ops import encode, pack_rows, pack_rows_cuda
+from genome_assembly_tpu_torch.ops import encode, pack_rows
 from genome_assembly_tpu_torch.utils import profiling
 
 LETTERS = list("ACGT")
@@ -125,24 +123,16 @@ def test_the_pinned_rings_routes_on_the_cpu(monkeypatch):
 
 
 def test_plain_pack_rows_keeps_inside_its_rows_and_its_bases():
-    """K0's guards, in the plain version: a length past the width is cut to
-    it, a negative one is an empty row, a base outside the bases reads 0."""
+    """The packer's guards: a length past the width is cut to it, a negative
+    one is an empty row, a base outside the bases reads 0."""
     bases = torch.tensor(list(b"ACGTacgtNA"), dtype=torch.uint8)
     starts = torch.tensor([0, 4, 8, -2, 6], dtype=torch.int32)
     lengths = torch.tensor([4, 9, 3, 3, -1], dtype=torch.int32)
     table = pack_rows.ascii_table("cpu")
-    codes = pack_rows.pack_rows(bases, starts, lengths, table, 6)
+    codes = pack_rows.pack_rows_plain(bases, starts, lengths, table, 6)
     row = lambda s: list(encode._ASCII_TO_CODE[np.frombuffer(s, dtype=np.uint8)])
     assert codes.tolist() == [row(b"ACGT") + [0, 0], row(b"acgtNA"), row(b"NA") + [0] * 4,
                               [0, 0] + row(b"A") + [0] * 3, [0] * 6]
-
-
-def test_pack_rows_cuda_refuses_cpu_tensors_before_building():
-    n = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA"):
-        pack_rows_cuda.pack_rows_cuda(torch.zeros(4, dtype=torch.uint8), n, n,
-                                      torch.zeros(256, dtype=torch.uint8), 8)
-    assert pack_rows_cuda._lib is None and pack_rows_cuda.launch_count == 0
 
 
 def _assembly_reads():
@@ -191,13 +181,11 @@ def test_k0_on_the_card_is_its_plain_version_and_batch_reads(card, width, read_l
     host = tstream._flat_host(flat)
     cpu = [torch.from_numpy(a.copy()) for a in host[:3]]
     dev = [t.to(card) for t in cpu]
-    before = pack_rows_cuda.launch_count
-    codes = pack_rows.pack_rows(*dev, pack_rows.ascii_table(card), width)
+    codes = pack_rows.pack_rows_plain(*dev, pack_rows.ascii_table(card), width)
     torch.cuda.synchronize()
-    assert pack_rows_cuda.launch_count == before + 1
-    plain = pack_rows.pack_rows_plain(*cpu, pack_rows.ascii_table("cpu"), width)
-    assert torch.equal(codes.cpu(), plain)
-    assert torch.equal(plain, torch.from_numpy(want.codes))
+    on_cpu = pack_rows.pack_rows_plain(*cpu, pack_rows.ascii_table("cpu"), width)
+    assert torch.equal(codes.cpu(), on_cpu)
+    assert torch.equal(on_cpu, torch.from_numpy(want.codes))
 
 
 @pytest.mark.card
@@ -226,43 +214,20 @@ def test_staging_flat_batches_does_not_synchronise(card):
 
 
 @pytest.mark.card
-def test_k0_wrapper_refuses_wrong_dtypes_and_devices(card):
-    bases = torch.zeros(8, dtype=torch.uint8, device=card)
-    n = torch.zeros(2, dtype=torch.int32, device=card)
-    table = pack_rows.ascii_table(card)
-    before = pack_rows_cuda.launch_count
-    with pytest.raises(TypeError):
-        pack_rows_cuda.pack_rows_cuda(bases, n, n.long(), table, 8)
-    with pytest.raises(TypeError):
-        pack_rows_cuda.pack_rows_cuda(bases.int(), n, n, table, 8)
-    with pytest.raises(ValueError, match="one CUDA device"):
-        pack_rows_cuda.pack_rows_cuda(bases.cpu(), n, n, table, 8)
-    with pytest.raises(ValueError, match="one CUDA device"):
-        pack_rows_cuda.pack_rows_cuda(bases, n, n, table.cpu(), 8)
-    with pytest.raises(ValueError):
-        pack_rows_cuda.pack_rows_cuda(bases, n[:1], n, table, 8)
-    with pytest.raises(ValueError):
-        pack_rows_cuda.pack_rows_cuda(bases, n, n, table, 0)
-    assert pack_rows_cuda.launch_count == before
-
-
-@pytest.mark.card
 @pytest.mark.parametrize("outofcore_bytes", [3 << 30, 1 << 14], ids=["incore", "outofcore"])
 def test_k0_launches_once_a_staged_batch(card, outofcore_bytes):
-    """An assembly on the card launches K0 once for every batch it stages,
-    which is its ``packed_batches``: each batch in core; the probe's and
-    every pass's out of core.  The unitigs are the CPU's."""
+    """An assembly on the card packs once every batch it stages, which is
+    its ``packed_batches``: each batch in core; the probe's and every pass's
+    out of core.  The unitigs are the CPU's."""
     reads = _assembly_reads()
     cfg = PipelineConfig(k=21, m=7, parity=False, batch_reads=64, max_read_len=96,
                          outofcore_bytes=outofcore_bytes)
-    before = pack_rows_cuda.launch_count
     got, stats = FastAssembler(cfg, device=card).unitigs(reads)
-    launches = pack_rows_cuda.launch_count - before
+    packed = stats.counts["packed_batches"]
     n_batches = -(-len(reads) // 64)
-    assert launches == stats.counts["packed_batches"]
     if outofcore_bytes == 3 << 30:
-        assert launches == n_batches
+        assert packed == n_batches
     else:
-        assert launches == 1 + stats.counts["passes"] * n_batches
+        assert packed == 1 + stats.counts["passes"] * n_batches
     want, _ = FastAssembler(cfg, device="cpu").unitigs(reads)
     assert got == want

@@ -73,7 +73,7 @@ assert "genome_assembly_tpu_torch.csrc.build" not in sys.modules
 # importing the binding module still builds and loads nothing
 from genome_assembly_tpu_torch.ops import minimizer_cuda
 from genome_assembly_tpu_torch.csrc import build
-assert minimizer_cuda._lib is None and build._loaded == {}
+assert minimizer_cuda._op is None and build._operators == {}
 assert minimizer_cuda.launch_count == 0
 print("OK")
 """)
@@ -97,7 +97,7 @@ assert "genome_assembly_tpu_torch.ops.bitonic_cuda" not in sys.modules
 # importing the binding module builds and loads nothing
 from genome_assembly_tpu_torch.ops import bitonic_cuda
 from genome_assembly_tpu_torch.csrc import build
-assert bitonic_cuda._lib is None and build._loaded == {}
+assert bitonic_cuda._ops is None and build._operators == {}
 assert set(bitonic_cuda.launch_count.values()) == {0}
 assert sorted(bitonic_cuda.launch_count) == [
     "big_ce", "chunk_sort", "finish", "sort_rows"]
@@ -129,7 +129,7 @@ assert "genome_assembly_tpu_torch.ops.bitonic_cuda" not in sys.modules
 # importing the binding module builds and loads nothing
 from genome_assembly_tpu_torch.ops import mergepath_cuda
 from genome_assembly_tpu_torch.csrc import build
-assert mergepath_cuda._lib is None and build._loaded == {}
+assert mergepath_cuda._ops is None and build._operators == {}
 assert mergepath_cuda.launch_count == {"local_merge": 0, "merge_pass": 0, "merge_splits": 0}
 print("OK")
 """)
@@ -161,7 +161,7 @@ assert torch.equal(lane_gather.lane_gather(x, idx), x.flip(1))
 assert "genome_assembly_tpu_torch.ops.lane_gather_cuda" not in sys.modules
 from genome_assembly_tpu_torch.ops import lane_gather_cuda
 from genome_assembly_tpu_torch.csrc import build
-assert lane_gather_cuda._op is None and build._loaded == {} and build._operators == {}
+assert lane_gather_cuda._op is None and build._operators == {}
 assert lane_gather_cuda.launch_count() == 0
 try:
     lane_gather_cuda.lane_gather_cuda(x, idx)
@@ -193,57 +193,55 @@ try:
     mergepath_cuda.{call}
 except ValueError as e:
     print("RAISED", e)
-assert set(mergepath_cuda.launch_count.values()) == {{0}} and mergepath_cuda._lib is None
+assert set(mergepath_cuda.launch_count.values()) == {{0}} and mergepath_cuda._ops is None
 """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("RAISED") and "CUDA" in r.stdout
 
 
 def test_every_cuda_source_has_a_binding_and_no_library_sort():
-    """Each source of csrc/ is loaded by one binding module, and no kernel
-    source calls a library's sort or merge."""
+    """Each source of csrc/ has a torch host file that registers operators
+    of ``ga_torch`` as a fragment, is loaded by one binding module through
+    ``build.load_operators``, and no kernel source calls a library's sort or
+    merge."""
     csrc = REPO_ROOT / "genome_assembly_tpu_torch" / "csrc"
     ops = REPO_ROOT / "genome_assembly_tpu_torch" / "ops"
     bindings = "".join(p.read_text() for p in ops.glob("*_cuda.py"))
+    assert "ctypes" not in bindings and "data_ptr" not in bindings
+    assert "ctypes" not in (csrc / "build.py").read_text()
     sources = sorted(csrc.glob("*.cu"))
-    assert [s.stem for s in sources] == ["bitonic", "fast_scan", "lane_gather", "mergepath",
-                                         "pack_rows"]
-    # a torch host file beside a source makes it an operator library
-    assert sorted(p.name for p in csrc.glob("*.cpp")) == ["lane_gather_op.cpp"]
+    assert [s.stem for s in sources] == ["bitonic", "fast_scan", "lane_gather", "mergepath"]
+    # one torch host file a source, and no other
+    assert sorted(p.name for p in csrc.glob("*.cpp")) == [f"{s.stem}_op.cpp" for s in sources]
     for source in sources:
-        host = csrc / f"{source.stem}_op.cpp"
-        if host.exists():
-            assert f'build.load_operators("{source.stem}")' in bindings
-            assert f'build.load("{source.stem}")' not in bindings
-            callers = host.read_text()
-        else:
-            assert f'build.load("{source.stem}")' in bindings
-            callers = bindings
+        host = (csrc / f"{source.stem}_op.cpp").read_text()
+        assert f'build.load_operators("{source.stem}")' in bindings
+        # a fragment of the one namespace: several libraries load into one process
+        assert "TORCH_LIBRARY_FRAGMENT(ga_torch, m)" in host
+        assert not re.search(r"TORCH_LIBRARY\(", host)
+        assert re.search(r"TORCH_LIBRARY_IMPL\(ga_torch, CUDA, m\)", host)
+        # the card of the tensors made current, torch's current stream, and
+        # an error a launcher returns raised
+        assert "CUDAGuard" in host and "getCurrentCUDAStream" in host
+        assert "TORCH_CHECK(" in host
         text = source.read_text()
         assert "__global__" in text
         assert not re.search(r"\b(cub|thrust)::|#include\s*<(cub|thrust)/", text)
         # every kernel of the source is launched by a C function that the
-        # binding names, or that the torch host file calls
+        # torch host file declares, then calls
         kernels = re.findall(r"^(\w+_kernel)\(", text, flags=re.M)
         assert kernels
         for kernel in kernels:
             launcher = kernel.replace("_kernel", "_launch")
             assert re.search(rf'extern "C" int {launcher}\(', text), launcher
-            if host.exists():  # declared there, then called
-                assert len(re.findall(rf"\b{launcher}\(", callers)) >= 2, launcher
-            else:
-                assert f"lib.{launcher}" in callers or f".{launcher}(" in callers, launcher
+            assert len(re.findall(rf"\b{launcher}\(", host)) >= 2, launcher
     # K5's host file: a CUDA kernel and a CPU kernel that refuses, refusals
-    # raised as ValueError and TypeError, and no ctypes left in its binding
+    # raised as ValueError and TypeError
     op = (csrc / "lane_gather_op.cpp").read_text()
-    assert "TORCH_LIBRARY(ga_torch, m)" in op
     assert 'm.def("lane_gather(Tensor x, Tensor idx) -> Tensor")' in op
-    assert re.search(r"TORCH_LIBRARY_IMPL\(ga_torch, CUDA, m\)", op)
     assert re.search(r"TORCH_LIBRARY_IMPL\(ga_torch, CPU, m\)", op)
     assert "TORCH_CHECK_VALUE" in op and "TORCH_CHECK_TYPE" in op
-    assert "CUDAGuard" in op and "getCurrentCUDAStream" in op
     gather_binding = (ops / "lane_gather_cuda.py").read_text()
-    assert "ctypes" not in gather_binding
     assert "torch.ops.ga_torch.lane_gather.default" in gather_binding
     merge = (csrc / "mergepath.cu").read_text()
     assert re.findall(r"^(\w+_kernel)\(", merge, flags=re.M) == [
@@ -255,8 +253,6 @@ def test_every_cuda_source_has_a_binding_and_no_library_sort():
     assert re.findall(r"^(\w+_kernel)\(", scan, flags=re.M) == ["fast_scan_kernel"]
     gather = (csrc / "lane_gather.cu").read_text()
     assert re.findall(r"^(\w+_kernel)\(", gather, flags=re.M) == ["lane_gather_kernel"]
-    pack = (csrc / "pack_rows.cu").read_text()
-    assert re.findall(r"^(\w+_kernel)\(", pack, flags=re.M) == ["pack_rows_kernel"]
     # the scan kernel writes `valid` itself; finish takes keys a thread, not threads
     assert "valid_out" in scan.split('extern "C" int fast_scan_launch(', 1)[1].split(")", 1)[0]
     finish = bitonic.split('extern "C" int finish_launch(', 1)[1].split(")", 1)[0]
@@ -327,7 +323,7 @@ try:
     bitonic_cuda.{call}
 except ValueError as e:
     print("RAISED", e)
-assert set(bitonic_cuda.launch_count.values()) == {{0}} and bitonic_cuda._lib is None
+assert set(bitonic_cuda.launch_count.values()) == {{0}} and bitonic_cuda._ops is None
 """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("RAISED") and "CUDA" in r.stdout
@@ -424,7 +420,7 @@ try:
         torch.zeros((2, 40), dtype=torch.uint8), torch.zeros(2, dtype=torch.int32), k=21, m=7)
 except ValueError as e:
     print("RAISED", e)
-assert minimizer_cuda.launch_count == 0 and minimizer_cuda._lib is None
+assert minimizer_cuda.launch_count == 0 and minimizer_cuda._op is None
 """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("RAISED")
@@ -523,27 +519,17 @@ pathlib.Path(sys.argv[sys.argv.index("-o") + 1]).write_text("library")
 (pathlib.Path(sys.argv[0]).parent / f"argv.{{os.getpid()}}.json").write_text(json.dumps(sys.argv))
 """
 
-# the flags and the name of a plain C library before the operator route came
-PLAIN_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC"]
-
-
-def _plain_library_name(source):
-    import hashlib
-
-    digest = hashlib.sha1(source.read_bytes())
-    for header in sorted(source.parent.glob("*.cuh")):
-        digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(PLAIN_FLAGS).encode())
-    return f"lib{source.stem}-{digest.hexdigest()[:12]}.so"
+# the compiler's flags every library starts with
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC"]
 
 
 def test_operator_route_builds_the_host_file_against_torch(tmp_path, monkeypatch):
-    """lane_gather.cu has a torch host file, so one nvcc call builds both
+    """Every source has a torch host file, and one nvcc call builds both
     into an operator library: torch's ABI, headers and libraries (with an
-    rpath) on its command, torch's version in its name.  The plain C
-    sources keep their commands and names byte for byte."""
+    rpath) on its command, torch's version and the host file in its name."""
     import json
+    import shutil
 
     import torch
     from torch.utils import cpp_extension
@@ -563,73 +549,86 @@ def test_operator_route_builds_the_host_file_against_torch(tmp_path, monkeypatch
     argvs = [json.loads(p.read_text()) for p in nvcc.parent.glob("argv.*.json")]
     by_source = {pathlib.Path(next(a for a in argv if a.endswith(".cu"))).stem: argv
                  for argv in argvs}
-    assert sorted(by_source) == ["bitonic", "fast_scan", "lane_gather", "mergepath",
-                                 "pack_rows"]
-    assert sorted(build.build_seconds) == sorted(by_source)
+    stems = ["bitonic", "fast_scan", "lane_gather", "mergepath"]
+    assert sorted(by_source) == stems
+    assert sorted(build.build_seconds) == stems
 
-    for stem in ("bitonic", "fast_scan", "mergepath", "pack_rows"):
-        source = build.CSRC_DIR / f"{stem}.cu"
-        assert build.operator_source(source) is None
-        assert targets[stem].name == _plain_library_name(source)
-        tmp = targets[stem].with_suffix(f".tmp{os.getpid()}.so")
-        assert by_source[stem] == [str(nvcc), *PLAIN_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-                                   str(source)]
-
-    source = build.CSRC_DIR / "lane_gather.cu"
-    host = build.CSRC_DIR / "lane_gather_op.cpp"
-    assert build.operator_source(source) == host
-    argv = by_source["lane_gather"]
-    assert argv[0] == str(nvcc) and argv[1:1 + len(PLAIN_FLAGS)] == PLAIN_FLAGS
-    assert argv.count(str(source)) == 1 and argv.count(str(host)) == 1
-    inputs_end = argv.index(str(host)) + 1
-    assert argv.index(str(source)) + 1 == argv.index(str(host))
-    assert f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}" in argv
-    assert f"-I{tmp_path / 'cuda' / 'include'}" in argv
-    for d in cpp_extension.include_paths():
-        assert f"-I{d}" in argv, d
-    pairs = list(zip(argv, argv[1:]))
-    for d in cpp_extension.library_paths():
-        assert f"-L{d}" in argv[inputs_end:], d
-        assert ("-Xlinker", f"-rpath,{d}") in pairs, d
     libs = ["-lc10", "-lc10_cuda", "-ltorch", "-ltorch_cpu", "-ltorch_cuda", "-lcudart"]
-    assert [a for a in argv[inputs_end:] if a.startswith("-l")] == libs
-    assert ("-Xptxas", "-v") in pairs  # the kernel's registers still reach the log
+    for stem in stems:
+        source = build.CSRC_DIR / f"{stem}.cu"
+        host = build.CSRC_DIR / f"{stem}_op.cpp"
+        assert build.operator_source(source) == host
+        argv = by_source[stem]
+        assert argv[0] == str(nvcc) and argv[1:1 + len(NVCC_FLAGS)] == NVCC_FLAGS
+        tmp = targets[stem].with_suffix(f".tmp{os.getpid()}.so")
+        assert argv[argv.index("-o") + 1] == str(tmp)
+        assert argv.count(str(source)) == 1 and argv.count(str(host)) == 1
+        inputs_end = argv.index(str(host)) + 1
+        assert argv.index(str(source)) + 1 == argv.index(str(host))
+        assert f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}" in argv
+        assert f"-I{tmp_path / 'cuda' / 'include'}" in argv
+        for d in cpp_extension.include_paths():
+            assert f"-I{d}" in argv, d
+        pairs = list(zip(argv, argv[1:]))
+        for d in cpp_extension.library_paths():
+            assert f"-L{d}" in argv[inputs_end:], d
+            assert ("-Xlinker", f"-rpath,{d}") in pairs, d
+        assert ("-cudart", "shared") in pairs
+        assert [a for a in argv[inputs_end:] if a.startswith("-l")] == libs
+        assert ("-Xptxas", "-v") in pairs  # the kernel's registers still reach the log
 
-    # torch's version, and the host file, name the operator library
-    name = targets["lane_gather"].name
+    # torch's version, and each host file, name the operator libraries
+    names = {stem: targets[stem].name for stem in stems}
     monkeypatch.setattr(torch, "__version__", "0.0.0+another")
-    assert build._library_path(source).name != name
-    assert all(build._library_path(build.CSRC_DIR / f"{stem}.cu") == targets[stem]
-               for stem in ("bitonic", "fast_scan", "mergepath"))
+    assert all(build._library_path(build.CSRC_DIR / f"{stem}.cu").name != names[stem]
+               for stem in stems)
     monkeypatch.undo()
-    import shutil
-
     copy = tmp_path / "csrc"
     shutil.copytree(build.CSRC_DIR, copy, ignore=shutil.ignore_patterns("__pycache__"))
-    assert build._library_path(copy / "lane_gather.cu").name == name
-    (copy / "lane_gather_op.cpp").write_text(host.read_text() + "\n// edited\n")
-    assert build._library_path(copy / "lane_gather.cu").name != name
+    for stem in stems:
+        assert build._library_path(copy / f"{stem}.cu").name == names[stem]
+        host = copy / f"{stem}_op.cpp"
+        host.write_text(host.read_text() + "\n// edited\n")
+        assert build._library_path(copy / f"{stem}.cu").name != names[stem]
 
 
-def test_each_library_loads_only_by_its_own_route():
-    """A plain C library is no operator library and the other way round:
-    asking for the wrong route raises before anything is built."""
-    r = _run("""
+def test_each_library_loads_only_by_its_own_route(tmp_path):
+    """A kernel loads only as an operator library: an unknown source, and a
+    source without its torch host file, raise before anything is built."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(REPO_ROOT / "genome_assembly_tpu_torch" / "csrc", csrc,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (csrc / "bitonic_op.cpp").unlink()
+    r = _run(f"""
+import pathlib
 from genome_assembly_tpu_torch.csrc import build
-for call in (lambda: build.load("lane_gather"), lambda: build.load_operators("bitonic"),
-             lambda: build.load_operators("no_such_source")):
+for call in (lambda: build.load_operators("no_such_source"),
+             lambda: build.load_operators("pack_rows")):
     try:
         call()
     except KeyError as e:
-        print("RAISED", e)
+        print("RAISED", type(e).__name__, e)
     else:
         raise AssertionError("no error")
-assert build._loaded == {} and build._operators == {} and build.build_log == {}
+# a copy of csrc/ whose bitonic.cu has no host file: no source of it is built
+build.CSRC_DIR = pathlib.Path({str(csrc)!r})
+for stem in ("bitonic", "fast_scan"):
+    try:
+        build.load_operators(stem)
+    except FileNotFoundError as e:
+        print("RAISED", type(e).__name__, e)
+    else:
+        raise AssertionError("no error")
+assert build._operators == {{}} and build.build_log == {{}} and build.build_seconds == {{}}
+assert not build.BUILD_DIR.exists() or not list(build.BUILD_DIR.glob("*.tmp*"))
 """)
     assert r.returncode == 0, r.stderr
     lines = r.stdout.splitlines()
-    assert len(lines) == 3 and all(line.startswith("RAISED") for line in lines)
-    assert "load_operators" in lines[0] and "no operator library" in lines[1]
+    assert len(lines) == 4 and all(line.startswith("RAISED") for line in lines)
+    assert all("KeyError" in line for line in lines[:2])
+    assert all("FileNotFoundError" in line and "bitonic_op.cpp" in line for line in lines[2:])
 
 
 def test_chip_smoke_alone_names_the_missing_package(tmp_path):
