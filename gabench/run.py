@@ -8,10 +8,13 @@ a file in ``$TMPDIR``, builds ``FastAssembler`` on the card and assembles the
 file once to warm up.  The window then assembles the file back to back, each
 assembly ``asm.load(path)`` and ``asm.unitigs(reads)`` (what ``assemble --mode
 fast`` runs), until ``--seconds`` have passed; the last assembly to start
-runs to its end.  With ``--trace 1`` the window runs under ``torch.profiler``
-and the line holds the per-layer metrics, else the end-to-end ones.  Once
-the window has closed the outputs are judged against the plain reference in
-``gabench/reference``.
+runs to its end.  With ``--trace 1`` the window runs under a
+``torch.profiler`` capture that the harness opens itself (``capture``) and
+the line holds the per-layer metrics, else the end-to-end ones.  Once the
+window has closed the outputs are judged against the plain reference in
+``gabench/reference``.  Each step after the window (the capture's end, its
+export, ``read_trace``, the readers, the breakdown, the judging) writes one
+line to stderr as it ends, and the line's ``window.post_s`` holds their sum.
 
 Everything that belongs to one cell is found by name: the workload in
 ``BENCHMARK.json``, its configuration in ``gabench/configs/<config>.json``,
@@ -26,6 +29,7 @@ import time
 PROCESS_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import importlib.util  # noqa: E402
@@ -48,6 +52,11 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PROGRAM = "genome_assembly_tpu_torch"
 # top-level modules that may not be loaded in a run's process
 FORBIDDEN = ("jax", "jaxlib", "flax", "genome_assembly_tpu")
+# the refusals of a faulty capture on a card
+NO_CUPTI = ("a CUDA device is present but torch.profiler cannot record CUDA activity "
+            "(no CUPTI); refusing a host-only trace")
+NO_DEVICE_ACTIVITY = ("the profiler recorded no CUDA activity on a machine with a CUDA "
+                      "device; refusing a host-only trace")
 
 
 def _cache_dirs(root: pathlib.Path) -> None:
@@ -149,6 +158,52 @@ def assemble(asm, path: str):
     return reads, unitigs, Assembly(load_s=t1 - t0, seconds=t2 - t0, wall_s=dict(stats.wall_s))
 
 
+def capture(on_card: bool):
+    """A ``torch.profiler`` capture of the host's operator calls and, on a
+    card, of its kernels, copies and sets, with the profiler's defaults.
+    Refuses where a card is present and the profiler cannot record it."""
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise RuntimeError(f"gabench: {NO_CUPTI}")
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities)
+
+
+def export(prof, trace_dir: str) -> None:
+    """Write the capture as one Chrome trace in trace_dir, without building
+    the profiler's event tree."""
+    prof.export_chrome_trace(
+        str(pathlib.Path(trace_dir) / f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def read_capture(trace_dir: str, on_card: bool) -> Trace:
+    """The Trace of the one file in trace_dir; on a card, refuses a trace
+    that holds no kernel, copy or set."""
+    events, ranges, _ = read_trace(trace_dir)
+    if on_card and not any(events.values()):
+        raise RuntimeError(f"gabench: {NO_DEVICE_ACTIVITY}")
+    return Trace(events, ranges)
+
+
+class AfterWindow:
+    """Seconds of each step after the window, each written to stderr as it
+    ends, so that a run stopped there shows where its time went."""
+
+    def __init__(self, closed: float):
+        self.last = closed
+        self.total = 0.0
+
+    def step(self, name: str) -> None:
+        now = time.perf_counter()
+        seconds, self.last = now - self.last, now
+        self.total += seconds
+        print(f"gabench: after the window, {name} {seconds:.3f} s ({self.total:.3f} s in all)",
+              file=sys.stderr, flush=True)
+
+
 def _reset_peak(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -168,7 +223,7 @@ def run_cell(root: pathlib.Path, workload: str, seed: int, seconds: float, trace
     cell, config, traffic, spec = cell_spec(root, workload)
     metrics = cell_metrics(spec, workload, traced)
     readers = {m["name"]: metric_reader(root, m["name"]) for m in metrics}
-    from genome_assembly_tpu_torch.utils.profiling import maybe_trace
+    on_card = device.type == "cuda"
 
     made = generate.for_cell(seed, config, traffic)
     fd, path = tempfile.mkstemp(prefix="gabench_reads_", suffix=".txt")
@@ -186,7 +241,8 @@ def run_cell(root: pathlib.Path, workload: str, seed: int, seconds: float, trace
 
         # every assembly's reads and unitigs are kept to be judged after the window
         loads, outputs, runs = [], [], []
-        with maybe_trace(trace_dir, cuda=device.type == "cuda"):
+        prof = capture(on_card) if traced else contextlib.nullcontext()
+        with prof:
             start = time.perf_counter()
             deadline = start + seconds
             with torch.profiler.record_function(WINDOW):
@@ -198,19 +254,29 @@ def run_cell(root: pathlib.Path, workload: str, seed: int, seconds: float, trace
                     end = time.perf_counter()
                     if end >= deadline:
                         break
+        after = AfterWindow(end)
         observed = Observed(config=config, setup_s=start - PROCESS_START,
                             window_s=end - start, assemblies=runs,
                             peak_device_bytes=_peak(device))
         if traced:
-            events, ranges, _ = read_trace(trace_dir)
-            observed.trace = Trace(events, ranges)
+            after.step("capture")
+            export(prof, trace_dir)
+            after.step("export")
+            observed.trace = read_capture(trace_dir, on_card)
+            after.step("read_trace")
         values = {m["name"]: readers[m["name"]](observed) for m in metrics}
+        after.step("readers")
+        breakdown = ({"device_ops": observed.trace.top_device_ops(),
+                      "idle_gaps": observed.trace.idle_gaps()} if traced else None)
+        described = describe_device(device, cell["chips"], observed)
+        after.step("breakdown")
 
         # judged once the window has closed and the program's state is gone
         del asm
         gc.collect()
-        if device.type == "cuda":
+        if on_card:
             torch.cuda.empty_cache()
+        after.step("free")
         judge_start = time.perf_counter()
         expected = reference.Expected(made.reads, config["pipeline"], device)
         judged = []
@@ -220,6 +286,7 @@ def run_cell(root: pathlib.Path, workload: str, seed: int, seconds: float, trace
             judged.append(reference.judge(expected, loaded, out, device) if same is None else
                           dict(judged[same], reads_diff=reference.reads_diff(made.reads, loaded)))
         judge_s = time.perf_counter() - judge_start
+        after.step("judge")
     finally:
         os.unlink(path)
         if trace_dir:
@@ -235,15 +302,14 @@ def run_cell(root: pathlib.Path, workload: str, seed: int, seconds: float, trace
         "failed": failed,
         "metrics": {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
                     for m in metrics if values[m["name"]] is not None},
-        "device": describe_device(device, cell["chips"], observed),
+        "device": described,
     }
     if traced:
-        result["breakdown"] = {"device_ops": observed.trace.top_device_ops(),
-                               "idle_gaps": observed.trace.idle_gaps()}
+        result["breakdown"] = breakdown
     result["window"] = {"assembly_s": [a.seconds for a in runs], "warmup_s": warmup.seconds,
                         "load_s": [a.load_s for a in runs],
                         "phase_s": [a.wall_s for a in runs],
-                        "reads": made.n_reads, "judge_s": judge_s}
+                        "reads": made.n_reads, "judge_s": judge_s, "post_s": after.total}
     result["checks"] = checks
     return result
 

@@ -110,9 +110,9 @@ def test_the_three_entries_are_appended():
     assert {k: cell[k] for k in ("config", "traffic", "chips")} == {
         "config": "ecoli_mg1655_150", "traffic": "novaseq100", "chips": 1}
     assert len(cell["why"]) <= 200
-    assert len(spec["per_layer"]) == 17
-    assert [m["name"] for m in spec["per_layer"][15:]] == NEW_METRICS
-    fill, staged = spec["per_layer"][15:]
+    assert len(spec["per_layer"]) == 16
+    assert [m["name"] for m in spec["per_layer"][14:]] == NEW_METRICS
+    fill, staged = spec["per_layer"][14:]
     # the fill lists no cells: it is read in every cell, those added later
     # too; the staging only in the cells that count out of core (an in-core
     # count stages nothing, and the reader reads nothing there)

@@ -17,7 +17,6 @@ SEED = 2**31 + 4243
 # (name, unit, source, layer, cells), appended in this order
 NEW = [
     ("batch_encode_s", "s", "program_span", "host ingest", ["ecoli", "yeast"]),
-    ("batch_scatter_s", "s", "program_span", "host ingest", ["ecoli", "yeast"]),
     ("feeder_wait_s", "s", "program_span", "host ingest", ["ecoli"]),
     ("materialize_sort_s", "s", "program_span", "materialize", ["ecoli", "yeast"]),
     ("materialize_revcomp_s", "s", "program_span", "materialize", ["ecoli"]),
@@ -37,12 +36,12 @@ def test_the_entries_are_appended_after_the_accepted_ones():
         "load_s", "batch_s", "scan_s", "scan_roofline_pct", "count_s", "extension_s",
         "materialize_s", "device_idle_pct"]
     got = [(m["name"], m["unit"], m["source"], m["layer"], m["workloads"])
-           for m in per_layer[8:]]
+           for m in per_layer[8:8 + len(NEW)]]
     assert got == [(n, u, s, layer, [CELLS[c] for c in cells])
                    for n, u, s, layer, cells in NEW]
     assert all(set(m) == {"name", "unit", "better", "source", "layer", "moves", "workloads"}
                and m["moves"] == "assemble_s" and m["better"] == "lower"
-               for m in per_layer[8:])
+               for m in per_layer[8:8 + len(NEW)])
     layers = {m["layer"] for m in per_layer[:8]}
     assert {"host ingest", "materialize"} <= layers
     for name, *_ in NEW:
@@ -68,7 +67,7 @@ def observed_of(tmp_path, names, assemblies=2):
 def test_readers_sum_the_window_s_spans_and_counts_per_assembly(tmp_path):
     obs = observed_of(tmp_path, [
         ("batch", 1000, 400), ("batch.encode", 1010, 100), ("batch.encode", 1200, 60),
-        ("batch.scatter", 1300, 50), ("scan", 1400, 100), ("scan.wait", 1410, 20),
+        ("scan", 1400, 100), ("scan.wait", 1410, 20),
         ("scan.h2d_bytes=3221225472", 1499, 0), ("materialize", 1500, 400),
         ("materialize.sort", 1600, 200), ("materialize.d2h_bytes=1073741824", 1899, 0),
         ("count.h2d_bytes=1073741824", 1950, 0),
@@ -76,7 +75,6 @@ def test_readers_sum_the_window_s_spans_and_counts_per_assembly(tmp_path):
         ("batch.encode", 2500, 300), ("scan.h2d_bytes=99", 2600, 0)])
     read = {name: metric_reader(REPO, name)(obs) for name, *_ in NEW}
     assert read == {"batch_encode_s": pytest.approx(80e-6),
-                    "batch_scatter_s": pytest.approx(25e-6),
                     "feeder_wait_s": pytest.approx(10e-6),
                     "materialize_sort_s": pytest.approx(100e-6), "materialize_revcomp_s": None,
                     "h2d_gib": 2.0, "d2h_gib": 0.5}

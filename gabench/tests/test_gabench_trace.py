@@ -2,11 +2,15 @@
 Chrome trace."""
 
 import json
+import random
+import re
+import time
 
 import pytest
+import torch
 
 from conftest import REPO
-from gabench import roofline, trace
+from gabench import roofline, run, trace
 from gabench.run import Assembly, Observed, metric_reader
 
 PIPELINE = {"k": 31, "batch_reads": 16384, "max_read_len": 128}
@@ -106,3 +110,183 @@ def test_metrics_read_from_the_phases_and_the_window():
                     "extension_s": pytest.approx(0.3), "materialize_s": 5.0}
     del wall["scan"]
     assert metric_reader(REPO, "scan_s")(observed(None, wall)) is None
+
+
+def quadratic_idle_gaps(t, n=10):
+    """``Trace.idle_gaps`` as it was before it became one sweep, frozen here
+    as the measure of the sweep: every stretch scans every cut."""
+    spans = [(max(a, t.lo), min(b, t.hi))
+             for kind in trace.DEVICE_EVENT_KINDS for _, a, b in t.device_events[kind]
+             if b > t.lo and a < t.hi]
+    merged = []
+    for a, b in sorted(spans):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    edges = [t.lo] + [x for span in merged for x in span] + [t.hi]
+    cuts = sorted({x for name, a, b in t.ranges if name != trace.WINDOW for x in (a, b)
+                   if t.lo < x < t.hi})
+    gaps = []
+    for i in range(0, len(edges), 2):
+        a, b = edges[i], edges[i + 1]
+        inside = [x for x in cuts if a < x < b]
+        gaps += [(x, y) for x, y in zip([a] + inside, inside + [b]) if y > x]
+    gaps.sort(key=lambda g: g[0] - g[1])
+    return [[quadratic_enclosing(t, (a + b) / 2), (b - a) / 1e6] for a, b in gaps[:n]]
+
+
+def quadratic_enclosing(t, x):
+    inside = [(b - a, name) for name, a, b in t.ranges if a <= x <= b and name != trace.WINDOW]
+    return min(inside)[1] if inside else trace.WINDOW
+
+
+PHASES = ("load", "batch", "scan", "count", "links", "jump", "materialize")
+
+
+def random_trace(seed):
+    """A window with device spans and host ranges drawn from one pool of
+    times, so that spans overlap and touch and cuts fall on span edges;
+    spans and ranges that cross the window's ends; zero-length counter
+    ranges; and, every fifth seed, no device activity in the window."""
+    rng = random.Random(seed)
+    lo = rng.choice([0.0, 1000.0, 1234567.891])
+    hi = lo + rng.choice([50.0, 1000.0, 12345.678])
+    pool = sorted({rng.choice([round(rng.uniform(lo - 40, hi + 40), 3),
+                               float(rng.randint(int(lo) - 40, int(hi) + 40))])
+                   for _ in range(rng.randint(5, 120))} | {lo, hi})
+
+    def interval():
+        a, b = sorted(rng.sample(pool, 2)) if len(pool) > 1 else (pool[0], pool[0])
+        return (a, a) if rng.random() < 0.1 else (a, b)
+
+    device = {kind: [] for kind in trace.DEVICE_EVENT_KINDS}
+    quiet = seed % 5 == 0
+    for _ in range(rng.randint(0, 80)):
+        a, b = interval()
+        if quiet and b > lo and a < hi:
+            continue
+        device[rng.choice(trace.DEVICE_EVENT_KINDS)].append((f"k{rng.randint(0, 5)}", a, b))
+    ranges = [(trace.WINDOW, lo, hi)]
+    for _ in range(rng.randint(0, 60)):
+        phase = rng.choice(PHASES)
+        a, b = interval()
+        if rng.random() < 0.3:
+            ranges.append((f"{phase}.{rng.choice(['h2d_bytes', 'slots'])}={rng.randint(1, 9)}",
+                           b, b))
+        else:
+            ranges.append((rng.choice([phase, f"{phase}.step"]), a, b))
+    rng.shuffle(ranges)
+    return trace.Trace(device, ranges)
+
+
+@pytest.mark.parametrize("seed", range(24))
+def test_idle_gaps_equal_the_quadratic_form(seed):
+    t = random_trace(seed)
+    for n in (10, 10**9):
+        assert t.idle_gaps(n) == quadratic_idle_gaps(t, n)
+    if seed % 5 == 0:
+        assert not t.device_spans()
+        assert sum(s for _, s in t.idle_gaps(10**9)) == pytest.approx(t.window_s())
+
+
+def test_the_random_traces_hold_each_case():
+    """Across the seeds: overlapping and touching spans, cuts on span edges,
+    counter ranges, spans clipped at both ends, windows with no activity."""
+    seen = set()
+    for seed in range(24):
+        t = random_trace(seed)
+        raw = sorted((a, b) for kind in trace.DEVICE_EVENT_KINDS
+                     for _, a, b in t.device_events[kind] if b > t.lo and a < t.hi)
+        seen |= {"overlap" for (_, b), (a, _) in zip(raw, raw[1:]) if a < b}
+        seen |= {"touch" for (_, b), (a, _) in zip(raw, raw[1:]) if a == b}
+        edges = {x for span in raw for x in span}
+        seen |= {"cut on edge" for name, a, b in t.ranges
+                 if name != trace.WINDOW and ({a, b} & edges)}
+        seen |= {"counter" for name, a, b in t.ranges if "=" in name and a == b}
+        seen |= {"clipped low" for a, _ in raw if a < t.lo}
+        seen |= {"clipped high" for _, b in raw if b > t.hi}
+        seen |= {"no activity"} if not raw else set()
+    assert seen == {"overlap", "touch", "cut on edge", "counter", "clipped low", "clipped high",
+                    "no activity"}
+
+
+def test_idle_gaps_of_a_large_trace_take_seconds():
+    """650,000 device spans and 18,000 host ranges (the quadratic form took
+    about twelve minutes on such a trace)."""
+    rng = random.Random(23)
+    lo, hi = 0.0, 153e6
+    starts = sorted(rng.uniform(lo, hi) for _ in range(650_000))
+    kernels = [("k", a, a + rng.uniform(0.5, 60.0)) for a in starts]
+    device = {kind: [] for kind in trace.DEVICE_EVENT_KINDS}
+    device["kernel"] = kernels
+    ranges = [(trace.WINDOW, lo, hi)]
+    for _ in range(18_000):
+        a = rng.uniform(lo, hi)
+        ranges.append((rng.choice(PHASES), a, a + rng.uniform(0.0, 2e5)))
+    t = trace.Trace(device, ranges)
+    began = time.perf_counter()
+    gaps = t.idle_gaps()
+    busy = t.busy_s()
+    assert time.perf_counter() - began < 30.0
+    assert len(gaps) == 10 and 0 < busy < t.window_s()
+    assert [s for _, s in gaps] == sorted((s for _, s in gaps), reverse=True)
+    assert {name for name, _ in gaps} <= set(PHASES) | {trace.WINDOW}
+
+
+def test_the_device_spans_are_made_once():
+    t = random_trace(1)
+    assert t.device_spans() is t.device_spans()
+
+
+def test_a_capture_without_a_card_writes_one_trace(tmp_path):
+    """The harness's own capture, on the CPU: one Chrome trace holding the
+    window's range and the host's operator calls, read without a card's
+    refusal."""
+    with run.capture(on_card=False) as prof:
+        with torch.profiler.record_function(trace.WINDOW):
+            with torch.profiler.record_function("load"):
+                torch.arange(1000).sum()
+    run.export(prof, str(tmp_path))
+    assert len(list(tmp_path.glob("*.json"))) == 1
+    t = run.read_capture(str(tmp_path), on_card=False)
+    assert t.hi > t.lo and [name for name, *_ in t.ranges if name == "load"] == ["load"]
+    assert not t.device_spans()
+
+
+def test_a_card_trace_without_device_activity_is_refused(tmp_path):
+    """A run on a card whose trace holds no kernel, copy or set: the file
+    ``read_trace`` is handed has host events alone."""
+    events = [event(trace.WINDOW, "user_annotation", 0, 10), event("aten::sum", "cpu_op", 2, 3),
+              event("load", "user_annotation", 1, 5)]
+    (tmp_path / "trace_1_2.json").write_text(json.dumps({"traceEvents": events}))
+    with pytest.raises(RuntimeError, match=re.escape(run.NO_DEVICE_ACTIVITY)):
+        run.read_capture(str(tmp_path), on_card=True)
+    assert run.read_capture(str(tmp_path), on_card=False).window_s() == pytest.approx(1e-5)
+    events.append(event("fast_scan_kernel", "kernel", 3, 1))
+    (tmp_path / "trace_1_2.json").write_text(json.dumps({"traceEvents": events}))
+    assert run.read_capture(str(tmp_path), on_card=True).busy_s() == pytest.approx(1e-6)
+
+
+def test_a_card_without_cupti_is_refused(monkeypatch):
+    monkeypatch.setattr(torch.profiler, "supported_activities",
+                        lambda: {torch.profiler.ProfilerActivity.CPU})
+    with pytest.raises(RuntimeError, match=re.escape(run.NO_CUPTI)):
+        run.capture(on_card=True)
+    run.capture(on_card=False)
+
+
+def test_a_traced_run_never_builds_the_event_tree(bench_copy, monkeypatch, capsys):
+    """The profiler's event tree (``events()``, ``key_averages()``) is never
+    built in a traced run; each step after the window is written to stderr
+    and ``window.post_s`` holds their sum."""
+    def refuse(self):
+        raise AssertionError("the profiler's event tree was built")
+    monkeypatch.setattr(torch.autograd.profiler.profile, "_ensure_function_events", refuse)
+    result = run.run_cell(bench_copy, "tiny.cov20", 2**31 + 4245, 0.3, True, torch.device("cpu"))
+    assert result["correct"] is True and result["breakdown"]["idle_gaps"]
+    steps = [line.split()[4] for line in capsys.readouterr().err.splitlines()
+             if line.startswith("gabench: after the window, ")]
+    assert steps == ["capture", "export", "read_trace", "readers", "breakdown", "free", "judge"]
+    window = result["window"]
+    assert 0 < window["judge_s"] <= window["post_s"]

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+from bisect import bisect_left, bisect_right
 
 DEVICE_EVENT_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the harness's own range around the measured window
@@ -57,12 +58,17 @@ class Trace:
         self.device_events = device_events
         self.ranges = ranges
         (self.lo, self.hi), = [(a, b) for name, a, b in ranges if name == WINDOW]
+        self._device_spans = None
 
     def device_spans(self):
-        """(start, end) of every kernel, copy and set inside the window."""
-        return [(max(a, self.lo), min(b, self.hi))
+        """(start, end) of every kernel, copy and set inside the window,
+        clipped to it; made once a trace (callers do not change it)."""
+        if self._device_spans is None:
+            self._device_spans = [
+                (max(a, self.lo), min(b, self.hi))
                 for kind in DEVICE_EVENT_KINDS for _, a, b in self.device_events[kind]
                 if b > self.lo and a < self.hi]
+        return self._device_spans
 
     def window_s(self) -> float:
         return (self.hi - self.lo) / 1e6
@@ -93,7 +99,8 @@ class Trace:
         """[name, seconds] of the n longest stretches of the window in which
         nothing ran on the device, cut where a host range (the program's
         phase, or ``load``) begins or ends, so that each is named by the
-        innermost range it lies in."""
+        innermost range it lies in.  One pass over the stretches, each taking
+        the cuts strictly inside it from the sorted cuts by bisection."""
         merged = []
         for a, b in sorted(self.device_spans()):
             if merged and a <= merged[-1][1]:
@@ -106,7 +113,7 @@ class Trace:
         gaps = []
         for i in range(0, len(edges), 2):
             a, b = edges[i], edges[i + 1]
-            inside = [t for t in cuts if a < t < b]
+            inside = cuts[bisect_right(cuts, a):bisect_left(cuts, b)]
             gaps += [(x, y) for x, y in zip([a] + inside, inside + [b]) if y > x]
         gaps.sort(key=lambda g: g[0] - g[1])
         return [[self.enclosing((a + b) / 2), (b - a) / 1e6] for a, b in gaps[:n]]
