@@ -17,10 +17,10 @@ its memory back while the consumer still reads it.
 Two kinds of batch, each on its own route, chosen by its type: an
 ``io.reads.ReadBatch`` (padded, encoded rows) is copied as it is; an
 ``io.reads.FlatBatch`` (fast mode's bases, unpadded) is copied with its
-lengths, their exclusive sum and its ids, and ``ops/pack_rows`` builds its
-rows where it was copied to: on a card on the side stream, before the
-copy's event.  Either way the consumer
-gets (codes uint8 [n, L], lengths int32 [n], read_ids int64 [n]).
+reads' starts among them, their lengths and its ids, and ``ops/pack_rows``
+builds its rows where it was copied to: on a card on the side stream,
+before the copy's event.  Either way the consumer gets (codes uint8
+[n, L], lengths int32 [n], read_ids int64 [n]).
 
 The worker runs in the caller's context, so the run in progress
 (``utils/profiling``) counts what it stages: ``h2d_bytes``, every batch's
@@ -217,7 +217,7 @@ def _flat_host(batch: FlatBatch):
     """A flat batch as the arrays staging it copies (bases uint8, starts
     and lengths int32, read_ids int64), their bytes counted as
     ``h2d_bytes``."""
-    host = (batch.bases, pack_rows.row_starts(batch.lengths), batch.lengths, batch.read_ids)
+    host = (batch.bases, batch.starts, batch.lengths, batch.read_ids)
     profiling.count("h2d_bytes", sum(a.nbytes for a in host))
     return host
 

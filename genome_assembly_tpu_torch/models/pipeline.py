@@ -277,9 +277,11 @@ class FastAssembler:
         self.device = _check_device(device, "FastAssembler")
         self.counter = CountPipeline(self.config, self.device)
 
-    def load(self, path: str) -> List[str]:
+    def load(self, path: str) -> Sequence[str]:
+        """The file's reads as ``io/reads.load_reads_fast`` gives them, from
+        one read of the file (``io/reads.load_read_table``)."""
         with profiling.span("load"):
-            return reads_io.load_reads_fast(path)
+            return reads_io.load_read_table(path)
 
     def unitigs_from_sequences(
         self, sequences: Sequence[str]

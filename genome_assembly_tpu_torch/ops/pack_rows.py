@@ -8,14 +8,13 @@ Tensor operations on whatever device holds the bases: on a card the stager
 copies the scan already waits on, so a hand-written kernel in their place
 gains nothing end to end.  No TPU kernel does this either: the JAX package
 pads and encodes on the host.  ``pack_rows_plain`` takes the start of each
-read among the bases (``row_starts``, an exclusive sum of the lengths) and
-the encoding table (``encode._ASCII_TO_CODE``, ``ascii_table``), so the
-device uses the host's table.
+read among the bases (``io/reads.FlatBatch.starts``) and the encoding table
+(``encode._ASCII_TO_CODE``, ``ascii_table``), so the device uses the host's
+table.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from genome_assembly_tpu_torch.ops import encode
@@ -29,14 +28,6 @@ def ascii_table(device) -> torch.Tensor:
     if torch.device(device).type != "cuda":
         return table.to(device)
     return table.pin_memory().to(device, non_blocking=True)
-
-
-def row_starts(lengths: np.ndarray) -> np.ndarray:
-    """The start of each read among its batch's bases: the exclusive sum of
-    ``lengths``, int32."""
-    starts = np.zeros(len(lengths), dtype=np.int32)
-    np.cumsum(lengths[:-1], out=starts[1:])
-    return starts
 
 
 def pack_rows_plain(bases: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor,

@@ -92,8 +92,10 @@ def test_both_clis_assemble_metrics_agree(tmp_path, capsys, mode):
     assert list(recs["port"]) == list(recs["jax"]) == [
         "ts", "run", "event", "wall_s", "mode", "k", "m", *fields]
     assert own["phase_s"] and all(v > 0 for v in own["counts"].values())
+    # fast mode's load is a line table, which its batches count as line_table
     assert set(own["counts"]) == ({"h2d_bytes", "d2h_bytes", "on_device", "packed_batches",
-                                   "slots", "windows"} if mode == "fast" else {"h2d_bytes"})
+                                   "slots", "windows", "line_table"} if mode == "fast"
+                                  else {"h2d_bytes"})
     for rec in recs.values():
         rec.pop("ts"), rec.pop("wall_s"), rec.pop("run")
     assert recs["port"] == recs["jax"]

@@ -343,7 +343,7 @@ def test_cli_trace_and_metrics(tmp_path, capsys):
     assert list(record["phase_s"]) == FAST_PHASES
     assert sorted(record["spans_s"]) == sorted(INCORE_SPANS)
     assert set(record["counts"]) == {"h2d_bytes", "d2h_bytes", "on_device", "packed_batches",
-                                     "slots", "windows"}
+                                     "slots", "windows", "line_table"}
     assert all(v > 0 for v in record["counts"].values())
 
 
